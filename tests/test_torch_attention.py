@@ -87,10 +87,10 @@ def test_cls_row_attention_matches_jax(n, h):
 
 @pytest.mark.parametrize("n,h", [(37, 2), (65, 4)])
 def test_cls_row_attention_bf16_keeps_f32_probabilities(n, h):
-    """The port's deliberate difference in bf16: the JAX function rounds the
-    probabilities to bf16, the port returns them in f32. Both take the same
-    bf16 inputs with f32 logits, so the JAX values are the port's rounded to
-    bf16: within half a bf16 ulp (2^-9 relative) plus f32 summation order."""
+    """bf16 parity with the JAX function: both take the same bf16 inputs,
+    compute f32 logits and an f32 softmax, and return the probabilities
+    rounded to bf16. The f32 summation orders differ, so a value may land
+    one bf16 ulp away (2^-7 relative at most)."""
     rng = np.random.default_rng(n + 1)
     d = 32
     w = _weights(rng, d)
@@ -101,6 +101,6 @@ def test_cls_row_attention_bf16_keeps_f32_probabilities(n, h):
     bf16 = lambda a: torch.from_numpy(np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)).to(torch.bfloat16)  # noqa: E731
     qkv_w, qkv_b = bf16(w["wqkv"].T), bf16(w["bqkv"])
     got = tatt.cls_row_attention(bf16(x), qkv_w, qkv_b, h)
-    assert got.dtype == torch.float32
-    assert not torch.equal(got, got.to(torch.bfloat16).float())  # not bf16 values
-    np.testing.assert_allclose(np.asarray(want, np.float32), got.numpy(), rtol=2.0**-8, atol=0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=2.0**-7,
+                               atol=0)

@@ -65,6 +65,56 @@ def test_mlp_kernels_match_plain(cuda, dtype, rows, d):
     _close(fm.fused_mlp_block(*args), fm.fused_mlp_block_plain(*args), dtype)
 
 
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# lse stays f32, but in bf16 a one-ulp flip of a rounded P term moves the
+# denominator by up to 2^-8 of that term
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _close_grad(got, want, dtype):
+    """Relative to max|plain|, with a 1e-6 floor: with one key (n = 1) dq and
+    dk are exactly 0 and the kernel's sums leave ~1e-7."""
+    err = float((got.float() - want.float()).abs().max())
+    assert torch.isfinite(got.float()).all()
+    assert err <= GRAD_TOL[dtype] * float(want.float().abs().max()) + 1e-6, err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128)])
+def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    out, lse = fa.flash_attention(q, k, v)
+    pout, plse = fa.flash_attention_plain(q, k, v)
+    _close(out, pout, dtype)
+    err = float((lse - plse).abs().max())
+    assert err <= LSE_TOL[dtype] * float(plse.abs().max()), err
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    for g, w in zip(grads, fa.flash_attention_bwd_plain(q, k, v, out, lse, do)):
+        _close_grad(g, w, dtype)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(70, 384), (130, 192), (1, 384), (1100, 384)])
+def test_mlp_training_kernels_match_plain(cuda, dtype, rows, d):
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + 1)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
+    h = 4 * d
+    x, do = r(rows, d).to(dtype), r(rows, d).to(dtype)
+    w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
+    s, bb, b1, b2 = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(h, std=0.1), r(d, std=0.1)
+    out, h1 = fm.fused_mlp_block_h1(x, s, bb, w1, b1, w2, b2)
+    pout, ph1 = fm.fused_mlp_block_plain(x, s, bb, w1, b1, w2, b2, want_h1=True)
+    _close(out, pout, dtype)
+    _close(h1, ph1, dtype)
+    for g, w in zip(fm.fused_mlp_bwd(x, do, h1, s, bb, w1, w2),
+                    fm.fused_mlp_bwd_plain(x, do, h1, s, bb, w1, w2)):
+        _close_grad(g, w, dtype)
+
+
 def test_wrappers_reject_layouts_they_do_not_take(cuda):
     x = torch.zeros(4, 384, device=cuda)
     v = torch.zeros(384, device=cuda)
@@ -80,6 +130,14 @@ def test_wrappers_reject_layouts_they_do_not_take(cuda):
         fm.fused_mlp_block(torch.zeros(4, 256, device=cuda), v, v, w1, b1, w2, v)
     with pytest.raises(ValueError, match="head dim"):
         fa.attention_qkv(torch.zeros(1, 8, 3 * 2 * 32, device=cuda), 2, 8)
+    q = torch.zeros(2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="share"):
+        fa.flash_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="h1"):
+        fm.fused_mlp_bwd(x, x, x, v, v, w1, w2)
 
 
 def test_vit_tiny_mosaic_kernel_route_matches_plain_route(cuda, monkeypatch):

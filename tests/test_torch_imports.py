@@ -7,7 +7,7 @@ import pathlib
 import pytest
 import torch
 
-from vit_ocm_wmsegmentation_tpu_torch import build, sw_processing
+from vit_ocm_wmsegmentation_tpu_torch import build, mim, sw_processing
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
 
@@ -55,7 +55,19 @@ def test_wrappers_raise_off_cpu_without_kernel():
         fm.fused_mlp_block(*args)
     with pytest.raises(ValueError, match="no kernel"):
         fm.fused_mlp_block_lnout(*args, _meta(384), _meta(384))
+    with pytest.raises(ValueError, match="no kernel"):
+        fm.fused_mlp_block_h1(*args)
+    with pytest.raises(ValueError, match="no kernel"):
+        fm.fused_mlp_bwd(_meta(4, 384), _meta(4, 384), _meta(4, 1536), _meta(384), _meta(384),
+                         _meta(1536, 384), _meta(384, 1536))
+    q = _meta(2, 8, 128)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_bwd(q, q, q, q, _meta(2, 8), q)
     assert fa.attention_qkv.launches == fm.fused_mlp_block.launches == 0
+    assert fa.flash_attention.launches == fa.flash_attention_bwd.launches == 0
+    assert fm.fused_mlp_block_h1.launches == fm.fused_mlp_bwd.launches == 0
 
 
 def test_cuda_requests_raise_on_a_host_without_cuda(tmp_path):
@@ -65,3 +77,6 @@ def test_cuda_requests_raise_on_a_host_without_cuda(tmp_path):
         build.library()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sw_processing.main(["--image_path", str(tmp_path), "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # the default device
+        mim.main(["--image_path", str(tmp_path), "--output", str(tmp_path / "out"),
+                  "--output_dir", str(tmp_path / "log")])

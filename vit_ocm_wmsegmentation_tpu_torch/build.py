@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The library
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ctypes. The library
 lives in ``_build/`` beside this file, named by a hash of the sources and
 flags, so a fresh checkout builds it at first use and later processes reuse
 it. Nothing is built when the package is imported: :func:`library` builds on
@@ -25,7 +26,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 # storage dtype -> the C interface's dtype code (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,10 +56,44 @@ def _nvcc() -> str:
 def _declare(lib):
     lib.vitocm_attention_qkv.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.vitocm_attention_qkv.restype = _I
-    lib.vitocm_fused_mlp.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_flash_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.vitocm_flash_fwd.restype = _I
+    lib.vitocm_flash_bwd.argtypes = [_I, *[_P] * 10, _I, _I, _I, _P]
+    lib.vitocm_flash_bwd.restype = _I
+    lib.vitocm_fused_mlp.argtypes = [_I, _I, *[_P] * 12, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp.restype = _I
+    lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 12, _I, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_fused_mlp_bwd.restype = _I
     return lib
+
+
+def _compile(srcs, so):
+    """nvcc each source to an object, all at once, then link ``so``.
+    Returns ptxas' report; raises RuntimeError with nvcc's output on failure."""
+    objdir = f"{so}.{os.getpid()}.objs"
+    os.makedirs(objdir, exist_ok=True)
+    procs = []
+    for src in srcs:
+        obj = os.path.join(objdir, os.path.basename(src) + ".o")
+        procs.append((src, obj, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                 text=True)))
+    report, failed = [], []
+    for src, _, p in procs:
+        out = p.communicate()[0]
+        report.append(out)
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({p.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = f"{so}.{os.getpid()}.tmp"
+    r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *[obj for _, obj, _ in procs]],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+    shutil.rmtree(objdir, ignore_errors=True)
+    return "".join(report)
 
 
 def library():
@@ -80,16 +115,11 @@ def library():
         seconds = 0.0
         if not os.path.isfile(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
+            report = _compile([s for s in srcs if s.endswith(".cu")], so)
             seconds = time.perf_counter() - t0
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
             with open(log, "w") as f:
-                f.write(r.stdout + r.stderr)
-            os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+                f.write(report)
         ptxas = open(log).read() if os.path.isfile(log) else ""
         build_info.update(seconds=seconds, path=so, ptxas=ptxas)
         _lib = _declare(ctypes.CDLL(so))

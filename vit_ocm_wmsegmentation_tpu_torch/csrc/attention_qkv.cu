@@ -1,88 +1,93 @@
-// Multi-head softmax attention read straight from the fused qkv projection.
+// Multi-head softmax attention forward, f32 storage, CUDA cores.
 //
-// Replaces vit_ocm_wmsegmentation_tpu/ops/flash_attention.py::
-// _attn_fwd_qkvflat_kernel (reached through attention_qkv). Same contract:
-//   qkv (B, N, 3*h*d) contiguous, q section already scaled by 1/sqrt(d);
-//   keys at rows >= n are masked; out (B, N, h*d), heads side by side.
+// Replaces two TPU kernels of vit_ocm_wmsegmentation_tpu/ops/
+// flash_attention.py (layouts in attention.cuh):
+//   * _attn_fwd_qkvflat_kernel (attention_qkv, inference): read straight
+//     from the fused qkv projection, q section already scaled by 1/sqrt(d);
+//   * _attn_fwd_kernel on its logsumexp route (_flash_fwd with want_lse,
+//     training): folded (B*h, N, d) q, k, v, q already scaled and rounded by
+//     the wrapper, plus the f32 logsumexp the backward recomputes P from.
+// Head dims 64 (every DINO ViT) and 128 (the MIM ViT).
 //
-// What bounds it on the H100: the TPU kernel keeps two whole (Np, Np) f32
-// score matrices on chip (about 60 MB at the mosaic's Np = 2432), far past an
-// SM's 227 KB of shared memory. Here one CTA owns (tile, head, 64 query rows)
+// What bounds it on the H100: the TPU kernels keep whole (Np, Np) f32 score
+// matrices on chip (about 60 MB at the mosaic's Np = 2432), far past an SM's
+// 227 KB of shared memory. Here one CTA owns (batch, head, 64 query rows)
 // and loops over 64-key tiles with an online softmax (running max, running
 // sum), so the score matrix never exists beyond a 64 x 64 tile and nothing
-// but qkv and out touches device memory. At the mosaic shape that is
-// 49 * 6 * 37 = 10878 CTAs of 256 threads, 66.8 KB of shared memory each.
-// This kernel serves f32 storage only and multiplies on the CUDA cores in
-// f32 (4 x 4 register blocks), never through TF32, so it is bound by
-// shared-memory loads and FMA issue, not by HBM. bf16 storage takes the
-// tensor-core kernel of attention_qkv_mma.cu (same tiling and numerics).
+// but q, k, v, out and lse touches device memory. 256 threads, 4 x (d/16)
+// register blocks; 66.8 KB of shared memory at d = 64, 116 KB at d = 128.
+// The products run on the CUDA cores in f32, never through TF32, so the
+// kernel is bound by shared-memory loads and FMA issue, not by HBM. bf16
+// storage takes the tensor-core kernel of attention_qkv_mma.cu.
 //
-// Numerics, kept from the TPU kernel: scores, P and accumulators in f32 (the
-// TPU kernel's rounding of P to the storage type is the identity in f32);
-// the denominator is the sum of P, clamped at 1e-35. Deliberate difference:
-// the TPU kernel shifts exp by the Cauchy-Schwarz bound |q|*max|k|; this
+// Numerics, kept from the TPU kernels: scores, P and accumulators in f32
+// (the TPU kernels' rounding of P to the storage type is the identity in
+// f32); the denominator is the sum of P, clamped at 1e-35 for the division;
+// lse = max + log(sum). Deliberate difference: the TPU kernels shift exp by
+// the whole row's max (or by the Cauchy-Schwarz bound |q|*max|k|); this
 // kernel shifts by the running row max, as the online softmax must. It is
-// the same softmax and more robust where the bound is loose.
-// The keys' ragged last tile is masked here: the port's residual stream is
-// not padded to a tile multiple.
+// the same softmax. The keys' ragged last tile is masked here: the port's
+// token stream is not padded to a tile multiple.
 
 #include <math.h>
 
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace vitocm {
 
-constexpr int kHD = 64;         // head dim (every DINO ViT)
-constexpr int kBQ = 64;         // query rows per CTA
-constexpr int kBK = 64;         // keys per tile
-constexpr int kNT = 256;        // threads
-constexpr int kPQ = kHD + 1;    // padded pitch: conflict-free column reads
+constexpr int kBQ = 64;  // query rows per CTA
+constexpr int kBK = 64;  // keys per tile
+constexpr int kNT = 256; // threads
 constexpr int kPS = kBK + 1;
 
+template <int D>
 constexpr size_t attn_smem_bytes() {
-  return sizeof(float) * (kBQ * kPQ + kBK * kPQ + kBK * kHD + kBQ * kPS + 2 * kBQ);
+  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS + 2 * kBQ);
 }
 
+template <int D, bool FOLDED>
 __global__ void __launch_bounds__(kNT)
-attention_qkv_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int n,
-                     int nh) {
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int N, int n, int nh) {
+  constexpr int PQ = D + 1;  // padded pitch: conflict-free column reads
+  constexpr int OJ = D / 16; // output columns per thread
   extern __shared__ float sm[];
   float* Qs = sm;                    // (BQ, PQ)
-  float* Ks = Qs + kBQ * kPQ;        // (BK, PQ)
-  float* Vs = Ks + kBK * kPQ;        // (BK, HD)
-  float* Ss = Vs + kBK * kHD;        // (BQ, PS) scores, then P
+  float* Ks = Qs + kBQ * PQ;         // (BK, PQ)
+  float* Vs = Ks + kBK * PQ;         // (BK, D)
+  float* Ss = Vs + kBK * D;          // (BQ, PS) scores, then P
   float* alpha_s = Ss + kBQ * kPS;   // (BQ) per-row rescale of this tile
   float* l_s = alpha_s + kBQ;        // (BQ) final denominators
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ, hh = blockIdx.y, b = blockIdx.z;
-  const int dm = nh * kHD;
-  const long long rs = 3LL * dm;
-  const float* base = qkv + (long long)b * N * rs;
+  const AttnRows<float, D, FOLDED> L(q, k, v, out, N, nh, b, hh);
 
-  for (int i = tid; i < kBQ * kHD; i += kNT) {
-    const int r = i / kHD, c = i % kHD, row = q0 + r;
-    Qs[r * kPQ + c] = row < N ? base[row * rs + hh * kHD + c] : 0.f;
+  for (int i = tid; i < kBQ * D; i += kNT) {
+    const int r = i / D, c = i % D, row = q0 + r;
+    Qs[r * PQ + c] = row < N ? L.q[row * L.rs + c] : 0.f;
   }
 
-  // S and O register blocks: rows tr + 16*i, cols tc + 16*j
+  // S register blocks: rows tr + 16*i, cols tc + 16*j; O: cols tc + 16*j, j < D/16
   const int tr = tid / 16, tc = tid % 16;
   // softmax ownership: 4 consecutive lanes share row sr, cols sl + 4*c
   const int sr = tid >> 2, sl = tid & 3;
-  float o[4][4];
+  float o[4][OJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
 
   for (int k0 = 0; k0 < n; k0 += kBK) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < kBK * kHD; i += kNT) {
-      const int r = i / kHD, c = i % kHD, row = k0 + r;
+    for (int i = tid; i < kBK * D; i += kNT) {
+      const int r = i / D, c = i % D, row = k0 + r;
       const bool ok = row < n;
-      Ks[r * kPQ + c] = ok ? base[row * rs + dm + hh * kHD + c] : 0.f;
-      Vs[r * kHD + c] = ok ? base[row * rs + 2 * dm + hh * kHD + c] : 0.f;
+      Ks[r * PQ + c] = ok ? L.k[row * L.rs + c] : 0.f;
+      Vs[r * D + c] = ok ? L.v[row * L.rs + c] : 0.f;
     }
     __syncthreads();
 
@@ -92,12 +97,12 @@ attention_qkv_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int kk = 0; kk < kHD; ++kk) {
+    for (int kk = 0; kk < D; ++kk) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * kPQ + kk];
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * PQ + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * kPQ + kk];
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * PQ + kk];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -137,62 +142,90 @@ attention_qkv_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float a = alpha_s[tr + 16 * i];
+      const float al = alpha_s[tr + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= a;
+      for (int j = 0; j < OJ; ++j) o[i][j] *= al;
     }
-#pragma unroll 8
+#pragma unroll 4
     for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[4];
+      float pv[4], vv[OJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ss[(tr + 16 * i) * kPS + kk];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kHD + tc + 16 * j];
+      for (int j = 0; j < OJ; ++j) vv[j] = Vs[kk * D + tc + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
     }
   }
 
-  if (sl == 0) l_s[sr] = fmaxf(l_run, 1e-35f);
+  if (sl == 0) {
+    l_s[sr] = fmaxf(l_run, 1e-35f);
+    if (FOLDED && q0 + sr < N)  // only the training route keeps the logsumexp
+      lse[((long long)b * nh + hh) * N + q0 + sr] = m_run + logf(l_run);
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr + 16 * i, row = q0 + r;
     if (row >= N) continue;
     const float l = l_s[r];
-    float* orow = out + ((long long)b * N + row) * dm + hh * kHD;
+    float* orow = L.out + row * L.os;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tc + 16 * j] = o[i][j] / l;
+    for (int j = 0; j < OJ; ++j) orow[tc + 16 * j] = o[i][j] / l;
   }
 }
 
-static int launch_attention(const void* qkv, void* out, int B, int N, int n, int nh,
-                            cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes();
-  cudaFuncSetAttribute(attention_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+template <int D, bool FOLDED>
+static int launch_attention(const void* q, const void* k, const void* v, void* out, float* lse,
+                            int B, int N, int n, int nh, cudaStream_t stream) {
+  const size_t smem = attn_smem_bytes<D>();
+  auto kern = attention_kernel<D, FOLDED>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((N + kBQ - 1) / kBQ, nh, B);
-  attention_qkv_kernel<<<grid, kNT, smem, stream>>>(static_cast<const float*>(qkv),
-                                                    static_cast<float*>(out), N, n, nh);
+  kern<<<grid, kNT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                    static_cast<const float*>(v), static_cast<float*>(out), lse,
+                                    N, n, nh);
   return (int)cudaGetLastError();
 }
 
 // bf16 storage takes the tensor-core kernel of attention_qkv_mma.cu
-int launch_attention_mma(const void* qkv, void* out, int B, int N, int n, int nh,
-                         cudaStream_t stream);
+template <int D, bool FOLDED>
+int launch_attention_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int N, int n, int nh, cudaStream_t stream);
+
+template <bool FOLDED>
+static int launch_any(int dtype, int d, const void* q, const void* k, const void* v, void* out,
+                      float* lse, int B, int N, int n, int nh, cudaStream_t s) {
+  if (n < 1 || n > N || B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32 && d == 64)
+    return launch_attention<64, FOLDED>(q, k, v, out, lse, B, N, n, nh, s);
+  if (dtype == kF32 && d == 128)
+    return launch_attention<128, FOLDED>(q, k, v, out, lse, B, N, n, nh, s);
+  if (dtype == kBF16 && d == 64)
+    return launch_attention_mma<64, FOLDED>(q, k, v, out, lse, B, N, n, nh, s);
+  if (dtype == kBF16 && d == 128)
+    return launch_attention_mma<128, FOLDED>(q, k, v, out, lse, B, N, n, nh, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace vitocm
 
-// qkv (B, N, 3*nh*64), out (B, N, nh*64); keys masked at rows >= n.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Inference route: qkv (B, N, 3*nh*d), out (B, N, nh*d); keys masked at
+// rows >= n. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int vitocm_attention_qkv(int dtype, const void* qkv, void* out, int B, int N, int n,
                                     int nh, int head_dim, void* stream) {
   using namespace vitocm;
-  if (head_dim != kHD || n < 1 || n > N || B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_attention(qkv, out, B, N, n, nh, s);
-  if (dtype == kBF16) return launch_attention_mma(qkv, out, B, N, n, nh, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_any<false>(dtype, head_dim, qkv, nullptr, nullptr, out, nullptr, B, N, n, nh,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Training route: q (already scaled), k, v, out (BH, N, d) contiguous; lse
+// (BH, N) f32. Returns cudaGetLastError() after the launch.
+extern "C" int vitocm_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
+                                void* lse, int BH, int N, int head_dim, void* stream) {
+  using namespace vitocm;
+  return launch_any<true>(dtype, head_dim, q, k, v, out, static_cast<float*>(lse), BH, N, N, 1,
+                          static_cast<cudaStream_t>(stream));
 }

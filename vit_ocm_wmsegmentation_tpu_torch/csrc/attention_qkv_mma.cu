@@ -1,89 +1,91 @@
 // bf16 variant of csrc/attention_qkv.cu on the tensor cores (mma.sync
-// m16n8k16, f32 accumulation). Same contract and numerics: f32 scores, an
-// online softmax over 64-key tiles shifted by the running row max, P rounded
-// to bf16 before P.V, the denominator summed from the rounded P and clamped
-// at 1e-35, keys >= n masked. Replaces the same TPU kernel
-// (ops/flash_attention.py::_attn_fwd_qkvflat_kernel) for bf16 storage; f32
-// storage keeps the CUDA-core kernel, which never rounds through TF32.
+// m16n8k16, f32 accumulation). Same contract, layouts (attention.cuh) and
+// numerics: f32 scores, an online softmax over 64-key tiles shifted by the
+// running row max, P rounded to bf16 before P.V, the denominator summed
+// from the rounded P and clamped at 1e-35, lse = max + log(sum) in f32,
+// keys >= n masked. Replaces the same TPU kernels
+// (ops/flash_attention.py::_attn_fwd_qkvflat_kernel and, on its logsumexp
+// route, ::_attn_fwd_kernel) for bf16 storage; f32 storage keeps the
+// CUDA-core kernel, which never rounds through TF32.
 //
-// A CTA owns (tile, head, 64 query rows), four warps of 16 rows each. Each
+// A CTA owns (batch, head, 64 query rows), four warps of 16 rows each. Each
 // warp keeps its Q rows as A fragments in registers; per 64-key tile the K
-// and V rows are staged in shared memory (18 KB, padded rows so fragment
-// loads hit 32 banks), S = Q K^T is 32 mma per warp, the softmax runs on the
-// S fragments (a row's 64 scores live in the 4 lanes of a quad), the rounded
-// P is re-packed in registers as the A operand of P.V (FlashAttention-2's
-// layout trick), and V's B fragments come from ldmatrix.trans. The score
-// tile never leaves registers. Bound: tensor-core issue and the K/V staging
-// (not overlapped with compute yet).
+// and V rows are staged in shared memory (18 KB at d = 64, 34 KB at
+// d = 128, padded rows so fragment loads hit 32 banks), S = Q K^T is
+// 8 * d/16 mma per warp, the softmax runs on the S fragments (a row's 64
+// scores live in the 4 lanes of a quad), the rounded P is re-packed in
+// registers as the A operand of P.V (FlashAttention-2's layout trick), and
+// V's B fragments come from ldmatrix.trans. The score tile never leaves
+// registers; at d = 128 a thread holds a 64-float O accumulator. Bound:
+// tensor-core issue and the K/V staging (not overlapped with compute yet).
 
 #include <math.h>
 #include <stdint.h>
 
+#include "attention.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace vitocm {
 
-constexpr int kAQ = 64;       // query rows per CTA (16 per warp)
-constexpr int kAK = 64;       // keys per tile
-constexpr int kAD = 64;       // head dim
-constexpr int kAT = 128;      // threads
-constexpr int kAP = kAD + 8;  // padded pitch of the K and V tiles
+constexpr int kAQ = 64;   // query rows per CTA (16 per warp)
+constexpr int kAK = 64;   // keys per tile
+constexpr int kAT = 128;  // threads
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__global__ void __launch_bounds__(kAT)
-attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                         int N, int n, int nh) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[kAK * kAP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kAK * kAP];
+// at most 128 (d = 64) or 168 (d = 128) registers a thread, so that 4 or 3
+// CTAs fit an SM's 64 K registers: at 134 registers the d = 64 kernel held
+// 3 CTAs an SM and ran 8 % slower (H100, 1152^2 mosaic shapes)
+template <int D, bool FOLDED>
+__global__ void __launch_bounds__(kAT, D == 64 ? 4 : 3)
+attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int N, int n, int nh) {
+  constexpr int P = D + 8;  // padded pitch of the K and V tiles
+  constexpr int KD = D / 16;
+  __shared__ __align__(16) __nv_bfloat16 Ks[kAK * P];
+  __shared__ __align__(16) __nv_bfloat16 Vs[kAK * P];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int hh = blockIdx.y, b = blockIdx.z;
-  const int dm = nh * kAD;
-  const long long rs = 3LL * dm;
-  const __nv_bfloat16* base = qkv + (long long)b * N * rs;
+  const AttnRows<__nv_bfloat16, D, FOLDED> L(q, k, v, out, N, nh, b, hh);
+  const long long rs = L.rs;
+  const __nv_bfloat16 *qb = L.q, *kb = L.k, *vb = L.v;
   const int q0 = blockIdx.x * kAQ + warp * 16;  // this warp's first row
 
-  // Q rows q0 + g and q0 + g + 8 as A fragments over the 4 d-steps of 16
-  uint32_t qa[4][4];
+  // Q rows q0 + g and q0 + g + 8 as A fragments over the d/16 d-steps
+  uint32_t qa[KD][4];
   {
     const int r0 = q0 + g, r1 = q0 + g + 8;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = hh * kAD + 16 * kk + 2 * t;
-      qa[kk][0] = r0 < N ? ld_pair(base + r0 * rs + c) : 0u;
-      qa[kk][1] = r1 < N ? ld_pair(base + r1 * rs + c) : 0u;
-      qa[kk][2] = r0 < N ? ld_pair(base + r0 * rs + c + 8) : 0u;
-      qa[kk][3] = r1 < N ? ld_pair(base + r1 * rs + c + 8) : 0u;
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      qa[kk][0] = r0 < N ? ld_pair(qb + r0 * rs + c) : 0u;
+      qa[kk][1] = r1 < N ? ld_pair(qb + r1 * rs + c) : 0u;
+      qa[kk][2] = r0 < N ? ld_pair(qb + r0 * rs + c + 8) : 0u;
+      qa[kk][3] = r1 < N ? ld_pair(qb + r1 * rs + c + 8) : 0u;
     }
   }
 
-  float o[8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[j][q] = 0.f;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // rows g, g + 8
   float l0 = 0.f, l1 = 0.f;               // this lane's share of the row sums
 
   for (int k0 = 0; k0 < n; k0 += kAK) {
     __syncthreads();  // the previous tile's K and V are consumed
-    for (int i = tid; i < kAK * kAD / 8; i += kAT) {
-      const int r = i / (kAD / 8), c = (i % (kAD / 8)) * 8, key = k0 + r;
+    for (int i = tid; i < kAK * D / 8; i += kAT) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8, key = k0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (key < n) {
-        kv = *reinterpret_cast<const uint4*>(base + key * rs + dm + hh * kAD + c);
-        vv = *reinterpret_cast<const uint4*>(base + key * rs + 2 * dm + hh * kAD + c);
+        kv = *reinterpret_cast<const uint4*>(kb + key * rs + c);
+        vv = *reinterpret_cast<const uint4*>(vb + key * rs + c);
       }
-      *reinterpret_cast<uint4*>(Ks + r * kAP + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * kAP + c) = vv;
+      *reinterpret_cast<uint4*>(Ks + r * P + c) = kv;
+      *reinterpret_cast<uint4*>(Vs + r * P + c) = vv;
     }
     __syncthreads();
 
@@ -91,12 +93,12 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) s[j][q] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KD; ++kk)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* bp = Ks + (8 * j + g) * kAP + 16 * kk + 2 * t;
+        const __nv_bfloat16* bp = Ks + (8 * j + g) * P + 16 * kk + 2 * t;
         mma_bf16_16816(s[j], qa[kk], ld_pair(bp), ld_pair(bp + 8));
       }
 
@@ -131,7 +133,7 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
     l0 = l0 * a0 + sum0;
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       o[j][0] *= a0;
       o[j][1] *= a0;
       o[j][2] *= a1;
@@ -147,14 +149,11 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        // V rows 16kk.. (keys) at d columns 8j.. and 8(j+1)..: B fragments
-        uint32_t vb[4];
-        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = 8 * j + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vb, Vs + key * kAP + col);
-        mma_bf16_16816(o[j], pa, vb[0], vb[1]);
-        mma_bf16_16816(o[j + 1], pa, vb[2], vb[3]);
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t vf[4];
+        ld_b_frag2(vf, Vs, P, 16 * kk, 8 * j, lane);
+        mma_bf16_16816(o[j], pa, vf[0], vf[1]);
+        mma_bf16_16816(o[j + 1], pa, vf[2], vf[3]);
       }
     }
   }
@@ -164,27 +163,43 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  const int r0 = q0 + g, r1 = q0 + g + 8;
+  if (FOLDED && t == 0) {  // only the training route keeps the logsumexp
+    float* lrow = lse + ((long long)b * nh + hh) * N;
+    if (r0 < N) lrow[r0] = m0 + logf(l0);
+    if (r1 < N) lrow[r1] = m1 + logf(l1);
+  }
   l0 = fmaxf(l0, 1e-35f);
   l1 = fmaxf(l1, 1e-35f);
-  const int r0 = q0 + g, r1 = q0 + g + 8;
+  __nv_bfloat16* ob = L.out;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = hh * kAD + 8 * j + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(out + ((long long)b * N + r0) * dm + c) =
-          pack_bf16(o[j][0] / l0, o[j][1] / l0);
+      *reinterpret_cast<uint32_t*>(ob + r0 * L.os + c) = pack_bf16(o[j][0] / l0, o[j][1] / l0);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(out + ((long long)b * N + r1) * dm + c) =
-          pack_bf16(o[j][2] / l1, o[j][3] / l1);
+      *reinterpret_cast<uint32_t*>(ob + r1 * L.os + c) = pack_bf16(o[j][2] / l1, o[j][3] / l1);
   }
 }
 
-int launch_attention_mma(const void* qkv, void* out, int B, int N, int n, int nh,
-                         cudaStream_t stream) {
+template <int D, bool FOLDED>
+int launch_attention_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int N, int n, int nh, cudaStream_t stream) {
+  using T = __nv_bfloat16;
   dim3 grid((N + kAQ - 1) / kAQ, nh, B);
-  attention_qkv_mma_kernel<<<grid, kAT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), N, n, nh);
+  attention_mma_kernel<D, FOLDED><<<grid, kAT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, N, n, nh);
   return (int)cudaGetLastError();
 }
+
+#define VITOCM_ATTN_MMA(D, FOLDED)                                                          \
+  template int launch_attention_mma<D, FOLDED>(const void*, const void*, const void*, void*, \
+                                               float*, int, int, int, int, cudaStream_t);
+VITOCM_ATTN_MMA(64, false)
+VITOCM_ATTN_MMA(64, true)
+VITOCM_ATTN_MMA(128, false)
+VITOCM_ATTN_MMA(128, true)
+#undef VITOCM_ATTN_MMA
 
 }  // namespace vitocm

@@ -6,6 +6,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace vitocm {
 
@@ -18,6 +19,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// exact-erf GELU and its derivative, sharing the Phi term:
+// g = h Phi(h), gp = Phi(h) + h phi(h)
+__device__ __forceinline__ void gelu_pieces(float h, float& g, float& gp) {
+  const float phi = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+  g = h * phi;
+  gp = phi + h * (expf(-0.5f * h * h) * 0.39894228040143268f);
 }
 
 // LayerNorm of one row held as v[c] = row[lane + 32*c] across a warp
@@ -36,6 +45,18 @@ __device__ __forceinline__ void warp_ln_stats(const float (&v)[D / 32], float ep
     q += t * t;
   }
   rstd = 1.f / sqrtf(warp_sum(q) / D + eps);
+}
+
+// the attention backward's per-row statistics of rows r0 .. r0+rows-1 into
+// shared memory, 0 past N: stats holds [lse with non-finite values as 0 (N) |
+// D = rowsum(do * o) (N)] of one (batch, head), from attn_bwd_stats_kernel
+__device__ __forceinline__ void stage_row_stats(float* lse_s, float* dd_s, const float* stats,
+                                                int r0, int rows, int N) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const bool ok = r0 + r < N;
+    lse_s[r] = ok ? stats[r0 + r] : 0.f;
+    dd_s[r] = ok ? stats[N + r0 + r] : 0.f;
+  }
 }
 
 // dtype codes of the C interface

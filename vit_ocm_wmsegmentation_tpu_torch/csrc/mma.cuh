@@ -10,6 +10,12 @@
 // Each a/b register packs two bf16 values, the lower k in the low half, so a
 // 32-bit load of two neighbouring bf16 values in k order gives one register.
 // bf16 products are exact in f32; the sums are f32.
+//
+// ldmatrix.x4 loads four 8x8 bf16 tiles from shared memory, lane i giving
+// the address of row i % 8 of tile i / 8 (16-byte aligned rows). Without
+// .trans, register j of a lane holds tile j's (row g, cols 2t..2t+1); with
+// .trans it holds tile j's (rows 2t..2t+1, col g). The helpers below build
+// fragments from tiles stored row-major in either orientation.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +50,35 @@ __device__ __forceinline__ void ld_a_frag(uint32_t (&a)[4], const __nv_bfloat16*
   a[1] = ld_pair(base + (g + 8) * pitch + 2 * t);
   a[2] = ld_pair(base + g * pitch + 2 * t + 8);
   a[3] = ld_pair(base + (g + 8) * pitch + 2 * t + 8);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// A fragment of the 16x16 tile A[m][k] = S[k0 + k][m0 + m] of a matrix
+// stored transposed (S row-major, `pitch` elements a row, in shared memory)
+__device__ __forceinline__ void ld_a_frag_t(uint32_t (&a)[4], const __nv_bfloat16* s, int pitch,
+                                            int k0, int m0, int lane) {
+  ldsm_x4_trans(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * pitch + m0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of two neighbouring 16x8 tiles, B[k][n] = T[k0 + k][n0 + n]
+// for n < 16, from T row-major in shared memory: b[0..1] for columns
+// n0..n0+7, b[2..3] for n0+8..n0+15
+__device__ __forceinline__ void ld_b_frag2(uint32_t (&b)[4], const __nv_bfloat16* tm, int pitch,
+                                           int k0, int n0, int lane) {
+  ldsm_x4_trans(b, tm + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 + (lane >> 4) * 8);
 }
 
 }  // namespace vitocm

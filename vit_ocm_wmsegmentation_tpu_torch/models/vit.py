@@ -13,6 +13,12 @@ matmul; blocks 0..L-2 with the attention kernel and the fused MLP kernels,
 where each block's MLP kernel also emits the next block's normalized input
 (the JAX package's cross-layer "LN-out" route) and the last of them takes
 the plain fused MLP; the last block reduces to the CLS-row softmax.
+
+Training path (:func:`run_blocks_train`, the JAX package's
+``_scan_blocks(train=True)``): every block on the differentiable kernel
+routes, the folded flash attention and the fused MLP block with its
+backward kernel (``MLP_REMAT="kernel"``), optionally under
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import math
 from functools import partial
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import nn as tnn
@@ -114,16 +121,17 @@ class ViT(nn.Module):
         self.norm = nn.LayerNorm(d, eps=cfg.ln_eps)
 
 
-def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None) -> ViT:
+def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None,
+         requires_grad: bool = False) -> ViT:
     """A ViT with the reference's random init: trunc-normal(0.02) for the
     linear and patch-embed weights, positional embedding and CLS token;
     zeros for biases and LayerNorm biases, ones for LayerNorm scales. Drawn
-    from ``generator`` on the CPU, then moved to ``device``; inference only,
-    so no parameter requires a gradient."""
+    from ``generator`` on the CPU, then moved to ``device``. Parameters
+    require gradients only with ``requires_grad`` (training)."""
     model = ViT(cfg)
 
     def tn(p):
-        nn.init.trunc_normal_(p.data, std=0.02, a=-2.0, b=2.0, generator=generator)
+        tnn.trunc_normal(p.data, generator=generator)
 
     with torch.no_grad():
         tn(model.patch_embed.proj.weight)
@@ -140,7 +148,7 @@ def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None) 
                 ln.bias.zero_()
         model.norm.weight.fill_(1.0)
         model.norm.bias.zero_()
-    model.requires_grad_(False)
+    model.requires_grad_(requires_grad)
     return model.to(device) if device is not None else model
 
 
@@ -163,14 +171,18 @@ def interpolate_pos_embed(pos, grid_hw):
     return torch.cat([cls_pos, out.reshape(1, gh * gw, d)], dim=1)
 
 
-def prepare_tokens(model: ViT, x):
+def prepare_tokens(model: ViT, x, patch_hook=None):
     """(B, H, W, 3) image -> (B, 1 + gh*gw, D) tokens with CLS and
-    positional embedding."""
+    positional embedding. ``patch_hook(tok)`` transforms the (B, gh*gw, D)
+    patch tokens before the CLS concat and the positional embedding
+    (SimMIM's mask-token substitution, models/simmim.embed_tokens)."""
     cfg = model.cfg
     b, h, w, _ = x.shape
     p, d = cfg.patch_size, cfg.embed_dim
     kernel = model.patch_embed.proj.weight.permute(2, 3, 1, 0).reshape(p * p * 3, d)
     tok = tnn.linear(tnn.patchify(x, p), kernel.T, model.patch_embed.proj.bias)
+    if patch_hook is not None:
+        tok = patch_hook(tok)
     cls = model.cls_token.to(tok.dtype).expand(b, 1, d)
     tok = torch.cat([cls, tok], dim=1)
     pos = interpolate_pos_embed(model.pos_embed, (h // p, w // p))
@@ -205,6 +217,32 @@ def run_blocks(model: ViT, tok, hi: int):
         else:
             rows = fm.fused_mlp_block(rows, *_mlp_args(blk), cfg.ln_eps)
         tok = rows.reshape(b, n, d)
+    return tok
+
+
+def block_forward_train(blk, cfg: ViTConfig, x):
+    """One pre-norm block on the differentiable kernel routes
+    (vision_transformer.py:94-114; the JAX package's
+    ``_block_forward(train=True)`` with ``MLP_REMAT="kernel"``)."""
+    b, n, d = x.shape
+    a = blk.attn
+    h = tnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+    x = x + fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, cfg.num_heads,
+                         prefer_folded=True)
+    out = fm.fused_mlp_block_trainable(x.reshape(b * n, d), *_mlp_args(blk), cfg.ln_eps)
+    return out.reshape(b, n, d)
+
+
+def run_blocks_train(model: ViT, tok, remat: bool = False):
+    """Every block on the training route, the stream unpadded. ``remat``
+    (TRAIN.USE_CHECKPOINT) recomputes each block's activations in the
+    backward (torch.utils.checkpoint), trading FLOPs for memory."""
+    for blk in model.blocks:
+        if remat:
+            tok = torch.utils.checkpoint.checkpoint(block_forward_train, blk, model.cfg, tok,
+                                                    use_reentrant=False)
+        else:
+            tok = block_forward_train(blk, model.cfg, tok)
     return tok
 
 

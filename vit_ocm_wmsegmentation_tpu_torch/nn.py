@@ -46,3 +46,28 @@ def patchify(x, patch: int):
     gh, gw = h // patch, w // patch
     x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def pixel_shuffle(x, upscale: int):
+    """nn.PixelShuffle on an NHWC tensor: (B, H, W, C*r*r) -> (B, H*r, W*r, C),
+    with torch's (C, r, r) channel order, so a reference decoder's weights
+    load unchanged."""
+    return F.pixel_shuffle(x.permute(0, 3, 1, 2), upscale).permute(0, 2, 3, 1)
+
+
+def trunc_normal(t, generator=None):
+    """Fill t in place from N(0, 0.02) truncated to the absolute bounds
+    [-2, 2], the reference's init (dino/utils.py:482-520)."""
+    return torch.nn.init.trunc_normal_(t, std=0.02, a=-2.0, b=2.0, generator=generator)
+
+
+def torch_linear_init(weight, bias, generator=None):
+    """nn.Linear's default init in place: kaiming-uniform(a=sqrt(5)) weight,
+    i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in)), and a bias on the same bound.
+    fan_in is the product of the weight's dims after the first (a 1x1 conv
+    counts like a linear layer)."""
+    bound = 1.0 / math.sqrt(weight[0].numel())
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=generator)
+        bias.uniform_(-bound, bound, generator=generator)
+    return weight, bias

@@ -7,6 +7,10 @@ in nn.Linear's layout: ``qkv_weight`` (3D, D), ``proj_weight`` (D, D).
   reference the kernel route is tested against.
 * :func:`cls_row_attention` is the last block of the inference path: only
   the CLS query's softmax row, since the pipeline reads attn[:, :, 0, 1:].
+
+The JAX package's ``mha_auto`` dispatch onto the attention kernels is, in
+the port, ``ops/flash_attention.mha_flash`` itself: ``prefer_folded=True``
+is its training route (``mha_auto(train=True)``).
 """
 
 from __future__ import annotations
@@ -37,19 +41,9 @@ def mha(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads):
 
 
 def cls_row_attention(x, qkv_weight, qkv_bias, num_heads):
-    """CLS-row attention probabilities of one block: (B, h, N) float32. Only
-    q[CLS] and K are computed (f32 accumulation), no V, no N^2 matrix.
-
-    Deliberate difference: the JAX function casts the probabilities to x's
-    dtype, and its pipeline casts the head average straight back to f32
-    ("attention grids leave in f32 whatever the ViT compute dtype"). Here
-    they stay f32 throughout. Under bf16 that removes two roundings of
-    near-uniform probabilities that the per-tile min-max stretch amplifies
-    (1152^2 mosaic, ViT-S/8 with random weights from seeds 0-3, H100 80GB
-    HBM3 at 700 W: bf16-vs-f32 mask Dice 0.98602-0.99347 with the casts,
-    0.99656-0.99729 without; ``python -m
-    vit_ocm_wmsegmentation_tpu_torch.profile_mosaic`` measures both).
-    tests/test_torch_attention.py pins the difference."""
+    """CLS-row attention probabilities of one block: (B, h, N) in x's dtype,
+    as the JAX function returns them. Only q[CLS] and K are computed (f32
+    accumulation, f32 softmax), no V, no N^2 matrix."""
     b, n, d = x.shape
     wq, wk = qkv_weight[:d].float(), qkv_weight[d : 2 * d].float()
     q_cls = x[:, 0, :].float() @ wq.T
@@ -61,4 +55,4 @@ def cls_row_attention(x, qkv_weight, qkv_bias, num_heads):
     q_cls = q_cls.reshape(b, num_heads, hd)
     k = k.reshape(b, n, num_heads, hd).permute(0, 2, 1, 3)
     logits = torch.einsum("bhd,bhnd->bhn", q_cls, k) * (hd**-0.5)
-    return torch.softmax(logits, dim=-1)
+    return torch.softmax(logits, dim=-1).to(x.dtype)

@@ -1,17 +1,23 @@
-"""Attention from the fused qkv projection: the CUDA kernel and its twin.
+"""Flash attention: the CUDA kernels, their plain twins, and the MHSA block.
 
-Counterpart of the inference route of
-``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``: ``mha_flash``'s
-qkvflat branch folds 1/sqrt(d) into the q columns of the qkv weight, runs
-the qkv projection as a library matmul, calls :func:`attention_qkv` on the
-fused (B, N, 3hd) tensor, and runs the out projection as a library matmul.
+Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``:
 
-:func:`attention_qkv` launches a kernel that replaces the TPU kernel
-``_attn_fwd_qkvflat_kernel`` for CUDA tensors -- ``csrc/attention_qkv.cu``
-for float32 (CUDA cores), ``csrc/attention_qkv_mma.cu`` for bfloat16
-(tensor cores); the design notes are in those files -- and its plain twin
-:func:`attention_qkv_plain` for CPU tensors. ``attention_qkv.launches``
-counts kernel launches.
+* inference (:func:`mha_flash`): 1/sqrt(d) folded into the q columns of
+  the qkv weight, the qkv projection as a library matmul,
+  :func:`attention_qkv` on the fused (B, N, 3hd) tensor (replaces
+  ``_attn_fwd_qkvflat_kernel``), the out projection as a library matmul;
+* training (``mha_flash(prefer_folded=True)``): q, k, v split into the
+  folded (B*h, N, d) layout and :func:`flash_attention_trainable`, whose
+  forward :func:`flash_attention` returns (out, logsumexp) (replaces
+  ``_attn_fwd_kernel`` on its lse route) and whose backward
+  :func:`flash_attention_bwd` recomputes P from the logsumexp (replaces
+  ``_attn_bwd_kernel``).
+
+Each wrapper launches its kernel for CUDA tensors (f32 storage:
+``csrc/attention_qkv.cu`` and ``csrc/attention_bwd.cu`` on the CUDA cores;
+bf16: the ``*_mma.cu`` files on the tensor cores; design notes there) and
+takes its plain twin (``*_plain``) for CPU tensors; anything else raises.
+Each wrapper's ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -21,35 +27,51 @@ import torch.nn.functional as F
 
 from .. import build
 
-HEAD_DIM = 64  # the kernel's head dim (every DINO ViT)
-KEY_TILE = 64  # keys per online-softmax step, in the kernel (kBK) and its twin
+HEAD_DIMS = (64, 128)  # the kernels' head dims (every DINO ViT; the MIM ViT)
+KEY_TILE = 64  # keys per online-softmax step, in the kernels (kBK) and their twins
 _DENOM_TINY = 1e-35
 
 
+def _softmax_tiles(q, k, v, n, dtype):
+    """The kernels' forward arithmetic on f32 (..., N, d) q (already scaled),
+    k, v: keys in tiles of KEY_TILE, the last one masked at n; an online
+    softmax shifted by the running row max; P rounded to ``dtype`` before
+    P.V; the denominator summed from the rounded P. Only the order of the f32
+    sums differs from the kernels. Returns (o, lse): o divided by the
+    denominator clamped at 1e-35, lse = max + log(denominator), (..., N, 1)."""
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device)
+    for k0 in range(0, n, KEY_TILE):
+        k1 = min(k0 + KEY_TILE, n)
+        s = q @ k[..., k0:k1, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new).to(dtype).float()
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p @ v[..., k0:k1, :]
+        m = m_new
+    return o / torch.clamp_min(l, _DENOM_TINY), m + torch.log(l)
+
+
 def attention_qkv_plain(qkv, num_heads: int, n: int):
-    """Plain PyTorch twin of the kernel, with its block decomposition and
-    numerics: f32 scores; keys in tiles of KEY_TILE, the last one masked at
-    n; an online softmax shifted by the running row max; P rounded to the
-    storage type before P.V; the denominator summed from the rounded P and
-    clamped at 1e-35. Only the order of the f32 sums differs."""
+    """Plain PyTorch twin of :func:`attention_qkv`, with the kernel's block
+    decomposition and numerics (:func:`_softmax_tiles`)."""
     b, rows, cols = qkv.shape
     d = cols // 3 // num_heads
     t = qkv.float().reshape(b, rows, 3, num_heads, d).permute(2, 0, 3, 1, 4)  # (3, B, h, N, d)
-    q, k, v = t[0], t[1], t[2]
-    m = torch.full((b, num_heads, rows, 1), -torch.inf, device=qkv.device)
-    l = torch.zeros_like(m)
-    o = torch.zeros((b, num_heads, rows, d), device=qkv.device)
-    for k0 in range(0, n, KEY_TILE):
-        k1 = min(k0 + KEY_TILE, n)
-        s = q @ k[:, :, k0:k1].transpose(-1, -2)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new).to(qkv.dtype).float()
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + p @ v[:, :, k0:k1]
-        m = m_new
-    o = o / torch.clamp_min(l, _DENOM_TINY)
+    o, _ = _softmax_tiles(t[0], t[1], t[2], n, qkv.dtype)
     return o.permute(0, 2, 1, 3).reshape(b, rows, num_heads * d).to(qkv.dtype)
+
+
+def _check_dtype_device(name, t, want_dim):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if (t.dim() != want_dim or t.dtype not in build.DTYPE_CODES or not t.is_contiguous()
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name}: want a contiguous, 16-byte aligned {want_dim}-D float32/"
+                         f"bfloat16 tensor, got {tuple(t.shape)} {t.dtype} "
+                         f"contiguous={t.is_contiguous()}")
 
 
 def attention_qkv(qkv, num_heads: int, n: int):
@@ -58,26 +80,21 @@ def attention_qkv(qkv, num_heads: int, n: int):
     qkv: (B, N, 3*h*d) contiguous, float32 or bfloat16, the q section
     already scaled by 1/sqrt(d); keys at rows >= n are masked. Returns
     (B, N, h*d), heads side by side. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (d = 64); anything else raises."""
+    tensors launch the kernel (d in HEAD_DIMS); anything else raises."""
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, n)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"attention_qkv: no kernel for device {qkv.device}")
-    if (qkv.dim() != 3 or qkv.dtype not in build.DTYPE_CODES or not qkv.is_contiguous()
-            or qkv.data_ptr() % 16):
-        raise ValueError(f"attention_qkv: want contiguous, 16-byte aligned (B, N, 3hd) "
-                         f"float32/bfloat16, "
-                         f"got {tuple(qkv.shape)} {qkv.dtype} contiguous={qkv.is_contiguous()}")
+    _check_dtype_device("attention_qkv", qkv, 3)
     b, rows, cols = qkv.shape
-    if cols != 3 * num_heads * HEAD_DIM:
-        raise ValueError(f"attention_qkv: kernel needs head dim {HEAD_DIM}, got {cols} "
+    d = cols // 3 // num_heads
+    if cols != 3 * num_heads * d or d not in HEAD_DIMS:
+        raise ValueError(f"attention_qkv: kernel needs head dim in {HEAD_DIMS}, got {cols} "
                          f"columns for {num_heads} heads")
     if not 1 <= n <= rows:
         raise ValueError(f"attention_qkv: n={n} outside [1, {rows}]")
-    out = torch.empty((b, rows, num_heads * HEAD_DIM), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, rows, num_heads * d), dtype=qkv.dtype, device=qkv.device)
     rc = build.library().vitocm_attention_qkv(
         build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), out.data_ptr(), b, rows, n, num_heads,
-        HEAD_DIM, build.stream_ptr(qkv.device))
+        d, build.stream_ptr(qkv.device))
     build.check(rc, "attention_qkv")
     attention_qkv.launches += 1
     return out
@@ -99,9 +116,133 @@ def _scaled_qkv_weights(qkv_weight, qkv_bias, num_heads):
     return wq, bq
 
 
-def mha_flash(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads):
-    """Full MHSA block on the attention kernel: (B, N, D) -> (B, N, D)."""
-    n = x.shape[1]
+def _scale_q(q):
+    """q * d^-0.5 in f32, rounded to q's dtype, as the JAX forward and
+    backward both compute it before the kernel."""
+    return (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v):
+    """Plain PyTorch twin of :func:`flash_attention`, with the kernels'
+    decomposition (:func:`_softmax_tiles`)."""
+    o, lse = _softmax_tiles(_scale_q(q).float(), k.float(), v.float(), q.shape[1], q.dtype)
+    return o.to(q.dtype), lse[..., 0]
+
+
+def _check_folded(name, *ts):
+    for t in ts:
+        _check_dtype_device(name, t, 3)
+        if t.shape != ts[0].shape or t.dtype != ts[0].dtype or t.device != ts[0].device:
+            raise ValueError(f"{name}: q, k, v, o, do must share shape, dtype and device; got "
+                             f"{tuple(t.shape)} {t.dtype} against {tuple(ts[0].shape)} "
+                             f"{ts[0].dtype}")
+    if ts[0].shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: kernel needs head dim in {HEAD_DIMS}, got {ts[0].shape[-1]}")
+
+
+def flash_attention(q, k, v):
+    """softmax(q k^T / sqrt(d)) v and its logsumexp for folded (B*h, N, d)
+    q, k, v (q unscaled): returns (out (B*h, N, d) in q's dtype, lse (B*h, N)
+    float32). CPU tensors take the plain twin; CUDA tensors launch the
+    kernel (d in HEAD_DIMS, contiguous float32/bfloat16)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    _check_folded("flash_attention", q, k, v)
+    bh, n, d = q.shape
+    qs = _scale_q(q)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    rc = build.library().vitocm_flash_fwd(
+        build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), bh, n, d, build.stream_ptr(q.device))
+    build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """Plain PyTorch twin of :func:`flash_attention_bwd`, with the TPU
+    kernel's rounding points, the whole (N, N) score matrix at once."""
+    dt = q.dtype
+    qs, kf, vf = _scale_q(q).float(), k.float(), v.float()
+    lse = torch.nan_to_num(lse.float(), nan=0.0, posinf=0.0, neginf=0.0)
+    e = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
+    dd = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = (e * (do.float() @ vf.transpose(-1, -2) - dd)).to(dt).float()
+    dq = ((ds @ kf).to(dt).float() * q.shape[-1] ** -0.5).to(dt)
+    dk = (ds.transpose(-1, -2) @ qs).to(dt)
+    dv = (e.to(dt).float().transpose(-1, -2) @ do.float()).to(dt)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) of :func:`flash_attention` from its saved out o and lse
+    and the cotangent do, all folded (B*h, N, d) but lse (B*h, N) float32;
+    dq is with respect to the unscaled q. CPU tensors take the plain twin;
+    CUDA tensors launch the kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    _check_folded("flash_attention_bwd", q, k, v, o, do)
+    bh, n, d = q.shape
+    if lse.shape != (bh, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: want a contiguous float32 lse of shape {(bh, n)}")
+    qs = _scale_q(q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((bh, 2, n), dtype=torch.float32, device=q.device)  # lse, rowsum(do o)
+    rc = build.library().vitocm_flash_bwd(
+        build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), bh, n, d, build.stream_ptr(q.device))
+    build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention forward, flash_attention_bwd backward; both looked up
+    in this module at call time, so the twins can stand in for a whole
+    route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, lse, do.contiguous())
+
+
+def flash_attention_trainable(q, k, v):
+    """Differentiable softmax(q k^T / sqrt(d)) v for (B, h, N, d) q, k, v,
+    the JAX package's layout: folded to (B*h, N, d) around the kernels."""
+    b, h, n, d = q.shape
+    fold = lambda t: t.reshape(b * h, n, d).contiguous()  # noqa: E731
+    return _FlashAttention.apply(fold(q), fold(k), fold(v)).view(b, h, n, d)
+
+
+def mha_flash(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads, prefer_folded=False):
+    """Full MHSA block on the attention kernels: (B, N, D) -> (B, N, D).
+
+    prefer_folded=False (inference): the qkvflat route, :func:`attention_qkv`
+    on the fused projection, no gradient. prefer_folded=True (training): the
+    folded route through :func:`flash_attention_trainable`, with the JAX
+    package's roundings of the qkv projection (the product and the bias each
+    rounded to x's dtype)."""
+    b, n, dm = x.shape
+    if prefer_folded:
+        qkv = F.linear(x, qkv_weight)
+        if qkv_bias is not None:
+            qkv = qkv + qkv_bias.to(x.dtype)
+        q, k, v = qkv.reshape(b, n, 3, num_heads, dm // num_heads).permute(2, 0, 3, 1, 4)
+        out = flash_attention_trainable(q, k, v).transpose(1, 2).reshape(b, n, dm)
+        return F.linear(out, proj_weight, proj_bias)
     wq, bq = _scaled_qkv_weights(qkv_weight, qkv_bias, num_heads)
     qkv = F.linear(x, wq, bq.to(x.dtype) if bq is not None else None)
     out = attention_qkv(qkv.contiguous(), num_heads, n)

@@ -7,11 +7,17 @@ Counterpart of the inference forward of
   ``out = x + W2 gelu(W1 LN(x) + b1) + b2`` and ``z = LN(out) s2 + b2'``,
   the next block's normalized input (replaces ``_mlp_fwd_lnout_kernel``);
 * :func:`fused_mlp_block` returns ``out`` alone (replaces
-  ``_mlp_fwd_kernel`` with no residual outputs).
+  ``_mlp_fwd_kernel`` with no residual outputs);
+* :func:`fused_mlp_block_h1` returns ``(out, h1)``, the pre-GELU hidden
+  activation saved for the backward (``_mlp_fwd_kernel``, ``want="h1"``);
+* :func:`fused_mlp_bwd` is the backward from x, h1 and the cotangent
+  (replaces ``_mlp_bwd_kernel``); :func:`fused_mlp_block_trainable` wires
+  the last two into a ``torch.autograd.Function``.
 
-Both launch the kernels of ``csrc/fused_mlp.cu`` (float32, CUDA cores) and
-``csrc/fused_mlp_mma.cu`` (bfloat16, tensor cores; design notes there) for
-CUDA tensors and their plain twins for CPU tensors. Weights come in
+They launch the kernels of ``csrc/fused_mlp.cu`` and
+``csrc/fused_mlp_bwd.cu`` (float32, CUDA cores) and ``csrc/fused_mlp_mma.cu``
+and ``csrc/fused_mlp_bwd_mma.cu`` (bfloat16, tensor cores; design notes
+there) for CUDA tensors and their plain twins for CPU tensors. Weights come in
 nn.Linear's layout:
 ``w1`` = fc1.weight (H, D), ``w2`` = fc2.weight (D, H) -- the transpose of
 the JAX package's (D, H) / (H, D). Each wrapper's ``launches`` counts kernel
@@ -20,6 +26,8 @@ launches.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import build
@@ -27,21 +35,31 @@ from .. import nn as tnn
 
 KERNEL_WIDTHS = (192, 384)  # D values the kernel is instantiated for
 HIDDEN_CHUNK = 64  # H must be a multiple of this (the bf16 kernel's chunk)
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-def _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps):
+MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (fused_mlp_bwd.cu)
+_BWD_MIN_TILE = 32  # rows of the f32 backward's dx tile; the bf16 one takes 64
+
+
+def _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1=False):
     """out in x's dtype, with the kernel's rounding points: xn and g rounded
-    to the storage type before each product, f32 accumulation."""
+    to the storage type before each product, f32 accumulation; with
+    want_h1, also the pre-GELU h1 rounded to the storage type (GELU reads
+    the unrounded value)."""
     xn = tnn.layer_norm(x, scale, bias, eps).float()
     h1 = xn @ w1.float().T + b1.float()
     g = tnn.gelu(h1).to(x.dtype).float()
     y = g @ w2.float().T + b2.float()
-    return (x.float() + y).to(x.dtype)
+    out = (x.float() + y).to(x.dtype)
+    return (out, h1.to(x.dtype)) if want_h1 else out
 
 
-def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
-    """Plain PyTorch twin of :func:`fused_mlp_block`."""
-    return _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps)
+def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps=1e-6, want_h1=False):
+    """Plain PyTorch twin of :func:`fused_mlp_block` and, with want_h1, of
+    :func:`fused_mlp_block_h1`."""
+    return _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1)
 
 
 def fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps=1e-6):
@@ -79,20 +97,21 @@ def _f32_vector(name, t, size, device):
     return t.reshape(-1).float().contiguous()
 
 
-def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout):
+def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want_h1=False):
     r, d, hdim = _check(x, w1, w2)
     vec = lambda name, t, size=d: _f32_vector(name, t, size, x.device)  # noqa: E731
     args = [vec("scale", scale), vec("bias", bias), vec("b1", b1, hdim), vec("b2", b2)]
     args += [vec("scale2", scale2), vec("bias2", bias2)] if lnout else [None, None]
     out = torch.empty_like(x)
     z = torch.empty_like(x) if lnout else None
+    h1 = torch.empty((r, hdim), dtype=x.dtype, device=x.device) if want_h1 else None
     s1, bn1, b1f, b2f, s2, bn2 = (t.data_ptr() if t is not None else None for t in args)
     rc = build.library().vitocm_fused_mlp(
         build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
         w2.data_ptr(), b2f, s2, bn2, out.data_ptr(), z.data_ptr() if lnout else None,
-        r, d, hdim, float(eps), build.stream_ptr(x.device))
+        h1.data_ptr() if want_h1 else None, r, d, hdim, float(eps), build.stream_ptr(x.device))
     build.check(rc, "fused_mlp")
-    return out, z
+    return out, (z if lnout else h1)
 
 
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
@@ -115,5 +134,106 @@ def fused_mlp_block_lnout(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps=1e-
     return out, z
 
 
+def fused_mlp_block_h1(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
+    """(out, h1): out as :func:`fused_mlp_block`, h1 = LN(x) @ w1.T + b1
+    (R, H) rounded to x's dtype, the residual of the backward. CPU tensors
+    take the plain twin; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1=True)
+    out, h1 = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False,
+                      want_h1=True)
+    fused_mlp_block_h1.launches += 1
+    return out, h1
+
+
+def fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps=1e-6):
+    """Plain PyTorch twin of :func:`fused_mlp_bwd`, with the TPU kernel's
+    rounding points: xn, g = gelu(h1) and dh1 rounded to the storage type
+    before their products, f32 everywhere else."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    r = torch.rsqrt((x32 - mu).square().mean(-1, keepdim=True) + eps)
+    xh = (x32 - mu) * r
+    xn = (xh * scale.float() + bias.float()).to(dt).float()
+    h = h1.float()
+    phi = 0.5 * (1.0 + torch.erf(h * _INV_SQRT2))
+    g = (h * phi).to(dt).float()
+    gp = phi + h * (torch.exp(-0.5 * h * h) * _INV_SQRT2PI)
+    do32 = do.float()
+    dh1 = ((do32 @ w2.float()) * gp).to(dt).float()
+    dxn = dh1 @ w1.float()
+    dxh = dxn * scale.float()
+    dx_ln = r * (dxh - dxh.mean(-1, keepdim=True) - xh * (dxh * xh).mean(-1, keepdim=True))
+    return ((do32 + dx_ln).to(dt), (dxn * xh).sum(0), dxn.sum(0), dh1.T @ xn, dh1.sum(0),
+            do32.T @ g, do32.sum(0))
+
+
+def fused_mlp_bwd(x, do, h1, scale, bias, w1, w2, eps=1e-6):
+    """Backward of :func:`fused_mlp_block` from x, the saved h1 and the
+    cotangent do of out: (dx in x's dtype, then f32 dscale, dbias, dw1 (H, D),
+    db1, dw2 (D, H), db2). CPU tensors take the plain twin; CUDA tensors
+    launch the kernels (dx, weight-gradient partials, their reduction)."""
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps)
+    r, d, hdim = _check(x, w1, w2)
+    for name, t, shape in (("do", do, (r, d)), ("h1", h1, (r, hdim))):
+        if (tuple(t.shape) != shape or t.device != x.device or t.dtype != x.dtype
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"fused_mlp_bwd: {name} must be a contiguous, 16-byte aligned "
+                             f"{x.dtype} {shape} tensor on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    s1, bn1 = _f32_vector("scale", scale, d, x.device), _f32_vector("bias", bias, d, x.device)
+    width = 2 * hdim * d + hdim + d
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty(MLP_SPLITS * width, **f32)
+    ln_part = torch.empty(-(-r // _BWD_MIN_TILE) * 2 * d, **f32)
+    grads = torch.empty(width + 2 * d, **f32)
+    dx, xn = torch.empty_like(x), torch.empty_like(x)  # xn: LN(x), from the dx kernel
+    rc = build.library().vitocm_fused_mlp_bwd(
+        build.DTYPE_CODES[x.dtype], x.data_ptr(), do.data_ptr(), h1.data_ptr(), s1.data_ptr(),
+        bn1.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), xn.data_ptr(),
+        part.data_ptr(),
+        ln_part.data_ptr(), grads.data_ptr(), r, d, hdim, MLP_SPLITS, float(eps),
+        build.stream_ptr(x.device))
+    build.check(rc, "fused_mlp_bwd")
+    fused_mlp_bwd.launches += 1
+    hd = hdim * d
+    return (dx, grads[width:width + d], grads[width + d:], grads[:hd].view(hdim, d),
+            grads[2 * hd:2 * hd + hdim], grads[hd:2 * hd].view(d, hdim),
+            grads[2 * hd + hdim:width])
+
+
 fused_mlp_block.launches = 0
 fused_mlp_block_lnout.launches = 0
+fused_mlp_block_h1.launches = 0
+fused_mlp_bwd.launches = 0
+
+
+class _FusedMLP(torch.autograd.Function):
+    """fused_mlp_block_h1 forward, fused_mlp_bwd backward; both looked up in
+    this module at call time, so the twins can stand in for a whole route.
+    Parameter gradients come back in f32 and are cast to each primal's
+    dtype, as the JAX package's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps):
+        out, h1 = fused_mlp_block_h1(x, scale, bias, w1, b1, w2, b2, eps)
+        ctx.save_for_backward(x, h1, scale, bias, w1, w2)
+        ctx.eps, ctx.bias_dtypes = eps, (b1.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x, h1, scale, bias, w1, w2 = ctx.saved_tensors
+        dx, ds, dbb, dw1, db1, dw2, db2 = fused_mlp_bwd(x, do.contiguous(), h1, scale, bias, w1,
+                                                       w2, ctx.eps)
+        b1_dt, b2_dt = ctx.bias_dtypes
+        return (dx, ds.to(scale.dtype), dbb.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1_dt),
+                dw2.to(w2.dtype), db2.to(b2_dt), None)
+
+
+def fused_mlp_block_trainable(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
+    """Differentiable :func:`fused_mlp_block` for x (R, D): the training
+    route (the JAX package's MLP_REMAT="kernel")."""
+    return _FusedMLP.apply(x, scale, bias, w1, b1, w2, b2, eps)

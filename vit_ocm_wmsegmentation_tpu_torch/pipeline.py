@@ -56,9 +56,9 @@ def cast_params(model, dtype):
 
 
 def head_average_attention(model, x, median_size=1):
-    """(B, H, W, 3) -> (B, gh, gw) float32: CLS attention grid averaged over
-    heads (eval.py:142-144). Only median_size=1 (no median filter) is
-    ported."""
+    """(B, H, W, 3) -> (B, gh, gw): CLS attention grid averaged over heads
+    in the compute dtype (eval.py:142-144). Only median_size=1 (no median
+    filter) is ported."""
     if median_size != 1:
         raise NotImplementedError("median_size > 1 is not ported yet")
     return vit.cls_attention_grid(model, x).mean(dim=1)
@@ -105,7 +105,7 @@ def mosaic_tiles(img_u8, window, stride):
 def _per_tile_attention(model, tiles_u8, window, median_size=1, dtype=torch.float32):
     """Tile batch -> per-tile smoothed attention maps (sw_processing.py:
     235-258): head average, min-max per tile, *255, bilinear to the window."""
-    avg = head_average_attention(model, to_model_input(tiles_u8, dtype), median_size)
+    avg = head_average_attention(model, to_model_input(tiles_u8, dtype), median_size).float()
     g = th.min_max_normalize(avg, dims=(-2, -1)) * 255.0
     return resize_linear_cv2(g, (window, window))
 

@@ -1,5 +1,5 @@
-"""ViT weights into the port: reference ``.pth`` checkpoints and the JAX
-package's parameter tree.
+"""Weights into and out of the port: reference ``.pth`` checkpoints, the JAX
+package's parameter trees, and the MIM trainer's own checkpoints.
 
 The port's ViT uses the timm/DINO state-dict layout, so a reference
 checkpoint needs only the key ritual every reference entry point repeats
@@ -11,6 +11,8 @@ numpy so that the port never imports JAX.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -80,3 +82,64 @@ def load_torch_checkpoint(path: str, cfg: ViTConfig, checkpoint_key: str = "teac
         raise ValueError(f"{path}: patch embed {tuple(pe.shape)} does not fit {cfg}")
     keys = set(ViT(cfg).state_dict())
     return {k: v for k, v in sd.items() if k in keys}
+
+
+def mim_state_from_jax_numpy(tree, cfg: ViTConfig) -> dict:
+    """The JAX package's MIM params (numpy leaves) -> the port's SimMIM state
+    dict: :func:`vit_state_from_jax_numpy` under ``encoder.``, the mask
+    token, and the (D, p*p*3) decoder kernel as the (p*p*3, D, 1, 1) conv
+    weight."""
+    sd = {"encoder." + k: v for k, v in vit_state_from_jax_numpy(tree, cfg).items()}
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # noqa: E731
+    sd["encoder.mask_token"] = t(tree["mask_token"])
+    sd["decoder.0.weight"] = t(np.asarray(tree["decoder"]["kernel"]).T[:, :, None, None])
+    sd["decoder.0.bias"] = t(tree["decoder"]["bias"])
+    return sd
+
+
+def load_mim_or_vit_checkpoint(path: str, model, checkpoint_key: str = "teacher"):
+    """MIM-resume semantics for a ``.pth`` file (the JAX package's function of
+    the same name): a full MIM checkpoint (``encoder.*`` and ``decoder.0.*``)
+    replaces every parameter; a bare ViT checkpoint (e.g. DINO) fills the
+    encoder and keeps the model's mask token and decoder."""
+    sd = clean_torch_state_dict(torch.load(path, map_location="cpu", weights_only=False),
+                                checkpoint_key)
+    if "decoder.0.weight" in sd:
+        model.load_state_dict(sd)
+    else:
+        enc = load_torch_checkpoint(path, model.cfg, checkpoint_key)
+        missing = set(model.encoder.state_dict()) - set(enc) - {"mask_token"}
+        if missing:
+            raise KeyError(f"{path}: no {sorted(missing)[:3]}... for the encoder")
+        model.encoder.load_state_dict(enc, strict=False)
+    return model
+
+
+def save_checkpoint(output_dir: str, epoch: int, model, optimizer) -> str:
+    """{model, optimizer, epoch} to <output_dir>/ckpt_epoch_<epoch>
+    (torch.save, written to a temporary name and renamed)."""
+    path = os.path.join(output_dir, f"ckpt_epoch_{epoch}")
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "epoch": epoch}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def latest_checkpoint(output_dir: str):
+    """The newest ckpt_epoch_* in output_dir, or None (TRAIN.AUTO_RESUME)."""
+    if not os.path.isdir(output_dir):
+        return None
+    cands = [d for d in os.listdir(output_dir)
+             if d.startswith("ckpt_epoch_") and d.rsplit("_", 1)[-1].isdigit()]
+    if not cands:
+        return None
+    return os.path.join(output_dir, max(cands, key=lambda d: int(d.rsplit("_", 1)[-1])))
+
+
+def restore_checkpoint(path: str, model, optimizer) -> int:
+    """Load a :func:`save_checkpoint` file into model and optimizer (on the
+    model's device); returns its epoch."""
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["epoch"])

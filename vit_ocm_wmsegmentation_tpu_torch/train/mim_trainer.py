@@ -1,0 +1,158 @@
+"""MIM pretraining loop (the reference's mim.py:83-222) on one device.
+
+Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
+
+* :func:`make_train_step` builds one step: forward and backward of the
+  masked-L1 loss on the training kernels, the global norm of the gradients,
+  then clip and AdamW (train/optim.py). It returns (loss, grad norm before
+  clipping) as the JAX step reports them;
+* AMP (AMP_OPT_LEVEL other than "" and "O0") works as the JAX package's
+  ``amp_cast``: the f32 master parameters are cast to bf16 copies inside the
+  step and x to bf16, so forward and backward run in bf16 and the gradients
+  return in f32 through the casts' backward, rounded to bf16 first (no
+  torch.autocast, which would pick other ops' dtypes). The loss sums in f32;
+* :func:`train_mim`: epochs, logging every PRINT_FREQ steps, a checkpoint
+  every SAVE_FREQ epochs and at the last, AUTO_RESUME from the newest
+  checkpoint with the optimizer state, early stopping on a stalled loss
+  (mim.py:116-135). Its library matmuls run under
+  ``pipeline.exact_matmuls()`` (no TF32, f32 reductions of bf16 products).
+
+Not ported yet, and refused: TRAIN.PP_STAGES > 1, TRAIN.FSDP, the
+JAX-only route knobs TRAIN.MLP_REMAT / LN_QKV / ATTN_SAVE_P other than
+"auto", DATA.DEVICE_AUG, W&B logging and the per-epoch evaluation.
+"""
+
+from __future__ import annotations
+
+import datetime
+import time
+
+import torch
+
+from ..models import simmim
+from ..ops.metrics import AverageMeter
+from ..pipeline import exact_matmuls
+from . import checkpoint as ckpt
+from .optim import Optimizer, global_norm
+from .schedule import build_schedule
+
+
+def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False):
+    """step(x (B, H, W, 3), mask (B, gh, gw)) -> (loss, grad norm), both
+    0-dim f32 tensors on the model's device; updates model and optimizer in
+    place (every ACCUMULATION_STEPS-th call applies an update)."""
+    def step(x, mask):
+        if amp:
+            live = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                    for n, p in model.named_parameters()}
+            loss, _, _ = torch.func.functional_call(model, live,
+                                                    (x.to(torch.bfloat16), mask, remat))
+        else:
+            loss, _, _ = model(x, mask, remat)
+        grads = torch.autograd.grad(loss, optimizer.params)
+        gnorm = global_norm(grads)
+        optimizer.step(grads)
+        return loss.detach(), gnorm
+
+    return step
+
+
+def _refuse_unported(cfg):
+    tr = cfg.TRAIN
+    if int(tr.get("PP_STAGES", 1)) > 1:
+        raise NotImplementedError("TRAIN.PP_STAGES > 1 (pipeline parallelism) is not ported yet")
+    if bool(tr.get("FSDP", False)):
+        raise NotImplementedError("TRAIN.FSDP is not ported yet")
+    for key in ("MLP_REMAT", "LN_QKV", "ATTN_SAVE_P"):
+        if tr.get(key, "auto") != "auto":
+            raise NotImplementedError(f"TRAIN.{key}={tr[key]!r}: the port has one training "
+                                      f"route; only 'auto' is accepted")
+    if cfg.DATA.get("DEVICE_AUG", False):
+        raise NotImplementedError("DATA.DEVICE_AUG is not ported yet")
+
+
+def train_mim(cfg, loader, *, device, logger=None):
+    """Pretrain a SimMIM ViT, initialized from cfg.SEED, on ``loader``'s
+    batches. Returns (model, history of per-epoch mean losses)."""
+    from ..utils.logger import create_logger
+
+    _refuse_unported(cfg)
+    logger = logger or create_logger(cfg.OUTPUT, name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
+    device = torch.device(device)
+    vit_cfg = simmim.mim_vit_config(cfg.DATA.IMG_SIZE, cfg.MODEL.PATCH_SIZE)
+    model = simmim.init(vit_cfg, torch.Generator().manual_seed(cfg.SEED), device)
+    if cfg.PRETRAINED_WEIGHTS:
+        try:
+            ckpt.load_mim_or_vit_checkpoint(cfg.PRETRAINED_WEIGHTS, model,
+                                            cfg.MODEL.CHECKPOINT_KEY)
+        except Exception as e:  # the reference's lenient load
+            logger.info(f"could not load pretrained weights: {e}; training from scratch")
+
+    n_iter = len(loader)
+    optimizer = Optimizer(cfg, model, build_schedule(cfg, max(n_iter, 1)))
+    start_epoch = cfg.TRAIN.START_EPOCH
+    # the reference declares TRAIN.AUTO_RESUME but never reads it
+    # (config.py:105); here, as in the JAX package, it resumes the model and
+    # the optimizer state from the newest ckpt_epoch_* in OUTPUT
+    resume = ckpt.latest_checkpoint(cfg.OUTPUT) if cfg.TRAIN.AUTO_RESUME else None
+    if resume is not None:
+        start_epoch = ckpt.restore_checkpoint(resume, model, optimizer) + 1
+        logger.info(f"auto-resumed from {resume} at epoch {start_epoch} "
+                    f"(optimizer updates {optimizer.updates})")
+
+    amp, remat = cfg.AMP_OPT_LEVEL not in ("", "O0"), bool(cfg.TRAIN.USE_CHECKPOINT)
+    step = make_train_step(model, optimizer, amp=amp, remat=remat)
+    logger.info(f"number of params: {sum(p.numel() for p in model.parameters())}")
+    logger.info(f"Start training on {device} (amp={amp}, remat={remat})")
+    history, min_loss, consec = [], float("inf"), 0
+    start_time = time.time()
+    with exact_matmuls():
+        for epoch in range(start_epoch, cfg.TRAIN.EPOCHS):
+            loss_meter, norm_meter, batch_time = AverageMeter(), AverageMeter(), AverageMeter()
+            epoch_start = end = time.time()
+            # loss and grad norm stay on the device between log points
+            pending = []
+
+            def drain():
+                if not pending:
+                    return
+                for dl, dg, bsz in pending:
+                    loss_meter.update(float(dl), bsz)
+                    norm_meter.update(float(dg))
+                batch_time.update((time.time() - end) / len(pending), len(pending))
+                pending.clear()
+
+            for idx, (img, mask) in enumerate(loader.epoch(epoch)):
+                lr = optimizer.lr()
+                loss, gnorm = step(torch.from_numpy(img).to(device),
+                                   torch.from_numpy(mask).to(device))
+                pending.append((loss, gnorm, img.shape[0]))
+                if idx % cfg.PRINT_FREQ == 0:
+                    drain()
+                    end = time.time()
+                    etas = batch_time.avg * (n_iter - idx)
+                    logger.info(
+                        f"Train: [{epoch}/{cfg.TRAIN.EPOCHS}][{idx}/{n_iter}]\t"
+                        f"eta {datetime.timedelta(seconds=int(etas))} lr {lr:.6f}\t"
+                        f"time {batch_time.val:.4f} ({batch_time.avg:.4f})\t"
+                        f"loss {loss_meter.val:.4f} ({loss_meter.avg:.4f})\t"
+                        f"grad_norm {norm_meter.val:.4f} ({norm_meter.avg:.4f})")
+            drain()
+            logger.info(f"EPOCH {epoch} training takes "
+                        f"{datetime.timedelta(seconds=int(time.time() - epoch_start))}")
+            if epoch % cfg.SAVE_FREQ == 0 or epoch == cfg.TRAIN.EPOCHS - 1:
+                ckpt.save_checkpoint(cfg.OUTPUT, epoch, model, optimizer)
+
+            loss = loss_meter.avg
+            history.append(loss)
+            if loss < min_loss:
+                min_loss, consec = loss, 0
+            else:
+                consec += 1
+            logger.info(f"consecutive epochs = {consec}")
+            if cfg.early_stopping and consec >= 4 and min_loss - loss < 1e-3:
+                logger.info("Loss has not changed significantly in 4 epochs. "
+                            "Stopping training early.")
+                break
+    logger.info(f"Training time {datetime.timedelta(seconds=int(time.time() - start_time))}")
+    return model, history

@@ -1,0 +1,103 @@
+"""Optimizer of the MIM trainer (the reference's optimizer.py:14-78 and the
+clip of mim.py:176), as the JAX package's optax chain computes it.
+
+* AdamW (or SGD with Nesterov momentum) in two parameter groups: weight
+  decay for every parameter except 1-D tensors and biases, decided per
+  tensor (the reference's rule; the JAX package's ``decay_mask`` tests
+  ``ndim > 1`` on its depth-stacked tree, so there every block LayerNorm
+  and block bias is decayed too: ROADMAP Queue 3);
+* clipping by global norm as optax's ``clip_by_global_norm``: the gradients
+  are scaled by max_norm / norm only when norm >= max_norm (no epsilon, unlike
+  ``torch.nn.utils.clip_grad_norm_``);
+* the learning rate set from the schedule at update count t (from 0) before
+  each step; with ACCUMULATION_STEPS k > 1 the mean of k micro-batch
+  gradients is clipped and applied, the schedule read at t*k + k - 1, as
+  under ``optax.MultiSteps``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def decay_groups(model):
+    """(decay, no_decay) lists of the trainable parameters."""
+    decay, no_decay = [], []
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            (no_decay if p.ndim <= 1 or name.endswith(".bias") else decay).append(p)
+    return decay, no_decay
+
+
+def global_norm(grads):
+    """The l2 norm of all gradients together, in f32 (a 0-dim tensor)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([g.float() for g in grads])))
+
+
+class Optimizer:
+    """AdamW/SGD with the weight-decay groups, global-norm clipping, the
+    per-update schedule and gradient accumulation. :meth:`step` takes one
+    micro-batch's gradients, aligned with :attr:`params`."""
+
+    def __init__(self, cfg, model, schedule):
+        tr = cfg.TRAIN
+        decay, no_decay = decay_groups(model)
+        groups = [{"params": decay, "weight_decay": tr.WEIGHT_DECAY},
+                  {"params": no_decay, "weight_decay": 0.0}]
+        name = tr.OPTIMIZER.NAME.lower()
+        if name == "adamw":
+            self.opt = torch.optim.AdamW(groups, lr=0.0, betas=tuple(tr.OPTIMIZER.BETAS),
+                                         eps=tr.OPTIMIZER.EPS)
+        elif name == "sgd":
+            self.opt = torch.optim.SGD(groups, lr=0.0, momentum=tr.OPTIMIZER.MOMENTUM,
+                                       nesterov=True)
+        else:
+            raise ValueError(f"unknown optimizer {name!r}")
+        self.params = decay + no_decay
+        self.schedule = schedule
+        self.clip = tr.CLIP_GRAD
+        self.k = max(int(tr.ACCUMULATION_STEPS), 1)
+        self.updates = 0  # optimizer updates applied
+        self._acc, self._micro = None, 0
+
+    def lr(self) -> float:
+        """The learning rate of the next update."""
+        t = self.updates
+        return float(self.schedule(t * self.k + self.k - 1 if self.k > 1 else t))
+
+    def step(self, grads) -> bool:
+        """Accumulate one micro-batch's gradients; every k-th call clip the
+        mean and apply it. Returns whether an update was applied."""
+        if self.k > 1:
+            if self._acc is None:
+                self._acc = [g.float().clone() for g in grads]
+            else:
+                for a, g in zip(self._acc, grads):
+                    a.add_(g)
+            self._micro += 1
+            if self._micro < self.k:
+                return False
+            grads = [a / self.k for a in self._acc]
+            self._acc, self._micro = None, 0
+        if self.clip:
+            # max_norm / norm where norm >= max_norm, else 1, without a
+            # device-to-host sync (a branch on the norm would stall the step)
+            grads = [g.float() for g in grads]
+            torch._foreach_mul_(grads, torch.clamp(self.clip / global_norm(grads), max=1.0))
+        lr = self.lr()
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.opt.step()
+        for p in self.params:
+            p.grad = None
+        self.updates += 1
+        return True
+
+    def state_dict(self):
+        return {"opt": self.opt.state_dict(), "updates": self.updates}
+
+    def load_state_dict(self, state):
+        self.opt.load_state_dict(state["opt"])
+        self.updates = int(state["updates"])
