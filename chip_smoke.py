@@ -12,7 +12,9 @@ and then, failing on the first phase that fails:
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
    kernel, the twin and, where one PyTorch call computes the same function,
    that call (CUDA events, median of 10 after warm-up); the mosaic kernels
-   at the 49-tile mosaic's shapes, the training kernels at the MIM step's;
+   at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
+   the histogram on a 32768^2 uint8 image and on 2^24 + 67 pixels of two
+   values (counts exactly equal to the twin's);
 2. runs ``segment_mosaic`` on a 1152^2 uint8 mosaic (window 384, stride 128,
    49 tiles) with ViT-S/8 at full width and random weights from a seed, in
    float32 and bfloat16: bf16-vs-f32 mask Dice > 0.99, kernel route vs plain
@@ -28,7 +30,21 @@ and then, failing on the first phase that fails:
 5. runs the MIM CLI ``mim.main`` on 32 synthetic PNGs for 2 epochs, then
    for 3 into the same output, which must resume at epoch 2 with the
    optimizer state;
-6. prints the per-kernel JSON line, then the result line
+6. runs ``segment_mosaic_streamed`` (the gigapixel path) with ViT-S/8 at
+   full width: (a) on an 8192^2 synthetic OCM-like mosaic in bf16 (3844
+   tiles in 62 bands) against ``segment_mosaic``, mask agreement >= 0.999,
+   the launch counts of one streamed call (11 attention, 10 LN-out MLP and
+   1 plain MLP a band, 1 histogram), ms per mosaic, MP/s and ms/tile by
+   CUDA events and peak device memory; (b) on phase 2's noise mosaic at
+   2048^2 (196 tiles in 14 bands) in f32 and bf16: band_chunk 1 and 4
+   bit-equal; kernel route vs plain route mask Dice >= 0.99 (f32: weight
+   seed 0; bf16: the masks of weight seeds 0-3 pooled) and bf16 vs f32
+   Dice > 0.99 (seeds 0-3 pooled);
+7. serves three 1152^2 mosaics through ``sw_processing.main --streamed 1
+   --save all --writers 2``: each artifact equals the pipeline's output for
+   the decoded image, byte for byte; then one 8192^2 mosaic in single-image
+   mode with ``--streamed auto``, which must take the streamed route;
+8. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -57,12 +73,14 @@ MIM_BATCH, MIM_SIZE = 16, 384  # mim.py defaults; 48*48 patches + CLS = TOKENS
 F32_TOL, BF16_TOL = 1e-5, 1e-2  # outputs: max|kernel - plain| / max|plain|
 GRAD_TOL = {"f32": 1e-4, "bf16": 2e-2}  # gradients
 LSE_TOL = {"f32": 1e-5, "bf16": 1e-3}  # f32 lse; in bf16 a one-ulp flip of a rounded P moves it
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them; HBM3
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them; HBM3.
+# The histogram's one integer add a byte is counted at the f32 CUDA-core rate.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "u8": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 CSRC = "vit_ocm_wmsegmentation_tpu_torch/csrc/"
 FA = "vit_ocm_wmsegmentation_tpu/ops/flash_attention.py"
 FM = "vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py"
+TH = "vit_ocm_wmsegmentation_tpu/ops/threshold.py"
 # wrapper -> (module, source file per storage dtype, TPU kernel it replaces)
 KERNELS = {
     "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
@@ -78,17 +96,23 @@ KERNELS = {
                            FM + ":123"),
     "fused_mlp_bwd": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
                       FM + ":243"),
+    "histogram_u8_kernel": ("th", {"u8": "histogram_u8.cu"}, TH + ":71"),
 }
 MOSAIC_LAUNCHES = {"attention_qkv": 11, "fused_mlp_block_lnout": 10, "fused_mlp_block": 1}
 MIM_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 4, "fused_mlp_block_h1": 4,
                 "fused_mlp_bwd": 4}
+STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 3844 tiles
+STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
+                   "histogram_u8_kernel": 1}
+BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 
 
 def _modules():
     from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
     from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+    from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
-    return {"fa": fa, "fm": fm}
+    return {"fa": fa, "fm": fm, "th": th}
 
 
 def launch_counts():
@@ -267,7 +291,41 @@ def phase_kernels():
                                     "bound_ms": bound_ms, "bound_by": bound_by,
                                     "library_ms": lib_ms}
         torch.cuda.empty_cache()
+    results[("histogram_u8_kernel", "u8")] = _histogram_row(gen)
+    torch.cuda.empty_cache()
     return results
+
+
+def _histogram_row(gen):
+    """The histogram kernel against its chunked twin, exactly: a 32768^2
+    uint8 image (the 1.07 G-pixel blend image of the streamed path's size)
+    and 2^24 + 67 pixels of one value and five of another (past an f32
+    accumulator's 2^24); timed on the first, beside torch.bincount."""
+    import torch
+
+    th = _modules()["th"]
+    dev = torch.device("cuda")
+    n = 32768 * 32768
+    x = torch.randint(0, 256, (32768, 32768), generator=gen, device=dev, dtype=torch.uint8)
+    tail = torch.full(((1 << 24) + 67,), 7, dtype=torch.uint8, device=dev)
+    tail[-5:] = 9
+    for what, img in (("32768^2", x), ("2^24 + 67", tail)):
+        got, want = th.histogram_u8_kernel(img), th.histogram_u8_chunked(img)
+        torch.cuda.synchronize()
+        print(f"  histogram_u8_kernel[u8] {what}: counts equal to the twin's: "
+              f"{bool(torch.equal(got, want))}")
+        if not torch.equal(got, want) or float(got.double().sum()) != img.numel():
+            raise AssertionError(f"histogram_u8_kernel {what} differs from its plain twin")
+    del tail
+    flat = x.reshape(-1)
+    ms = cuda_ms(lambda: th.histogram_u8_kernel(x))
+    plain_ms = cuda_ms(lambda: th.histogram_u8_chunked(x), iters=5, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=256))
+    bound_ms, bound_by = bound(n, n + 256 * 8, "u8")
+    print(f"  histogram_u8_kernel[u8]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.bincount "
+          f"(uint8) {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def phase_slice():
@@ -342,7 +400,7 @@ def phase_slice():
     print(f"  segment_mosaic [bf16] plain route: {plain_ms['bf16']:.2f} ms/mosaic, "
           f"{mp / (plain_ms['bf16'] / 1e3):.3f} MP/s")
     print(f"  peak device memory, one bf16 mosaic: {peak / 2**30:.3f} GiB")
-    return launches, models["bf16"]
+    return launches, models
 
 
 def phase_serving(model_bf16):
@@ -378,6 +436,192 @@ def phase_serving(model_bf16):
             if not np.array_equal(want.cpu().numpy(), mask):
                 raise AssertionError(f"{name}: served mask differs from segment_mosaic's")
     print("  served masks equal segment_mosaic's")
+
+
+def _streamed_call(model, img, dtype, **kw):
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+
+    return pl.segment_mosaic_streamed(model, img, WINDOW, STRIDE, dtype=dtype, **kw)
+
+
+def phase_streamed(models):
+    """segment_mosaic_streamed at full width: (a) 8192^2 bf16 against the
+    fused path, with the launches of one call; (b) 2048^2 in f32 and bf16:
+    band_chunk, kernel vs plain route, bf16 vs f32."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch.profile_gigapixel import make_mosaic
+
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    img = torch.from_numpy(make_mosaic(STREAM_SIZE)).to(dev)
+    tiles = STREAM_BANDS ** 2
+    mp = STREAM_SIZE ** 2 / 1e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    mask, attn = _streamed_call(models["bf16"], img, torch.bfloat16)
+    end.record()
+    end.synchronize()
+    launches = launch_counts()
+    first_ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+    print(f"  streamed [bf16] {STREAM_SIZE}^2 launches: {launches}")
+    want = {name: STREAM_LAUNCHES.get(name, 0) for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if (mask.shape != (STREAM_SIZE, STREAM_SIZE) or not bool(attn.isfinite().all())
+            or not set(mask.unique().tolist()) <= {0, 255}):
+        raise AssertionError("bad streamed outputs")
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    fmask, fattn = pl.segment_mosaic(models["bf16"], img, WINDOW, STRIDE, dtype=torch.bfloat16)
+    end.record()
+    end.synchronize()
+    print(f"  segment_mosaic (fused) [bf16] {STREAM_SIZE}^2, for comparison: "
+          f"{start.elapsed_time(end):.1f} ms, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    agree = float((fmask == mask).float().mean())
+    print(f"  streamed vs fused [bf16] {STREAM_SIZE}^2: mask agreement {agree:.6f} (gate >= 0.999), "
+          f"attention max|d| {float((fattn - attn).abs().max()):.3e} on the 0-255 scale")
+    if not agree >= 0.999:
+        raise AssertionError(f"streamed vs fused mask agreement {agree:.6f} < 0.999")
+    del fmask, fattn
+    ms = cuda_ms(lambda: _streamed_call(models["bf16"], img, torch.bfloat16), iters=1, warmup=0)
+    for what, t in (("first call", first_ms), ("second call", ms)):
+        print(f"  segment_mosaic_streamed [bf16] {STREAM_SIZE}^2, {what}: {t:.1f} ms/mosaic, "
+              f"{mp / (t / 1e3):.3f} MP/s, {t / tiles:.4f} ms/tile (CUDA events)")
+    print(f"  peak device memory, one streamed {STREAM_SIZE}^2 mosaic: {peak / 2**30:.3f} GiB")
+    streamed_mask = mask.cpu().numpy()
+    del img, mask, attn
+    torch.cuda.empty_cache()
+
+    # (b) on phase 2's noise mosaic, at 2048^2
+    img = torch.from_numpy((np.random.default_rng(0).random((BAND_SIZE, BAND_SIZE)) * 255)
+                           .astype(np.uint8)).to(dev)
+    for tag, dtype in dtypes.items():
+        m1, a1 = _streamed_call(models[tag], img, dtype, band_chunk=1)
+        m4, a4 = _streamed_call(models[tag], img, dtype, band_chunk=4)
+        equal = bool(torch.equal(m1, m4) and torch.equal(a1, a4))
+        print(f"  {BAND_SIZE}^2 [{tag}] band_chunk 1 vs 4: canvas and mask bit-equal {equal}")
+        if not equal:
+            raise AssertionError(f"[{tag}] band_chunk changed the canvas or the mask")
+    gates = _streamed_gates(models, img)
+    for (tag, what), d in gates.items():
+        print(f"  {BAND_SIZE}^2 {what} [{tag}]: mask Dice {d:.5f}")
+    if not gates[("f32", "kernel vs plain route")] >= 0.99:
+        raise AssertionError("f32 streamed kernel vs plain route Dice below 0.99")
+    if not gates[("bf16, pooled", "kernel vs plain route")] >= 0.99:
+        raise AssertionError("bf16 streamed kernel vs plain route Dice below 0.99")
+    if not gates[("pooled", "bf16 vs f32")] > 0.99:
+        raise AssertionError("streamed bf16 vs f32 Dice below the 0.99 gate")
+    return launches, streamed_mask
+
+
+def _streamed_gates(models, img, seeds=(0, 1, 2, 3)):
+    """Mask Dice of the streamed path, kernel route vs plain route (every
+    kernel wrapper and the histogram swapped for their twins) and bf16 vs
+    f32, for random weights from each seed. With random weights the
+    per-tile attention maps are nearly flat, so the bf16 readings of one
+    seed scatter by about +-0.002 around 0.991 (PERF.md); the bf16 gates
+    read the masks of all seeds pooled, f32 reads seed 0."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
+
+    th = _modules()["th"]
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def plain(model, dtype):
+        reset_counts()
+        with plain_route(), mock.patch.object(th, "histogram_u8_kernel", th.histogram_u8_chunked):
+            mask = _streamed_call(model, img, dtype)[0].cpu().numpy()
+        if any(launch_counts().values()):
+            raise AssertionError("the plain route launched a kernel")
+        return mask
+
+    out, pooled = {}, {"k32": [], "k16": [], "p16": []}
+    for seed in seeds:
+        if seed:
+            m32 = load_model("vit_small", 8, seed=seed, device=img.device)
+            ms = {"f32": m32, "bf16": pl.cast_params(copy.deepcopy(m32), torch.bfloat16)}
+        else:
+            ms = models
+        k = {tag: _streamed_call(ms[tag], img, dt)[0].cpu().numpy() for tag, dt in dtypes.items()}
+        p16 = plain(ms["bf16"], torch.bfloat16)
+        if not seed:
+            out[("f32", "kernel vs plain route")] = dice(k["f32"], plain(ms["f32"], torch.float32))
+        out[(f"bf16, weight seed {seed}", "kernel vs plain route")] = dice(k["bf16"], p16)
+        out[(f"weight seed {seed}", "bf16 vs f32")] = dice(k["bf16"], k["f32"])
+        for key, m in (("k32", k["f32"]), ("k16", k["bf16"]), ("p16", p16)):
+            pooled[key].append(m)
+    cat = {key: np.concatenate(v) for key, v in pooled.items()}
+    out[("bf16, pooled", "kernel vs plain route")] = dice(cat["k16"], cat["p16"])
+    out[("pooled", "bf16 vs f32")] = dice(cat["k16"], cat["k32"])
+    return out
+
+
+def phase_serving_streamed(model_bf16, streamed_mask):
+    """The serving CLI on the streamed route with every artifact, and the
+    8192^2 mosaic in single-image mode taking the streamed route by size."""
+    import torch
+    from PIL import Image
+
+    from vit_ocm_wmsegmentation_tpu_torch import sw_processing as sw
+    from vit_ocm_wmsegmentation_tpu_torch.profile_gigapixel import make_mosaic
+    from vit_ocm_wmsegmentation_tpu_torch.utils.imageio import VIRIDIS, attention_lut_index
+
+    th = _modules()["th"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for i in range(3):
+            rng = np.random.default_rng(i + 11)
+            Image.fromarray((rng.random((SIZE, SIZE)) * 255).astype(np.uint8)).save(
+                os.path.join(src, f"mosaic{i}.png"))
+        t0 = time.perf_counter()
+        masks = sw.main(["--image_path", src, "--output_dir", dst, "--bf16", "1", "--streamed", "1",
+                         "--save", "all", "--writers", "2", "--device", "cuda"])
+        print(f"  served 3 mosaics, streamed, every artifact, in {time.perf_counter() - t0:.2f} s "
+              f"(host clock)")
+        if sorted(masks) != [f"mosaic{i}" for i in range(3)]:
+            raise AssertionError(f"served {sorted(masks)}")
+        for name, mask in masks.items():
+            read = lambda f: np.asarray(Image.open(os.path.join(dst, name, f)))  # noqa: E731
+            gray = torch.from_numpy(sw.decode(os.path.join(src, name + ".png"), (SIZE, SIZE))).cuda()
+            want, attn = _streamed_call(model_bf16, gray, torch.bfloat16)
+            _, _, heat = th.threshold_multiplicative(gray, attn)
+            idx = attention_lut_index(attn).cpu().numpy()
+            checks = {"otsu_sw.jpg": want.cpu().numpy(), "otsu_sw_heatmap.jpg": heat.cpu().numpy(),
+                      "attention_map_sw.jpg": VIRIDIS[idx]}
+            for fname, arr in checks.items():
+                if not np.array_equal(read(fname), arr):
+                    raise AssertionError(f"{name}/{fname} differs from the pipeline's output")
+            if not np.array_equal(mask, checks["otsu_sw.jpg"]):
+                raise AssertionError(f"{name}: returned mask differs from the pipeline's")
+        print("  served artifacts equal the pipeline's outputs byte for byte")
+
+        big = os.path.join(tmp, "big.png")
+        Image.fromarray(make_mosaic(STREAM_SIZE)).save(big, compress_level=1)
+        reset_counts()
+        t0 = time.perf_counter()
+        mask = sw.main(["--image_path", big, "--output_dir", os.path.join(tmp, "big"),
+                        "--image_size", str(STREAM_SIZE), "--bf16", "1", "--streamed", "auto",
+                        "--device", "cuda"])[""]
+        hist = th.histogram_u8_kernel.launches
+        print(f"  single {STREAM_SIZE}^2 mosaic, --streamed auto: {time.perf_counter() - t0:.2f} s "
+              f"(host clock, decode and three PNGs included), histogram launches {hist}")
+        if hist != 1:
+            raise AssertionError(f"--streamed auto at {STREAM_SIZE}^2 did not take the streamed route")
+        if not np.array_equal(mask, streamed_mask):
+            raise AssertionError("the served 8192^2 mask differs from segment_mosaic_streamed's")
+        if len(os.listdir(os.path.join(tmp, "big"))) != 3:
+            raise AssertionError("single-image mode did not write the three artifacts")
+    print(f"  the single-image {STREAM_SIZE}^2 mask equals phase 6's streamed mask")
 
 
 def _mim_cfg(amp):
@@ -516,24 +760,44 @@ def main():
             print(f"  ptxas: {line.strip()}")
 
     phases = time.perf_counter()
+    t = [phases]
+
+    def took(label):
+        now = time.perf_counter()
+        print(f"  {label}: {now - t[0]:.1f} s (host clock)")
+        t[0] = now
+
     with pipeline.exact_matmuls():  # the plain twins' f32 matmuls too
         print("phase 1: kernels against their plain twins")
         kernels = phase_kernels()
+        took("phase 1")
         print("phase 2: segment_mosaic at full width")
-        launches, model_bf16 = phase_slice()
+        launches, models = phase_slice()
+        took("phase 2")
         print("phase 3: directory serving")
-        phase_serving(model_bf16)
-        del model_bf16
+        phase_serving(models["bf16"])
+        took("phase 3")
         print("phase 4: the MIM step at full width")
         mim_launches = phase_mim()
+        took("phase 4")
     print("phase 5: the MIM CLI, with auto-resume")
     phase_mim_cli()
-    print(f"phases 1-5: {time.perf_counter() - phases:.1f} s (host clock)")
+    took("phase 5")
+    print("phase 6: segment_mosaic_streamed at full width")
+    stream_launches, streamed_mask = phase_streamed(models)
+    took("phase 6")
+    print("phase 7: streamed serving with every artifact")
+    phase_serving_streamed(models["bf16"], streamed_mask)
+    took("phase 7")
+    print(f"phases 1-7: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():
         _, sources, replaces = KERNELS[name]
-        path_launches = (launches if name in MOSAIC_LAUNCHES else mim_launches)[tag][name]
+        if name == "histogram_u8_kernel":
+            path_launches = stream_launches[name]
+        else:
+            path_launches = (launches if name in MOSAIC_LAUNCHES else mim_launches)[tag][name]
         rows.append({"name": f"{name}[{tag}]", "route": "cuda", "source": CSRC + sources[tag],
                      "replaces": replaces, "launches": path_launches, **r})
     print(smi[0])

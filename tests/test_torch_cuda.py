@@ -14,6 +14,7 @@ from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
 from vit_ocm_wmsegmentation_tpu_torch.models import vit
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -157,3 +158,34 @@ def test_vit_tiny_mosaic_kernel_route_matches_plain_route(cuda, monkeypatch):
     a, b = mask.cpu().numpy() > 0, pmask.cpu().numpy() > 0
     assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.999
     assert float((attn - pattn).abs().max()) < 2e-3  # 0-255 scale
+
+
+def _u8_case(case, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if case == "n0":
+        return torch.empty(0, dtype=torch.uint8, device=dev)
+    if case == "n1":
+        return torch.full((1,), 200, dtype=torch.uint8, device=dev)
+    if case == "17x13":
+        return torch.randint(0, 256, (17, 13), generator=gen, device=dev, dtype=torch.uint8)
+    if case == "misaligned":  # a view whose data pointer is 1 byte past a 16-byte boundary
+        x = torch.randint(0, 256, (100003,), generator=gen, device=dev, dtype=torch.uint8)
+        return x[1:]
+    if case == "zeros_2^30":  # one bin, every lane of a warp on one shared address
+        return torch.zeros(1 << 30, dtype=torch.uint8, device=dev)
+    x = torch.full(((1 << 24) + 67,), 7, dtype=torch.uint8, device=dev)  # past f32's 2^24
+    x[-5:] = 9
+    return x
+
+
+@pytest.mark.parametrize("case", ["n0", "n1", "17x13", "misaligned", "zeros_2^30", "2^24+67"])
+def test_histogram_kernel_equals_twin(cuda, case):
+    x = _u8_case(case, cuda)
+    if case == "misaligned":
+        assert x.data_ptr() % 16 != 0
+    before = th.histogram_u8_kernel.launches
+    got = th.histogram_u8_kernel(x)
+    want = th.histogram_u8_chunked(x)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert float(got.double().sum()) == x.numel()
+    assert th.histogram_u8_kernel.launches == before + (1 if x.numel() else 0)

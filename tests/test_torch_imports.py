@@ -10,6 +10,7 @@ import torch
 from vit_ocm_wmsegmentation_tpu_torch import build, mim, sw_processing
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "vit_ocm_wmsegmentation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "vit_ocm_wmsegmentation_tpu")
@@ -65,7 +66,10 @@ def test_wrappers_raise_off_cpu_without_kernel():
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention_bwd(q, q, q, q, _meta(2, 8), q)
+    with pytest.raises(ValueError, match="no kernel"):
+        th.histogram_u8_kernel(torch.empty(64, dtype=torch.uint8, device="meta"))
     assert fa.attention_qkv.launches == fm.fused_mlp_block.launches == 0
+    assert th.histogram_u8_kernel.launches == 0
     assert fa.flash_attention.launches == fa.flash_attention_bwd.launches == 0
     assert fm.fused_mlp_block_h1.launches == fm.fused_mlp_bwd.launches == 0
 

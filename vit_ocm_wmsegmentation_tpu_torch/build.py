@@ -64,6 +64,8 @@ def _declare(lib):
     lib.vitocm_fused_mlp.restype = _I
     lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 12, _I, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp_bwd.restype = _I
+    lib.vitocm_histogram_u8.argtypes = [_P, ctypes.c_size_t, _P, _P]
+    lib.vitocm_histogram_u8.restype = _I
     return lib
 
 

@@ -114,11 +114,14 @@ def _restitch_u8_table(n: int, window: int, stride: int) -> np.ndarray:
     return acc
 
 
-def restitch_u8(img_u8, window: int, stride: int):
+def restitch_u8(img_u8, window: int, stride: int, chunk_px: int = 1 << 24):
     """The uint8 mosaic the reference obtains by tiling img and
     blend-restitching the tiles (sw_processing.py:227-229): a per-pixel
     gather out[y, x] = Tv[Th[img[y, x], x], y] through the two 1D truncation
-    tables (horizontal blends first, then vertical, as the reference)."""
+    tables (horizontal blends first, then vertical, as the reference). The
+    gather runs over row chunks of about ``chunk_px`` pixels, so its int64
+    index temporaries stay bounded (8.6 GB each for one 32768^2 gather);
+    the gathered values do not depend on the chunking."""
     h, w = img_u8.shape
     dev = img_u8.device
     n_y = len(tile_starts(h, window, stride))
@@ -126,6 +129,11 @@ def restitch_u8(img_u8, window: int, stride: int):
     th = torch.as_tensor(_restitch_u8_table(n_x, window, stride), device=dev)  # (256, W)
     tv = torch.as_tensor(_restitch_u8_table(n_y, window, stride), device=dev)  # (256, H)
     cols = torch.arange(w, device=dev)
-    rows = torch.arange(h, device=dev)
-    hpass = th[img_u8.long(), cols[None, :]]
-    return tv[hpass.long(), rows[:, None]]
+    out = torch.empty_like(img_u8)
+    step = max(1, chunk_px // w)
+    for r0 in range(0, h, step):
+        r1 = min(r0 + step, h)
+        rows = torch.arange(r0, r1, device=dev)
+        hpass = th[img_u8[r0:r1].long(), cols[None, :]]
+        out[r0:r1] = tv[hpass.long(), rows[:, None]]
+    return out

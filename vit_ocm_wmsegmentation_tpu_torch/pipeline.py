@@ -140,3 +140,114 @@ def segment_mosaic(model, img_u8, window=384, stride=128, median_size=1,
         timg = st.restitch_u8(padded, window, stride)[:h, :w]
     mask, _, _ = th.threshold_multiplicative(timg, attn)
     return mask, attn
+
+
+# ---------------------------------------------------------------------------
+# Streamed gigapixel pipeline: one band of tile rows at a time
+# ---------------------------------------------------------------------------
+
+# sw_processing --streamed auto: mosaics above this many megapixels take
+# segment_mosaic_streamed, the routing of the JAX package (pipeline.py:37)
+STREAM_AUTO_MP = 22
+# bands between two progress callbacks (segment_mosaic_streamed's band_chunk)
+DEFAULT_BAND_CHUNK = 8
+
+
+def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, median_size,
+                      dtype):
+    """Process the row of tiles starting at mosaic row y0 and add its
+    weighted attention strip into the (H, W) f32 canvas ``acc`` in place
+    (the torch counterpart of the JAX package's donated canvas).
+
+    The tiles are views into the strip (the same pixels as extract_tiles);
+    wy_row (window,) is this row's vertical blend profile and wx (J, window)
+    the horizontal ones, both f32 on the device. As in the JAX package the
+    maps are multiplied by wy_row first, then overlap-added with ones on y
+    and wx on x."""
+    strip = img_dev[y0 : y0 + window]
+    tiles = strip.unfold(1, window, stride).permute(1, 0, 2)  # (J, window, window)
+    maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
+                                          median_size, dtype)
+                      for i in range(0, tiles.shape[0], TILE_CHUNK)])
+    ones = torch.ones((1, window), dtype=torch.float32, device=acc.device)
+    band = st.overlap_add(maps * wy_row[None, :, None], ones, wx, window, stride,
+                          (window, acc.shape[1]))
+    acc[y0 : y0 + window] += band
+
+
+@torch.inference_mode()
+def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1,
+                            dtype=torch.float32, exact_stitch=False, progress=None,
+                            band_chunk=None, single_dispatch=False, mesh=None):
+    """segment_mosaic with memory bounded for gigapixel mosaics.
+
+    segment_mosaic holds every tile's (window, window) attention map before
+    stitching (38 GB in f32 at 32768^2). Here only the uint8 mosaic and one
+    f32 attention canvas stay on the device; each tile row ("band") goes
+    through the ViT by itself and adds its blended strip into the canvas,
+    band after band in row order; the threshold then runs over the canvas
+    in row chunks, its histogram from :func:`ops.threshold.histogram_u8_kernel`.
+
+    ``img_u8`` (H, W) uint8 may be a numpy array, a CPU tensor or a device
+    tensor; it is uploaded once to the device of the model's parameters
+    (a CPU model runs everything on the CPU). ``band_chunk`` bands
+    (None = DEFAULT_BAND_CHUNK) pass between two ``progress(done, total)``
+    calls; canvas and mask do not depend on it. The attention agrees with
+    segment_mosaic's to float tolerance (the canvas sums band by band where
+    the fused stitch sums shifted blocks). ``single_dispatch`` and ``mesh``
+    are the JAX package's TPU dispatch and multi-chip options and raise.
+    Returns (mask (H, W) uint8 {0,255}, attention (H, W) float32)."""
+    if single_dispatch:
+        raise NotImplementedError("single_dispatch is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("mesh (multi-device streaming) is not ported yet")
+    if band_chunk is None:
+        band_chunk = DEFAULT_BAND_CHUNK
+    if band_chunk < 1:
+        raise ValueError(f"band_chunk must be >= 1, got {band_chunk}")
+    validate_window_geometry(window, stride)
+    dev = next(model.parameters()).device
+    img = torch.as_tensor(img_u8).to(dev)
+    padded, (h, w) = pad_mosaic(img, window, stride)
+    ys = st.tile_starts(padded.shape[0], window, stride)
+    # the blend profiles go to the device once, not once a band
+    wy = torch.as_tensor(st.blend_profiles_1d(len(ys), window, stride), dtype=torch.float32,
+                         device=dev)
+    wx = torch.as_tensor(st.blend_profiles_1d(len(st.tile_starts(padded.shape[1], window, stride)),
+                                              window, stride), dtype=torch.float32, device=dev)
+    acc = torch.zeros(padded.shape, dtype=torch.float32, device=dev)
+    with exact_matmuls():
+        for r, y0 in enumerate(ys):
+            _band_update_impl(model, padded, acc, int(y0), wy[r], wx, window, stride,
+                              median_size, dtype)
+            if progress is not None and ((r + 1) % band_chunk == 0 or r + 1 == len(ys)):
+                progress(r + 1, len(ys))
+    attn = acc[:h, :w]
+    timg = img if not exact_stitch else st.restitch_u8(padded, window, stride)[:h, :w]
+    return _threshold_mult_streamed(timg, attn), attn
+
+
+def _blend_u8(timg, attn):
+    """The uint8 blend image threshold_multiplicative thresholds,
+    uint8(timg * min_max_normalize(attn) / max), over row chunks so that the
+    normalized attention is never materialised; bit-equal to it: the same
+    (attn - lo) / (hi - lo) division (a reciprocal multiply differs by ulps,
+    enough to flip a uint8 truncation), then the image product, then the
+    division by max(attn), which is exactly 1 after the min-max, or
+    max(hi, eps) for a constant canvas, which passes unchanged as
+    min_max_normalize passes it."""
+    lo, hi = attn.min(), attn.max()
+    const = hi == lo
+    rng = torch.where(const, torch.ones_like(hi), hi - lo)
+    shift = torch.where(const, torch.zeros_like(lo), lo)
+    denom2 = torch.where(const, torch.clamp_min(hi, th._FLT_EPSILON), torch.ones_like(hi))
+    return th.map_rows(
+        lambda img, a: (img.float() * ((a - shift) / rng) / denom2).to(torch.uint8), timg, attn)
+
+
+def _threshold_mult_streamed(timg, attn):
+    """threshold_multiplicative(timg, attn)[0] with bounded memory: the
+    blend image from :func:`_blend_u8`, its histogram from
+    histogram_u8_kernel, and no heatmap or image mask. Bit-equal."""
+    result = _blend_u8(timg, attn)
+    return th.binary_above(result, th.otsu_from_hist(th.histogram_u8_kernel(result)))

@@ -1,14 +1,20 @@
 """Sliding-window mosaic segmentation: the port's serving entry point.
 
     python -m vit_ocm_wmsegmentation_tpu_torch.sw_processing \\
-        --image_path <image or directory> --output_dir out/ --bf16 1 --save mask
+        --image_path <image or directory> --output_dir out/ --bf16 1
 
-``--image_path`` may be one image or a directory; in directory mode every
-image in it is decoded, segmented and written in turn, one request after the
-other, each mask to ``<output_dir>/<name>/otsu_sw.jpg``. The flags follow the
-repository's root ``sw_processing.py`` where they apply. The device is
-``--device`` (default ``cuda``); a missing device raises, the CPU is taken
-only when asked for.
+``--image_path`` may be one image or a directory. One image is decoded,
+segmented and written with its three artifacts: ``attention_map_sw.jpg``
+(the attention map in viridis), ``otsu_sw_heatmap.jpg`` (the Otsu mask of
+the attention heatmap) and ``otsu_sw.jpg`` (the mask), all PNG bytes. A
+directory is served as a three-stage pipeline: a prefetch thread decodes
+mosaic i+2 and uploads it on a side stream, the main thread issues the
+compute of mosaic i+1, and writer threads (``--writers``) encode mosaic i
+into ``<output_dir>/<name>/`` (``--save mask`` writes the mask only).
+Mosaics above ``pipeline.STREAM_AUTO_MP`` megapixels take the band-streamed
+path (``--streamed``). The flags follow the repository's root
+``sw_processing.py`` where they apply. The device is ``--device`` (default
+``cuda``); a missing device raises, the CPU is taken only when asked for.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 
 import numpy as np
@@ -23,10 +31,16 @@ import torch
 from PIL import Image
 
 from . import pipeline as pl
+from .data.prefetch import prefetch
 from .models import vit
+from .ops import threshold as th
 from .train.checkpoint import load_torch_checkpoint
+from .utils.imageio import attention_lut_index, create_dir, imsave_fast
 
 _IMAGE_EXT = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
+# (file name, colormap) of the attention map, the heatmap Otsu mask, the mask
+ARTIFACTS = (("attention_map_sw.jpg", None), ("otsu_sw_heatmap.jpg", "gray"),
+             ("otsu_sw.jpg", "gray"))
 
 
 def parse_args(argv=None):
@@ -43,11 +57,22 @@ def parse_args(argv=None):
     parser.add_argument("--bf16", default=0, type=int,
                         help="run the ViT in bfloat16 (f32 softmax statistics and "
                              "accumulation); 0 = float32 like the reference")
+    parser.add_argument("--writers", default=0, type=int,
+                        help="directory mode: PNG writer threads (0 = min(4, cpu_count-1))")
+    parser.add_argument("--save", default="all", choices=["all", "mask"],
+                        help="directory mode: artifacts per mosaic; 'mask' writes only "
+                             "otsu_sw.jpg")
+    parser.add_argument("--streamed", default="auto", choices=["auto", "0", "1"],
+                        help="take the band-streamed path (segment_mosaic_streamed: one "
+                             "f32 canvas on the device, one tile row at a time); auto = "
+                             f"streamed above {pl.STREAM_AUTO_MP} MP")
+    parser.add_argument("--band_chunk", default=None, type=int,
+                        help="streamed mode: tile rows between two progress lines "
+                             "(default pipeline.DEFAULT_BAND_CHUNK); the outputs do not "
+                             "depend on it")
     parser.add_argument("--exact_stitch", default=0, type=int,
                         help="threshold the reference's re-stitched uint8 mosaic "
                              "bit-exactly instead of the original image")
-    parser.add_argument("--save", default="mask", choices=["mask"],
-                        help="artifacts per mosaic: 'mask' writes otsu_sw.jpg")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on; raises if it is missing")
     return parser.parse_args(argv)
@@ -83,11 +108,18 @@ def decode(path: str, size) -> np.ndarray:
     return np.array(img.convert("L"), np.uint8)
 
 
-def write_mask(out_dir: str, mask_u8: np.ndarray):
-    """otsu_sw.jpg as the root CLI writes it: PNG bytes, lossless."""
-    os.makedirs(out_dir, exist_ok=True)
-    Image.fromarray(mask_u8, mode="L").save(os.path.join(out_dir, "otsu_sw.jpg"),
-                                            format="PNG", compress_level=1)
+def write(out_dir: str, arrays):
+    """The artifacts of one mosaic, uint8 host arrays (mask,) or (mask,
+    viridis indices, heatmap Otsu mask), as PNG bytes."""
+    create_dir(out_dir)
+    mask, *extras = arrays
+    for (fname, cmap), arr in [*zip(ARTIFACTS[:2], extras), (ARTIFACTS[2], mask)]:
+        imsave_fast(os.path.join(out_dir, fname), arr, cmap=cmap)
+
+
+def streamed_route(flag: str, size) -> bool:
+    """--streamed: 1 always, 0 never, auto above STREAM_AUTO_MP megapixels."""
+    return flag == "1" or (flag == "auto" and size[0] * size[1] > pl.STREAM_AUTO_MP * 1e6)
 
 
 def main(argv=None):
@@ -97,38 +129,118 @@ def main(argv=None):
     device = resolve_device(args.device)
     size = tuple(args.image_size) if len(args.image_size) == 2 else (args.image_size[0],) * 2
     pl.validate_window_geometry(args.window_size, args.stride)
+    if args.writers < 0:
+        raise SystemExit(f"--writers must be >= 0, got {args.writers}")
     model = load_model(args.arch, args.patch_size, args.pretrained_weights,
                        args.checkpoint_key, device=device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = pl.cast_params(model, dtype)
+    streamed = streamed_route(args.streamed, size)
+    cuda = device.type == "cuda"
 
-    def segment(gray: np.ndarray) -> np.ndarray:
-        img = torch.from_numpy(gray).to(device)
-        mask, _ = pl.segment_mosaic(model, img, args.window_size, args.stride, dtype=dtype,
-                                    exact_stitch=bool(args.exact_stitch))
-        return mask.cpu().numpy()
+    @torch.inference_mode()
+    def segment(gray_dev, mask_only):
+        """Issue one mosaic's compute; returns its artifacts on the device."""
+        if streamed:
+            mask, attn = pl.segment_mosaic_streamed(
+                model, gray_dev, args.window_size, args.stride, dtype=dtype,
+                exact_stitch=bool(args.exact_stitch), band_chunk=args.band_chunk,
+                progress=lambda done, total: print(f"  band {done}/{total} issued", flush=True))
+        else:
+            mask, attn = pl.segment_mosaic(model, gray_dev, args.window_size, args.stride,
+                                           dtype=dtype, exact_stitch=bool(args.exact_stitch))
+        if mask_only:
+            return (mask,)
+        # the attention leaves the device as uint8 viridis indices
+        return mask, attention_lut_index(attn), th.heatmap_otsu(attn)
 
+    def to_host(outs):
+        """Start the copies of ``outs`` into pinned host buffers behind the
+        compute; returns (buffers, event the copies complete at)."""
+        if not cuda:
+            return [o.numpy() for o in outs], None
+        hosts = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+        for h, o in zip(hosts, outs):
+            h.copy_(o, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return hosts, done
+
+    def write_back(out_dir, hosts, done):
+        """Writer thread: wait for the copies, encode, return the mask."""
+        if done is not None:
+            done.synchronize()
+        arrays = [np.asarray(h) for h in hosts]
+        write(out_dir, arrays)
+        return arrays[0].copy()  # the pinned buffers go back to the allocator
+
+    route = "band-streamed" if streamed else "fused"
     if not os.path.isdir(args.image_path):
-        mask = segment(decode(args.image_path, size))
-        write_mask(args.output_dir, mask)
-        print(f"mosaic segmented on {device}; output in {args.output_dir}")
+        gray = torch.from_numpy(decode(args.image_path, size)).to(device)
+        mask = write_back(args.output_dir, *to_host(segment(gray, mask_only=False)))
+        print(f"mosaic segmented on {device} ({route}); output in {args.output_dir}")
         return {"": mask}
 
     paths = sorted(p for p in glob(os.path.join(args.image_path, "*"))
                    if p.lower().endswith(_IMAGE_EXT))
     if not paths:
         raise SystemExit(f"no images found in {args.image_path}")
-    masks = {}
-    t0 = time.perf_counter()
-    for p in paths:
-        name = os.path.splitext(os.path.basename(p))[0]
-        masks[name] = segment(decode(p, size))
-        write_mask(os.path.join(args.output_dir, name), masks[name])
+    mask_only = args.save == "mask"
+    upload = torch.cuda.Stream(device) if cuda else None
+
+    def produce():
+        for p in paths:
+            yield os.path.splitext(os.path.basename(p))[0], decode(p, size)
+
+    def place(item):
+        """Prefetch thread: upload on the side stream; the consumer waits on
+        the returned event before it uses the mosaic."""
+        name, gray = item
+        if not cuda:
+            return name, torch.from_numpy(gray).to(device), None
+        with torch.cuda.stream(upload):
+            dev = torch.from_numpy(gray).pin_memory().to(device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(upload)
+        return name, dev, ready
+
+    n_writers = args.writers or max(1, min(4, (os.cpu_count() or 2) - 1))
+    futures, inflight, pending = {}, deque(), deque()
+    t0, t_first = time.perf_counter(), None
+    items = prefetch(produce(), depth=2, place=place)
+    with ThreadPoolExecutor(max_workers=n_writers) as writers:
+        def submit(name, hosts, done):
+            futures[name] = writers.submit(write_back, os.path.join(args.output_dir, name),
+                                           hosts, done)
+            pending.append(futures[name])
+            while len(pending) > 2 * n_writers:  # bound the writer backlog
+                pending.popleft().result()
+
+        try:
+            for name, gray, ready in items:
+                if ready is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(ready)
+                    gray.record_stream(stream)  # not reused before the compute is done
+                inflight.append((name, *to_host(segment(gray, mask_only))))
+                if len(inflight) > 1:
+                    submit(*inflight.popleft())
+                    if t_first is None:
+                        t_first = time.perf_counter()
+        finally:
+            items.close()
+        while inflight:
+            submit(*inflight.popleft())
+        masks = {name: f.result() for name, f in futures.items()}
     dt = time.perf_counter() - t0
-    mp = len(paths) * size[0] * size[1] / 1e6
-    print(f"segmented {len(paths)} mosaics ({mp:.2f} MP) on {device} in {dt:.2f} s "
-          f"(decode, segment and write, first-call set-up included); output in "
-          f"{args.output_dir}")
+    mp_one = size[0] * size[1] / 1e6
+    steady = ""
+    if t_first is not None and len(paths) > 1:
+        rate = (len(paths) - 1) * mp_one / (time.perf_counter() - t_first)
+        steady = f" ({rate:.2f} MP/s in steady state after the first mosaic)"
+    print(f"segmented {len(paths)} mosaics ({len(paths) * mp_one:.2f} MP) on {device} "
+          f"({route}) in {dt:.2f} s = {len(paths) * mp_one / dt:.2f} MP/s, host clock, "
+          f"first mosaic's set-up included{steady}; output in {args.output_dir}")
     return masks
 
 
