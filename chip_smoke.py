@@ -14,7 +14,10 @@ and then, failing on the first phase that fails:
    that call (CUDA events, median of 10 after warm-up); the mosaic kernels
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
    the histogram on a 32768^2 uint8 image and on 2^24 + 67 pixels of two
-   values (counts exactly equal to the twin's);
+   values (counts exactly equal to the twin's); the opt-in training routes'
+   kernels (saved-P attention forward and backward, the MLP block's gp
+   forward and backward, LN -> qkv forward and backward) at the MIM step's
+   shapes, the gp forward's out bit-equal to the h1 forward's;
 2. runs ``segment_mosaic`` on a 1152^2 uint8 mosaic (window 384, stride 128,
    49 tiles) with ViT-S/8 at full width and random weights from a seed, in
    float32 and bfloat16: bf16-vs-f32 mask Dice > 0.99, kernel route vs plain
@@ -27,9 +30,16 @@ and then, failing on the first phase that fails:
    first step's loss, grad norm and gradients against the plain route, the
    launches of one step (4 of each training kernel), ms/step, images/s and
    peak device memory;
+4b. the same step on each opt-in kernel route (TRAIN.LN_QKV kernel,
+   TRAIN.ATTN_SAVE_P on, TRAIN.MLP_REMAT kernel+gp, and all three at once),
+   f32 and AMP bf16: the first step's loss and grad norm against the plain
+   route, the loss against phase 4's default route, 4 launches of each of
+   the route's kernels, ms/step, images/s, peak memory, the loss after 14
+   steps;
 5. runs the MIM CLI ``mim.main`` on 32 synthetic PNGs for 2 epochs, then
    for 3 into the same output, which must resume at epoch 2 with the
-   optimizer state;
+   optimizer state; then one epoch with the three opt-in routes in
+   ``--opts``, on their kernels;
 6. runs ``segment_mosaic_streamed`` (the gigapixel path) with ViT-S/8 at
    full width: (a) on an 8192^2 synthetic OCM-like mosaic in bf16 (3844
    tiles in 62 bands) against ``segment_mosaic``, mask agreement >= 0.999,
@@ -81,6 +91,7 @@ CSRC = "vit_ocm_wmsegmentation_tpu_torch/csrc/"
 FA = "vit_ocm_wmsegmentation_tpu/ops/flash_attention.py"
 FM = "vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py"
 TH = "vit_ocm_wmsegmentation_tpu/ops/threshold.py"
+LN = "vit_ocm_wmsegmentation_tpu/ops/ln_linear.py"
 # wrapper -> (module, source file per storage dtype, TPU kernel it replaces)
 KERNELS = {
     "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
@@ -97,10 +108,32 @@ KERNELS = {
     "fused_mlp_bwd": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
                       FM + ":243"),
     "histogram_u8_kernel": ("th", {"u8": "histogram_u8.cu"}, TH + ":71"),
+    "flash_attention_savep": ("fa", {"f32": "attention_savep.cu", "bf16": "attention_savep_mma.cu"},
+                              FA + ":74"),
+    "flash_attention_bwd_savep": ("fa", {"f32": "attention_savep.cu",
+                                         "bf16": "attention_savep_mma.cu"}, FA + ":211"),
+    "fused_mlp_block_gp": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"}, FM + ":123"),
+    "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
+                         FM + ":243"),
+    "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
+    "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":44"),
 }
 MOSAIC_LAUNCHES = {"attention_qkv": 11, "fused_mlp_block_lnout": 10, "fused_mlp_block": 1}
 MIM_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 4, "fused_mlp_block_h1": 4,
                 "fused_mlp_bwd": 4}
+# opt-in training route -> (models.vit.TrainRoutes fields, the kernels one
+# step launches 4 times each, one a block)
+_ATTN, _SAVEP = ("flash_attention", "flash_attention_bwd"), ("flash_attention_savep",
+                                                              "flash_attention_bwd_savep")
+_H1, _GP = ("fused_mlp_block_h1", "fused_mlp_bwd"), ("fused_mlp_block_gp", "fused_mlp_bwd_gp")
+_LNQKV = ("ln_linear", "ln_linear_bwd")
+MIM_ROUTES = {
+    "LN_QKV kernel": ({"ln_qkv": True}, _LNQKV + _ATTN + _H1),
+    "ATTN_SAVE_P on": ({"attn_save_p": True}, _SAVEP + _H1),
+    "MLP_REMAT kernel+gp": ({"mlp_save_gp": True}, _ATTN + _GP),
+    "all three": ({"ln_qkv": True, "attn_save_p": True, "mlp_save_gp": True}, _LNQKV + _SAVEP + _GP),
+}
+ROUTE_OPTS = ["TRAIN.LN_QKV", "kernel", "TRAIN.ATTN_SAVE_P", "on", "TRAIN.MLP_REMAT", "kernel+gp"]
 STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 3844 tiles
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
@@ -110,9 +143,10 @@ BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 def _modules():
     from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
     from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+    from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as ln
     from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
-    return {"fa": fa, "fm": fm, "th": th}
+    return {"fa": fa, "fm": fm, "ln": ln, "th": th}
 
 
 def launch_counts():
@@ -129,11 +163,17 @@ def reset_counts():
 @contextlib.contextmanager
 def plain_training_route():
     """Every training kernel wrapper swapped for its plain twin."""
-    fa, fm = _modules()["fa"], _modules()["fm"]
+    fa, fm, ln = (_modules()[m] for m in ("fa", "fm", "ln"))
     twins = {(fa, "flash_attention"): fa.flash_attention_plain,
              (fa, "flash_attention_bwd"): fa.flash_attention_bwd_plain,
+             (fa, "flash_attention_savep"): fa.flash_attention_savep_plain,
+             (fa, "flash_attention_bwd_savep"): fa.flash_attention_bwd_savep_plain,
              (fm, "fused_mlp_block_h1"): lambda *a: fm.fused_mlp_block_plain(*a, want_h1=True),
-             (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd_plain}
+             (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd_plain,
+             (fm, "fused_mlp_block_gp"): fm.fused_mlp_block_gp_plain,
+             (fm, "fused_mlp_bwd_gp"): fm.fused_mlp_bwd_gp_plain,
+             (ln, "ln_linear"): ln.ln_linear_plain,
+             (ln, "ln_linear_bwd"): ln.ln_linear_bwd_plain}
     with contextlib.ExitStack() as stack:
         for (mod, name), twin in twins.items():
             stack.enter_context(mock.patch.object(mod, name, twin))
@@ -265,6 +305,86 @@ def _kernel_cases(tag, dtype, gen):
         lambda: fm.fused_mlp_bwd_plain(xm, dom, h1, s, bb, w1, w2),
         lambda g, w: _compare("fused_mlp_bwd", tag, g, w, GRAD_TOL[tag]), None,
         8 * rows * dm * hid, (3 * rows * dm + rows * hid) * isz + w_bytes + 2 * dm * hid * 4)
+    cases.update(_route_cases(tag, dtype, isz, tol, (q, k, v, do), (xm, dom, mlp), randn))
+    return cases
+
+
+def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
+    """_kernel_cases' entries for the opt-in training routes' kernels, at
+    the MIM step's shapes: the saved-P attention (P (48, 2305, 2368)), the
+    MLP block's gp mode, LN -> qkv (36880 x 384 -> 1152)."""
+    import torch
+    import torch.nn.functional as F
+
+    fa, fm, ln = (_modules()[m] for m in ("fa", "fm", "ln"))
+    cases = {}
+    q, k, v, do = attn
+    bh, n, hd = q.shape
+    out, p, inv = fa.flash_attention_savep(q, k, v)
+    torch.cuda.synchronize()
+    p_bytes = p.numel() * isz
+
+    def check_savep(g, w):
+        if bool(g[1][..., n:].any()):
+            raise AssertionError("flash_attention_savep: P's padded columns are not 0")
+        err = _compare("flash_attention_savep", tag, g[0], w[0], tol)
+        _compare("flash_attention_savep P", tag, g[1], w[1], tol)
+        _compare("flash_attention_savep inv", tag, g[2], w[2], LSE_TOL[tag])
+        return err
+
+    sdpa_in = [t.unflatten(0, (MIM_BATCH, 3)).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
+    cases["flash_attention_savep"] = (
+        lambda: fa.flash_attention_savep(q, k, v), lambda: fa.flash_attention_savep_plain(q, k, v),
+        check_savep, lambda: F.scaled_dot_product_attention(*sdpa_in),
+        4 * bh * n * n * hd, 4 * bh * n * hd * isz + p_bytes + bh * n * 4)
+    cases["flash_attention_bwd_savep"] = (
+        lambda: fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do),
+        lambda: fa.flash_attention_bwd_savep_plain(q, k, v, out, p, inv, do),
+        lambda g, w: _compare("flash_attention_bwd_savep", tag, g, w, GRAD_TOL[tag]),
+        lambda: torch.autograd.grad(sdpa_out, sdpa_in, do.unflatten(0, (MIM_BATCH, 3)),
+                                    retain_graph=True),
+        8 * bh * n * n * hd, 8 * bh * n * hd * isz + p_bytes + bh * n * 4)
+
+    xm, dom, mlp = mlp_in
+    rows, dm = xm.shape
+    hid = mlp[2].shape[0]
+    s, bb, w1, _, w2, _ = mlp
+    w_bytes = 2 * dm * hid * isz
+    out_h1 = fm.fused_mlp_block_h1(xm, *mlp)[0]
+    _, g, gp = fm.fused_mlp_block_gp(xm, *mlp)
+    torch.cuda.synchronize()
+
+    def check_gp(got, want):
+        if not torch.equal(got[0], out_h1):
+            raise AssertionError("fused_mlp_block_gp: out is not bit-equal to the h1 route's")
+        print(f"  fused_mlp_block_gp[{tag}]: out bit-equal to fused_mlp_block_h1's")
+        return _compare("fused_mlp_block_gp", tag, got, want, tol)
+
+    cases["fused_mlp_block_gp"] = (
+        lambda: fm.fused_mlp_block_gp(xm, *mlp), lambda: fm.fused_mlp_block_gp_plain(xm, *mlp),
+        check_gp, None, 4 * rows * dm * hid, (2 * rows * dm + 2 * rows * hid) * isz + w_bytes)
+    cases["fused_mlp_bwd_gp"] = (
+        lambda: fm.fused_mlp_bwd_gp(xm, dom, g, gp, s, bb, w1, w2),
+        lambda: fm.fused_mlp_bwd_gp_plain(xm, dom, g, gp, s, bb, w1, w2),
+        lambda got, want: _compare("fused_mlp_bwd_gp", tag, got, want, GRAD_TOL[tag]), None,
+        8 * rows * dm * hid,
+        (3 * rows * dm + 2 * rows * hid) * isz + w_bytes + 2 * dm * hid * 4)
+
+    kq = 3 * dm  # the qkv projection
+    wq = randn(kq, dm, std=dm ** -0.5).to(dtype)
+    bq = randn(kq, std=0.1)
+    dy = randn(rows, kq).to(dtype)
+    cases["ln_linear"] = (
+        lambda: ln.ln_linear(xm, s, bb, wq, bq), lambda: ln.ln_linear_plain(xm, s, bb, wq, bq),
+        lambda got, want: _compare("ln_linear", tag, got, want, tol), None,
+        2 * rows * dm * kq, (rows * dm + rows * kq + kq * dm) * isz + (2 * dm + kq) * 4)
+    cases["ln_linear_bwd"] = (
+        lambda: ln.ln_linear_bwd(xm, dy, s, bb, wq),
+        lambda: ln.ln_linear_bwd_plain(xm, dy, s, bb, wq),
+        lambda got, want: _compare("ln_linear_bwd", tag, got, want, GRAD_TOL[tag]), None,
+        4 * rows * dm * kq,
+        (2 * rows * dm + rows * kq + kq * dm) * isz + (kq * dm + kq + 4 * dm) * 4)
     return cases
 
 
@@ -633,7 +753,7 @@ def _mim_cfg(amp):
     return cfg
 
 
-def _mim_grads(model, x, mask, amp):
+def _mim_grads(model, x, mask, amp, routes):
     """(loss, grad norm, gradients) of one MIM step's loss, no update."""
     import torch
 
@@ -641,21 +761,20 @@ def _mim_grads(model, x, mask, amp):
 
     if amp:
         live = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
-        loss, _, _ = torch.func.functional_call(model, live, (x.to(torch.bfloat16), mask))
+        loss, _, _ = torch.func.functional_call(model, live,
+                                                (x.to(torch.bfloat16), mask, False, routes))
     else:
-        loss, _, _ = model(x, mask)
+        loss, _, _ = model(x, mask, False, routes)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     return float(loss.detach()), float(global_norm(grads)), grads
 
 
-def phase_mim():
-    """The MIM train step at full width, f32 and AMP bf16."""
+def _mim_inputs():
+    """16 synthetic 384^2 images, their masks and the seeded SimMIM model."""
     import torch
 
     from vit_ocm_wmsegmentation_tpu_torch.data.mask_generator import MaskGenerator
     from vit_ocm_wmsegmentation_tpu_torch.models import simmim
-    from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
-    from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -663,43 +782,85 @@ def phase_mim():
     gen_mask = MaskGenerator(MIM_SIZE, 16, 8, 0.5)
     mask = torch.from_numpy(np.stack([gen_mask(rng) for _ in range(MIM_BATCH)])).to(dev)
     vit_cfg = simmim.mim_vit_config(MIM_SIZE, 8)
-    model0 = simmim.init(vit_cfg, torch.Generator().manual_seed(0), dev)
-    launches = {}
-    for tag, amp in (("f32", False), ("bf16", True)):
-        loss, gnorm, grads = _mim_grads(model0, x, mask, amp)
-        with plain_training_route():
-            ploss, pgnorm, pgrads = _mim_grads(model0, x, mask, amp)
-        rel = max(float((g - p).abs().max()) / max(float(p.abs().max()), 1e-30)
-                  for g, p in zip(grads, pgrads))
-        del grads, pgrads
-        tol = 1e-5 if tag == "f32" else 1e-2
-        print(f"  MIM step [{tag}] first step: loss {loss:.6f} (plain {ploss:.6f}), grad norm "
-              f"{gnorm:.6f} (plain {pgnorm:.6f}), max relative gradient difference {rel:.3e}")
-        if not (np.isfinite(loss) and abs(loss - ploss) <= tol * abs(ploss)
-                and abs(gnorm - pgnorm) <= 10 * tol * abs(pgnorm)):
-            raise AssertionError(f"[{tag}] MIM step disagrees with the plain route")
+    return x, mask, simmim.init(vit_cfg, torch.Generator().manual_seed(0), dev)
 
-        model = copy.deepcopy(model0)
-        step = make_train_step(model, Optimizer(_mim_cfg(amp), model, lambda t: 1e-4), amp=amp)
-        torch.cuda.synchronize()
-        reset_counts()
-        step(x, mask)
-        torch.cuda.synchronize()
-        launches[tag] = launch_counts()
-        want = {name: MIM_LAUNCHES.get(name, 0) for name in KERNELS}
-        print(f"  MIM step [{tag}] launches: {launches[tag]}")
-        if launches[tag] != want:
-            raise AssertionError(f"launch counts {launches[tag]} != {want}")
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: step(x, mask), iters=10, warmup=2)
-        peak = torch.cuda.max_memory_allocated()
-        lsum = float(step(x, mask)[0])
-        if not np.isfinite(lsum):
-            raise AssertionError(f"[{tag}] loss {lsum} after 14 steps")
-        print(f"  MIM step [{tag}]: {ms:.2f} ms/step, {MIM_BATCH / (ms / 1e3):.1f} images/s, "
-              f"peak device memory {peak / 2**30:.3f} GiB, loss after 14 steps {lsum:.6f}")
-        del model, step
-        torch.cuda.empty_cache()
+
+def _mim_route_run(what, tag, model0, x, mask, routes, launched, default_loss=None):
+    """One route in one dtype: the first step against the plain route (and
+    against the default route's loss), the launches of one step, then 13
+    more steps timed. Returns (first loss, launch counts, ms/step)."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
+    from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
+
+    amp = tag == "bf16"
+    loss, gnorm, grads = _mim_grads(model0, x, mask, amp, routes)
+    with plain_training_route():
+        ploss, pgnorm, pgrads = _mim_grads(model0, x, mask, amp, routes)
+    rel = max(float((g - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+              for g, p in zip(grads, pgrads))
+    del grads, pgrads
+    tol = 1e-5 if tag == "f32" else 1e-2
+    vs_default = "" if default_loss is None else f", default route {default_loss:.6f}"
+    print(f"  {what} [{tag}] first step: loss {loss:.6f} (plain {ploss:.6f}{vs_default}), grad "
+          f"norm {gnorm:.6f} (plain {pgnorm:.6f}), max relative gradient difference {rel:.3e}")
+    if not (np.isfinite(loss) and abs(loss - ploss) <= tol * abs(ploss)
+            and abs(gnorm - pgnorm) <= 10 * tol * abs(pgnorm)):
+        raise AssertionError(f"{what} [{tag}] disagrees with the plain route")
+    if default_loss is not None and not abs(loss - default_loss) <= tol * abs(default_loss):
+        raise AssertionError(f"{what} [{tag}] loss {loss} disagrees with the default route's "
+                             f"{default_loss}")
+
+    model = copy.deepcopy(model0)
+    step = make_train_step(model, Optimizer(_mim_cfg(amp), model, lambda t: 1e-4), amp=amp,
+                           routes=routes)
+    torch.cuda.synchronize()
+    reset_counts()
+    step(x, mask)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {name: 4 if name in launched else 0 for name in KERNELS}
+    print(f"  {what} [{tag}] launches: { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"{what} [{tag}] launch counts {counts} != {want}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(x, mask), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    lsum = float(step(x, mask)[0])
+    if not np.isfinite(lsum):
+        raise AssertionError(f"{what} [{tag}] loss {lsum} after 14 steps")
+    print(f"  {what} [{tag}]: {ms:.2f} ms/step, {MIM_BATCH / (ms / 1e3):.1f} images/s, "
+          f"peak device memory {peak / 2**30:.3f} GiB, loss after 14 steps {lsum:.6f}")
+    del model, step
+    torch.cuda.empty_cache()
+    return loss, counts, ms
+
+
+def phase_mim():
+    """The MIM train step at full width, f32 and AMP bf16, default routes.
+    Returns {tag: (first loss, launch counts, ms/step)}."""
+    from vit_ocm_wmsegmentation_tpu_torch.models.vit import TrainRoutes
+
+    x, mask, model0 = _mim_inputs()
+    return {tag: _mim_route_run("MIM step", tag, model0, x, mask, TrainRoutes(), MIM_LAUNCHES)
+            for tag in ("f32", "bf16")}
+
+
+def phase_mim_routes(default):
+    """The MIM train step on each opt-in kernel route, against the plain
+    route and phase 4's default route. Returns {(route, tag): counts}."""
+    from vit_ocm_wmsegmentation_tpu_torch.models.vit import TrainRoutes
+
+    x, mask, model0 = _mim_inputs()
+    launches = {}
+    for route, (fields, launched) in MIM_ROUTES.items():
+        for tag in ("f32", "bf16"):
+            loss, launches[(route, tag)], ms = _mim_route_run(
+                f"MIM step, {route}", tag, model0, x, mask, TrainRoutes(**fields), launched,
+                default[tag][0])
+            print(f"  MIM step, {route} [{tag}]: {ms / default[tag][2]:.3f}x the default route's "
+                  f"{default[tag][2]:.2f} ms/step")
     return launches
 
 
@@ -735,7 +896,19 @@ def phase_mim_cli():
         if last["optimizer"]["updates"] != 6 or steps != {6}:
             raise AssertionError(f"resume lost the optimizer state: updates "
                                  f"{last['optimizer']['updates']}, AdamW steps {steps}")
-    print("  resumed at epoch 2 with the optimizer state (6 AdamW steps after 3 epochs)")
+        print("  resumed at epoch 2 with the optimizer state (6 AdamW steps after 3 epochs)")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        _, hist = mim.main(args[:-4] + ["--output", os.path.join(tmp, "routes"), "--output_dir",
+                                        os.path.join(tmp, "routes_log"), "--epochs", "1",
+                                        "--opts", *ROUTE_OPTS])
+        counts = {k: v for k, v in launch_counts().items() if v}
+        print(f"  1 epoch with --opts {' '.join(ROUTE_OPTS)} in {time.perf_counter() - t0:.2f} s "
+              f"(host clock), losses {hist}, launches {counts}")
+        want = {name: 8 for name in MIM_ROUTES["all three"][1]}  # 4 blocks x 2 steps
+        if len(hist) != 1 or not np.isfinite(hist).all() or counts != want:
+            raise AssertionError(f"the routes' epoch: losses {hist}, launches {counts} != {want}")
 
 
 def main():
@@ -778,8 +951,11 @@ def main():
         phase_serving(models["bf16"])
         took("phase 3")
         print("phase 4: the MIM step at full width")
-        mim_launches = phase_mim()
+        mim = phase_mim()
         took("phase 4")
+        print("phase 4b: the MIM step on the opt-in kernel routes")
+        route_launches = phase_mim_routes(mim)
+        took("phase 4b")
     print("phase 5: the MIM CLI, with auto-resume")
     phase_mim_cli()
     took("phase 5")
@@ -796,8 +972,12 @@ def main():
         _, sources, replaces = KERNELS[name]
         if name == "histogram_u8_kernel":
             path_launches = stream_launches[name]
-        else:
-            path_launches = (launches if name in MOSAIC_LAUNCHES else mim_launches)[tag][name]
+        elif name in MOSAIC_LAUNCHES:
+            path_launches = launches[tag][name]
+        elif name in MIM_LAUNCHES:
+            path_launches = mim[tag][1][name]
+        else:  # an opt-in route's kernel: the step with all three routes on
+            path_launches = route_launches[("all three", tag)][name]
         rows.append({"name": f"{name}[{tag}]", "route": "cuda", "source": CSRC + sources[tag],
                      "replaces": replaces, "launches": path_launches, **r})
     print(smi[0])

@@ -14,6 +14,7 @@ from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
 from vit_ocm_wmsegmentation_tpu_torch.models import vit
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as lnl
 from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 pytestmark = pytest.mark.cuda
@@ -189,3 +190,91 @@ def test_histogram_kernel_equals_twin(cuda, case):
     assert got.dtype == torch.float32 and torch.equal(got, want)
     assert float(got.double().sum()) == x.numel()
     assert th.histogram_u8_kernel.launches == before + (1 if x.numel() else 0)
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128)])
+def test_savep_attention_kernels_match_plain(cuda, dtype, bh, n, d):
+    """The saved-P forward (out, P, inv) and backward against their twins;
+    P's padded columns are 0; the backward is bit-equal across two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d + 2)
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    before = (fa.flash_attention_savep.launches, fa.flash_attention_bwd_savep.launches)
+    out, p, inv = fa.flash_attention_savep(q, k, v)
+    pout, pp, pinv = fa.flash_attention_savep_plain(q, k, v)
+    assert p.shape == pp.shape == (bh, n, fa.p_columns(n)) and p.dtype == dtype
+    assert not p[..., n:].any()
+    _close(out, pout, dtype)
+    _close(p, pp, dtype)
+    err = float((inv - pinv).abs().max())
+    assert err <= LSE_TOL[dtype] * float(pinv.abs().max()), err
+    grads = fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do)
+    for g, w in zip(grads, fa.flash_attention_bwd_savep_plain(q, k, v, out, p, inv, do)):
+        _close_grad(g, w, dtype)
+    assert _bit_equal(grads, fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do))
+    assert (fa.flash_attention_savep.launches, fa.flash_attention_bwd_savep.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(70, 384), (130, 192), (1, 384), (1100, 384)])
+def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d):
+    """The SAVE_GP forward against its twin, its out bit-equal to the h1
+    forward's; the gp backward against its twin."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + 3)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
+    h = 4 * d
+    x, do = r(rows, d).to(dtype), r(rows, d).to(dtype)
+    w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
+    s, bb, b1, b2 = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(h, std=0.1), r(d, std=0.1)
+    out, g, gp = fm.fused_mlp_block_gp(x, s, bb, w1, b1, w2, b2)
+    pout, pg, pgp = fm.fused_mlp_block_gp_plain(x, s, bb, w1, b1, w2, b2)
+    assert torch.equal(out, fm.fused_mlp_block_h1(x, s, bb, w1, b1, w2, b2)[0])
+    for got, want in ((out, pout), (g, pg), (gp, pgp)):
+        _close(got, want, dtype)
+    before = fm.fused_mlp_bwd_gp.launches
+    for got, want in zip(fm.fused_mlp_bwd_gp(x, do, g, gp, s, bb, w1, w2),
+                         fm.fused_mlp_bwd_gp_plain(x, do, g, gp, s, bb, w1, w2)):
+        _close_grad(got, want, dtype)
+    assert fm.fused_mlp_bwd_gp.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,k", [(70, 384, 1152), (130, 192, 576), (1, 384, 1152),
+                                      (1100, 384, 1152)])
+def test_ln_linear_kernels_match_plain(cuda, dtype, rows, d, k):
+    """ln_linear and its backward against their twins; the backward's
+    gradients are bit-equal across two runs (fixed-order reductions)."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + k)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
+    x, dy = r(rows, d, std=2.0, mean=0.5).to(dtype), r(rows, k).to(dtype)
+    w = r(k, d, std=d ** -0.5).to(dtype)
+    s, bb, b = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(k, std=0.1)
+    before = (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches)
+    _close(lnl.ln_linear(x, s, bb, w, b), lnl.ln_linear_plain(x, s, bb, w, b), dtype)
+    grads = lnl.ln_linear_bwd(x, dy, s, bb, w)
+    for got, want in zip(grads, lnl.ln_linear_bwd_plain(x, dy, s, bb, w)):
+        _close_grad(got, want, dtype)
+    assert _bit_equal(grads, lnl.ln_linear_bwd(x, dy, s, bb, w))
+    assert (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+def test_new_wrappers_reject_layouts_they_do_not_take(cuda):
+    x = torch.zeros(4, 384, device=cuda)
+    v = torch.zeros(384, device=cuda)
+    with pytest.raises(ValueError, match="w"):
+        lnl.ln_linear(x, v, v, torch.zeros(384, 1152, device=cuda), torch.zeros(1152, device=cuda))
+    with pytest.raises(ValueError, match="dy"):
+        lnl.ln_linear_bwd(x, torch.zeros(4, 1151, device=cuda), v, v,
+                          torch.zeros(1152, 384, device=cuda))
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="P of shape"):
+        fa.flash_attention_bwd_savep(q, q, q, q, torch.zeros(2, 8, 8, device=cuda),
+                                     torch.zeros(2, 8, device=cuda), q)
+    w1, w2 = torch.zeros(1536, 384, device=cuda), torch.zeros(384, 1536, device=cuda)
+    with pytest.raises(ValueError, match="gp"):
+        fm.fused_mlp_bwd_gp(x, x, torch.zeros(4, 1536, device=cuda), x, v, v, w1, w2)

@@ -60,10 +60,18 @@ def _declare(lib):
     lib.vitocm_flash_fwd.restype = _I
     lib.vitocm_flash_bwd.argtypes = [_I, *[_P] * 10, _I, _I, _I, _P]
     lib.vitocm_flash_bwd.restype = _I
-    lib.vitocm_fused_mlp.argtypes = [_I, _I, *[_P] * 12, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_flash_fwd_savep.argtypes = [_I, *[_P] * 6, _I, _I, _I, _I, _P]
+    lib.vitocm_flash_fwd_savep.restype = _I
+    lib.vitocm_flash_bwd_savep.argtypes = [_I, *[_P] * 11, _I, _I, _I, _I, _P]
+    lib.vitocm_flash_bwd_savep.restype = _I
+    lib.vitocm_fused_mlp.argtypes = [_I, _I, *[_P] * 13, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp.restype = _I
-    lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 12, _I, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 13, _I, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp_bwd.restype = _I
+    lib.vitocm_ln_linear.argtypes = [_I, *[_P] * 6, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_ln_linear.restype = _I
+    lib.vitocm_ln_linear_bwd.argtypes = [_I, *[_P] * 10, _I, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_ln_linear_bwd.restype = _I
     lib.vitocm_histogram_u8.argtypes = [_P, ctypes.c_size_t, _P, _P]
     lib.vitocm_histogram_u8.restype = _I
     return lib

@@ -93,6 +93,19 @@ static int launch_attn_bwd_stats(const float* lse, const void* dout, const void*
   return (int)cudaGetLastError();
 }
 
+int attn_row_stats(int dtype, int d, const float* row, const void* dout, const void* o,
+                   float* stats, int BH, int N, cudaStream_t s) {
+  if (dtype == kF32 && d == 64)
+    return launch_attn_bwd_stats<float, 64>(row, dout, o, stats, BH, N, s);
+  if (dtype == kF32 && d == 128)
+    return launch_attn_bwd_stats<float, 128>(row, dout, o, stats, BH, N, s);
+  if (dtype == kBF16 && d == 64)
+    return launch_attn_bwd_stats<__nv_bfloat16, 64>(row, dout, o, stats, BH, N, s);
+  if (dtype == kBF16 && d == 128)
+    return launch_attn_bwd_stats<__nv_bfloat16, 128>(row, dout, o, stats, BH, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kGT)
 attn_bwd_dkdv_kernel(const float* __restrict__ qs, const float* __restrict__ k,
@@ -332,15 +345,10 @@ template <int D>
 static int launch_any_bwd(int dtype, const void* qs, const void* k, const void* v, const void* o,
                           const float* lse, const void* dout, void* dq, void* dk, void* dv,
                           float* stats, int BH, int N, cudaStream_t s) {
-  if (dtype == kF32) {
-    const int rc = launch_attn_bwd_stats<float, D>(lse, dout, o, stats, BH, N, s);
-    return rc != 0 ? rc : launch_attn_bwd<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
-  }
-  if (dtype == kBF16) {
-    const int rc = launch_attn_bwd_stats<__nv_bfloat16, D>(lse, dout, o, stats, BH, N, s);
-    return rc != 0 ? rc : launch_attn_bwd_mma<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int rc = attn_row_stats(dtype, D, lse, dout, o, stats, BH, N, s);
+  if (rc != 0) return rc;
+  if (dtype == kF32) return launch_attn_bwd<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
+  return launch_attn_bwd_mma<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
 }
 
 }  // namespace vitocm

@@ -8,7 +8,11 @@
 // with no residual outputs for block 10 of the mosaic path, and on its
 // save-h1 route (want="h1", the training forward) when h1 is not null: the
 // pre-GELU h1 = W1 . LN(x) + b1 (R, H) is then stored in the storage type
-// for the backward (fused_mlp_bwd.cu) to recompute GELU from.
+// for the backward (fused_mlp_bwd.cu) to recompute GELU from. With gp not
+// null as well (want="gp", the SAVE_GP route) the kernel stores g = gelu(h1)
+// in h1's place and gp = gelu'(h1), both in the storage type, so that the
+// backward computes no erf and no exp; g is the very value the forward
+// multiplies by W2, so out is bit-equal to the save-h1 route's.
 //
 // Weight layouts are PyTorch's nn.Linear ones, as the port's ViT holds them:
 // w1 = fc1.weight (H, D), w2 = fc2.weight (D, H), both contiguous in the
@@ -52,14 +56,15 @@ constexpr size_t mlp_smem_bytes() {
   return sizeof(float) * (kBR * (D + 1) + 2 * kHC * (D + 1) + kBR * (kHC + 1));
 }
 
-template <int D, bool LNOUT, bool H1>
+template <int D, bool LNOUT, bool H1, bool GP>
 __global__ void __launch_bounds__(kMT)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
                  const float* __restrict__ bn1, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, const float* __restrict__ s2,
                  const float* __restrict__ bn2, float* __restrict__ out,
-                 float* __restrict__ z, float* __restrict__ h1, int R, int H, float eps) {
+                 float* __restrict__ z, float* __restrict__ h1, float* __restrict__ gp,
+                 int R, int H, float eps) {
   constexpr int CPT = D / 32;
   constexpr int RPW = kBR / 8;  // rows per warp
   constexpr int PD = D + 1;
@@ -121,9 +126,12 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         const float t = h[i] + bj;
-        gs[(warp + 8 * i) * PG + lane] = t * (0.5f * (1.f + erff(t * 0.70710678118654752f)));
+        float gv, gpv;
+        gelu_pieces(t, gv, gpv);
+        gs[(warp + 8 * i) * PG + lane] = gv;
         const long long row = r0 + warp + 8 * i;
-        if (H1 && row < R) h1[row * H + h0 + lane] = t;
+        if (H1 && row < R) h1[row * H + h0 + lane] = GP ? gv : t;
+        if (GP && row < R) gp[row * H + h0 + lane] = gpv;
       }
     }
     __syncthreads();
@@ -173,19 +181,20 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
 template <int D, bool LNOUT>
 static int launch_mlp(const void* x, const float* s1, const float* bn1, const void* w1,
                       const float* b1, const void* w2, const float* b2, const float* s2,
-                      const float* bn2, void* out, void* z, void* h1, int R, int H, float eps,
-                      cudaStream_t stream) {
+                      const float* bn2, void* out, void* z, void* h1, void* gp, int R, int H,
+                      float eps, cudaStream_t stream) {
   const size_t smem = mlp_smem_bytes<D>();
-  // the h1 store is a template flag, so the inference instantiations carry none of it
-  auto kern = h1 != nullptr ? fused_mlp_kernel<D, LNOUT, !LNOUT>
-                            : fused_mlp_kernel<D, LNOUT, false>;
+  // the residual stores are template flags, so the inference instantiations carry none of them
+  auto kern = h1 == nullptr   ? fused_mlp_kernel<D, LNOUT, false, false>
+              : gp == nullptr ? fused_mlp_kernel<D, LNOUT, !LNOUT, false>
+                              : fused_mlp_kernel<D, LNOUT, !LNOUT, !LNOUT>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int grid = (R + kBR - 1) / kBR;
   kern<<<grid, kMT, smem, stream>>>(static_cast<const float*>(x), s1, bn1,
                                     static_cast<const float*>(w1), b1,
                                     static_cast<const float*>(w2), b2, s2, bn2,
                                     static_cast<float*>(out), static_cast<float*>(z),
-                                    static_cast<float*>(h1), R, H, eps);
+                                    static_cast<float*>(h1), static_cast<float*>(gp), R, H, eps);
   return (int)cudaGetLastError();
 }
 
@@ -193,20 +202,20 @@ static int launch_mlp(const void* x, const float* s1, const float* bn1, const vo
 template <int D, bool LNOUT>
 int launch_mlp_mma(const void* x, const float* s1, const float* bn1, const void* w1,
                    const float* b1, const void* w2, const float* b2, const float* s2,
-                   const float* bn2, void* out, void* z, void* h1, int R, int H, float eps,
-                   cudaStream_t stream);
+                   const float* bn2, void* out, void* z, void* h1, void* gp, int R, int H,
+                   float eps, cudaStream_t stream);
 
 template <int D, bool LNOUT>
 static int launch_any(int dtype, const void* x, const float* s1, const float* bn1,
                       const void* w1, const float* b1, const void* w2, const float* b2,
-                      const float* s2, const float* bn2, void* out, void* z, void* h1, int R, int H,
-                      float eps, cudaStream_t stream) {
+                      const float* s2, const float* bn2, void* out, void* z, void* h1, void* gp,
+                      int R, int H, float eps, cudaStream_t stream) {
   if (dtype == kF32)
-    return launch_mlp<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, R, H, eps,
+    return launch_mlp<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H, eps,
                                 stream);
   if (dtype == kBF16)
-    return launch_mlp_mma<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, R, H, eps,
-                                    stream);
+    return launch_mlp_mma<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
+                                    eps, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -214,36 +223,39 @@ template <int D>
 static int dispatch_lnout(int dtype, int lnout, const void* x, const float* s1,
                           const float* bn1, const void* w1, const float* b1, const void* w2,
                           const float* b2, const float* s2, const float* bn2, void* out,
-                          void* z, void* h1, int R, int H, float eps, cudaStream_t stream) {
+                          void* z, void* h1, void* gp, int R, int H, float eps,
+                          cudaStream_t stream) {
   if (lnout)
-    return launch_any<D, true>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, R, H, eps,
-                               stream);
-  return launch_any<D, false>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, R, H, eps,
-                              stream);
+    return launch_any<D, true>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
+                               eps, stream);
+  return launch_any<D, false>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
+                              eps, stream);
 }
 
 }  // namespace vitocm
 
-// x, out, z (R, D); h1 (R, H); w1 (H, D); w2 (D, H) in the storage type;
-// s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0 ignores s2, bn2 and
-// z; h1 may be null, and must be with lnout = 1.
+// x, out, z (R, D); h1, gp (R, H); w1 (H, D); w2 (D, H) in the storage
+// type; s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0 ignores s2, bn2
+// and z; h1 may be null, and must be with lnout = 1; gp not null (it needs
+// h1) takes the SAVE_GP route: g = gelu(h1) into h1, gelu'(h1) into gp.
 // D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int vitocm_fused_mlp(int dtype, int lnout, const void* x, const void* s1,
                                 const void* bn1, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* s2, const void* bn2, void* out,
-                                void* z, void* h1, int R, int D, int H, float eps,
+                                void* z, void* h1, void* gp, int R, int D, int H, float eps,
                                 void* stream) {
   using namespace vitocm;
-  if (R < 1 || H < 64 || H % 64 != 0 || (lnout && (z == nullptr || h1 != nullptr)))
+  if (R < 1 || H < 64 || H % 64 != 0 || (lnout && (z == nullptr || h1 != nullptr)) ||
+      (gp != nullptr && h1 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (D == 384)
     return dispatch_lnout<384>(dtype, lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2),
-                               f(bn2), out, z, h1, R, H, eps, s);
+                               f(bn2), out, z, h1, gp, R, H, eps, s);
   if (D == 192)
     return dispatch_lnout<192>(dtype, lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2),
-                               f(bn2), out, z, h1, R, H, eps, s);
+                               f(bn2), out, z, h1, gp, R, H, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,11 @@
 //   dg = do W2,  dh1 = round(dg * gp),  dxn = dh1 W1,
 //   dx = do + LN-backward(dxn),  ds = sum dxn * xh,  dbb = sum dxn,
 //   dW1 = dh1^T xn,  db1 = sum dh1,  dW2 = do^T round(g),  db2 = sum do.
+// On the SAVE_GP route (gp not null; _mlp_bwd_kernel with gp_ref) h1 holds
+// the forward's rounded g and gp its rounded gelu'(h1): the kernels read
+// both and compute no erf and no exp; the weight kernel stages the g tile
+// it reads where the save-h1 route stages the g it computes, so its shared
+// memory stays as it is.
 // Weights in nn.Linear's layouts: w1 (H, D), w2 (D, H); dW1 comes back as
 // (H, D) and dW2 as (D, H), all parameter gradients in f32.
 //
@@ -55,10 +60,11 @@ constexpr size_t mlp_bwd_w_smem_bytes() {
   return sizeof(float) * (3 * kWR * (D + 1) + 2 * kWR * (kWH + 1));
 }
 
-template <int D>
+template <int D, bool GP>
 __global__ void __launch_bounds__(kWT)
 mlp_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                  const float* __restrict__ h1, const float* __restrict__ s1,
+                  const float* __restrict__ h1, const float* __restrict__ gpp,
+                  const float* __restrict__ s1,
                   const float* __restrict__ bn1, const float* __restrict__ w1,
                   const float* __restrict__ w2, float* __restrict__ dx,
                   float* __restrict__ xn_out, float* __restrict__ ln_part, int R, int H,
@@ -109,7 +115,10 @@ mlp_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dout,
       for (int i = 0; i < RPW; ++i) {
         const long long row = r0 + warp + 8 * i;
         float gv, gp;
-        gelu_pieces(row < R ? h1[row * H + h0 + lane] : 0.f, gv, gp);
+        if (GP)
+          gp = row < R ? gpp[row * H + h0 + lane] : 0.f;
+        else
+          gelu_pieces(row < R ? h1[row * H + h0 + lane] : 0.f, gv, gp);
         dh1s[(warp + 8 * i) * PG + lane] = h[i] * gp;
       }
     }
@@ -174,10 +183,11 @@ mlp_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   }
 }
 
-template <int D>
+template <int D, bool GP>
 __global__ void __launch_bounds__(kWT)
 mlp_bwd_w_kernel(const float* __restrict__ xn_in, const float* __restrict__ dout,
-                 const float* __restrict__ h1, const float* __restrict__ w2,
+                 const float* __restrict__ h1, const float* __restrict__ gpp,
+                 const float* __restrict__ w2,
                  float* __restrict__ part, int R, int H, int rows_per_split) {
   constexpr int PD = D + 1, PG = kWH + 1, CPT = D / 32, RPW = kWR / 8;
   constexpr int NC2 = (D + kWT - 1) / kWT;
@@ -238,7 +248,12 @@ mlp_bwd_w_kernel(const float* __restrict__ xn_in, const float* __restrict__ dout
       for (int i = 0; i < RPW; ++i) {
         const long long row = t0 + warp + 8 * i;
         float gv, gp;
-        gelu_pieces(row < rs1 ? h1[row * H + h0 + lane] : 0.f, gv, gp);
+        if (GP) {
+          gv = row < rs1 ? h1[row * H + h0 + lane] : 0.f;
+          gp = row < rs1 ? gpp[row * H + h0 + lane] : 0.f;
+        } else {
+          gelu_pieces(row < rs1 ? h1[row * H + h0 + lane] : 0.f, gv, gp);
+        }
         gs[(warp + 8 * i) * PG + lane] = gv;
         dh1s[(warp + 8 * i) * PG + lane] = h[i] * gp;
       }
@@ -306,39 +321,66 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, float* __re
   }
 }
 
-static int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_t stream) {
+int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_t stream) {
   const int blocks = (int)min((W + 255) / 256, 4096LL);
   reduce_splits_kernel<<<blocks, 256, 0, stream>>>(part, out, S, W);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-static int launch_mlp_bwd(const void* x, const void* dout, const void* h1, const float* s1,
-                          const float* bn1, const void* w1, const void* w2, void* dx, void* xn,
-                          float* ln_part, float* part, int R, int H, int splits, int rps,
-                          float eps, cudaStream_t stream) {
+template <int D, bool GP>
+static int launch_mlp_bwd(const void* x, const void* dout, const void* h1, const void* gp,
+                          const float* s1, const float* bn1, const void* w1, const void* w2,
+                          void* dx, void* xn, float* ln_part, float* part, int R, int H,
+                          int splits, int rps, float eps, cudaStream_t stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const size_t s_dx = mlp_bwd_dx_smem_bytes<D>(), s_w = mlp_bwd_w_smem_bytes<D>();
-  cudaFuncSetAttribute(mlp_bwd_dx_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(mlp_bwd_dx_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_dx);
-  cudaFuncSetAttribute(mlp_bwd_w_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(mlp_bwd_w_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_w);
-  mlp_bwd_dx_kernel<D><<<(R + kWR - 1) / kWR, kWT, s_dx, stream>>>(
-      f(x), f(dout), f(h1), s1, bn1, f(w1), f(w2), static_cast<float*>(dx),
+  mlp_bwd_dx_kernel<D, GP><<<(R + kWR - 1) / kWR, kWT, s_dx, stream>>>(
+      f(x), f(dout), f(h1), f(gp), s1, bn1, f(w1), f(w2), static_cast<float*>(dx),
       static_cast<float*>(xn), ln_part, R, H, eps);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  mlp_bwd_w_kernel<D><<<dim3(splits, H / kWH), kWT, s_w, stream>>>(
-      f(xn), f(dout), f(h1), f(w2), part, R, H, rps);
+  mlp_bwd_w_kernel<D, GP><<<dim3(splits, H / kWH), kWT, s_w, stream>>>(
+      f(xn), f(dout), f(h1), f(gp), f(w2), part, R, H, rps);
   return (int)cudaGetLastError();
 }
 
 // bf16 storage takes the tensor-core kernels of fused_mlp_bwd_mma.cu
+template <int D, bool GP>
+int launch_mlp_bwd_mma(const void* x, const void* dout, const void* h1, const void* gp,
+                       const float* s1, const float* bn1, const void* w1, const void* w2,
+                       void* dx, void* xn, float* ln_part, float* part, int R, int H, int splits,
+                       int rps, float eps, cudaStream_t stream);
+
+template <int D, bool GP>
+static int launch_any_mlp_bwd(int dtype, const void* x, const void* dout, const void* h1,
+                              const void* gp, const float* s1, const float* bn1, const void* w1,
+                              const void* w2, void* dx, void* xn, float* ln_part, float* part,
+                              int R, int H, int splits, int rps, float eps, cudaStream_t s) {
+  if (dtype == kF32)
+    return launch_mlp_bwd<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part, R, H,
+                                 splits, rps, eps, s);
+  if (dtype == kBF16)
+    return launch_mlp_bwd_mma<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part, R,
+                                     H, splits, rps, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int D>
-int launch_mlp_bwd_mma(const void* x, const void* dout, const void* h1, const float* s1,
-                       const float* bn1, const void* w1, const void* w2, void* dx, void* xn,
-                       float* ln_part, float* part, int R, int H, int splits, int rps, float eps,
-                       cudaStream_t stream);
+static int launch_mlp_bwd_route(int dtype, const void* x, const void* dout, const void* h1,
+                                const void* gp, const float* s1, const float* bn1,
+                                const void* w1, const void* w2, void* dx, void* xn,
+                                float* ln_part, float* part, int R, int H, int splits, int rps,
+                                float eps, cudaStream_t s) {
+  if (gp != nullptr)
+    return launch_any_mlp_bwd<D, true>(dtype, x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part,
+                                       part, R, H, splits, rps, eps, s);
+  return launch_any_mlp_bwd<D, false>(dtype, x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part,
+                                      part, R, H, splits, rps, eps, s);
+}
 
 // rows of the dx kernel's tile for each storage type
 static int bwd_row_tile(int dtype) { return dtype == kF32 ? 32 : 64; }
@@ -346,6 +388,8 @@ static int bwd_row_tile(int dtype) { return dtype == kF32 ? 32 : 64; }
 }  // namespace vitocm
 
 // x, dout, dx (R, D), h1 (R, H), w1 (H, D), w2 (D, H) in the storage type;
+// gp null (save-h1 route: h1 is the pre-GELU activation) or (R, H) in the
+// storage type (SAVE_GP route: h1 holds g = gelu(h1), gp gelu'(h1));
 // s1, bn1 (D) f32. Workspaces: xn (R, D) in the storage type (the dx
 // kernel writes LN(x) there for the weight kernel), part (splits, 2HD + H +
 // D) and ln_part (ceil(R / 32), 2D) in f32. grads (2HD + H + 3D) f32
@@ -353,7 +397,7 @@ static int bwd_row_tile(int dtype) { return dtype == kF32 ? 32 : 64; }
 // D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
 // launches (0 on success).
 extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, const void* h1,
-                                    const void* s1, const void* bn1, const void* w1,
+                                    const void* gp, const void* s1, const void* bn1, const void* w1,
                                     const void* w2, void* dx, void* xn, void* part, void* ln_part,
                                     void* grads, int R, int D, int H, int splits, float eps,
                                     void* stream) {
@@ -366,18 +410,12 @@ extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, 
   // rows per split: a whole number of tiles
   const int rps = ((R + splits - 1) / splits + tile - 1) / tile * tile;
   int rc = (int)cudaErrorInvalidValue;
-  if (dtype == kF32 && D == 384)
-    rc = launch_mlp_bwd<384>(x, dout, h1, fs1, fbn1, w1, w2, dx, xn, fln, fpart, R, H, splits,
-                             rps, eps, s);
-  else if (dtype == kF32 && D == 192)
-    rc = launch_mlp_bwd<192>(x, dout, h1, fs1, fbn1, w1, w2, dx, xn, fln, fpart, R, H, splits,
-                             rps, eps, s);
-  else if (dtype == kBF16 && D == 384)
-    rc = launch_mlp_bwd_mma<384>(x, dout, h1, fs1, fbn1, w1, w2, dx, xn, fln, fpart, R, H,
-                                 splits, rps, eps, s);
-  else if (dtype == kBF16 && D == 192)
-    rc = launch_mlp_bwd_mma<192>(x, dout, h1, fs1, fbn1, w1, w2, dx, xn, fln, fpart, R, H,
-                                 splits, rps, eps, s);
+  if (D == 384)
+    rc = launch_mlp_bwd_route<384>(dtype, x, dout, h1, gp, fs1, fbn1, w1, w2, dx, xn, fln, fpart,
+                                   R, H, splits, rps, eps, s);
+  else if (D == 192)
+    rc = launch_mlp_bwd_route<192>(dtype, x, dout, h1, gp, fs1, fbn1, w1, w2, dx, xn, fln, fpart,
+                                   R, H, splits, rps, eps, s);
   if (rc != 0) return rc;
   const long long W = 2LL * H * D + H + D;
   float* g = static_cast<float*>(grads);

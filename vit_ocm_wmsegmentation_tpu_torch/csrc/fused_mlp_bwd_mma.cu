@@ -3,7 +3,10 @@
 // weight-gradient kernel (reduced by fused_mlp_bwd.cu), with the TPU
 // kernel's rounding points (ops/fused_mlp.py::_mlp_bwd_kernel): xn, g and
 // dh1 rounded to bf16 before their products, dx rounded once, every
-// parameter gradient in f32.
+// parameter gradient in f32. With GP (the SAVE_GP route) h1 holds the
+// forward's bf16 g = gelu(h1) and gp its bf16 gelu'(h1): the dx kernel reads
+// gp where it computed gelu'(h1), the weight kernel copies g into the tile it
+// computed g into, and neither computes an erf or an exp.
 //
 // dx kernel: a CTA owns 64 rows and walks H in chunks of 64, eight warps.
 // Shared memory holds do (64 x D), the chunk's W1 rows (64 x D) and W2
@@ -20,7 +23,8 @@
 // computes dg, g and dh1 for its chunk, then dW1c += dh1^T xn (warp w: 16
 // hidden rows x D/4 columns) and dW2c += do^T g (warp w: D/128 blocks of
 // 16 columns x 32 hidden), both transposed operands through ldmatrix.trans.
-// 138 KB of shared memory. Bound: tensor-core issue and the per-tile
+// 138 KB of shared memory on both routes (the SAVE_GP route stages the g it
+// reads in the same tile). Bound: tensor-core issue and the per-tile
 // staging, not overlapped yet; every CTA re-reads its split's x and do.
 
 #include <math.h>
@@ -66,10 +70,11 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-template <int D>
+template <int D, bool GP>
 __global__ void __launch_bounds__(kXT)
 mlp_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dout,
-                      const __nv_bfloat16* __restrict__ h1, const float* __restrict__ s1,
+                      const __nv_bfloat16* __restrict__ h1, const __nv_bfloat16* __restrict__ gpp,
+                      const float* __restrict__ s1,
                       const float* __restrict__ bn1, const __nv_bfloat16* __restrict__ w1,
                       const __nv_bfloat16* __restrict__ w2, __nv_bfloat16* __restrict__ dx,
                       __nv_bfloat16* __restrict__ xn_out, float* __restrict__ ln_part, int R,
@@ -131,10 +136,12 @@ mlp_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
         for (int hr = 0; hr < 2; ++hr) {
           const int r = rb + g + 8 * hr;
           float2 hv = make_float2(0.f, 0.f);
-          if (r0 + r < R) hv = ld_bf16x2(h1 + (r0 + r) * H + h0 + col);
-          float g0, gp0, g1, gp1;
-          gelu_pieces(hv.x, g0, gp0);
-          gelu_pieces(hv.y, g1, gp1);
+          if (r0 + r < R) hv = ld_bf16x2((GP ? gpp : h1) + (r0 + r) * H + h0 + col);
+          float g0, gp0 = hv.x, g1, gp1 = hv.y;
+          if (!GP) {
+            gelu_pieces(hv.x, g0, gp0);
+            gelu_pieces(hv.y, g1, gp1);
+          }
           *reinterpret_cast<uint32_t*>(dh1s + r * kXP + col) =
               pack_bf16(dg[j][2 * hr] * gp0, dg[j][2 * hr + 1] * gp1);
         }
@@ -219,11 +226,11 @@ mlp_bwd_dx_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
-template <int D>
+template <int D, bool GP>
 __global__ void __launch_bounds__(kXT)
 mlp_bwd_w_mma_kernel(const __nv_bfloat16* __restrict__ xn_in,
                      const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ h1,
-                     const __nv_bfloat16* __restrict__ w2, float* __restrict__ part, int R, int H,
+                     const __nv_bfloat16* __restrict__ gpp, const __nv_bfloat16* __restrict__ w2, float* __restrict__ part, int R, int H,
                      int rows_per_split) {
   constexpr int PD = D + 8, NT1 = D / 32, MT2 = D / 16;
   constexpr int NC2 = (D + kXT - 1) / kXT;
@@ -292,11 +299,16 @@ mlp_bwd_w_mma_kernel(const __nv_bfloat16* __restrict__ xn_in,
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int r = rb + g + 8 * hr;
-          float2 hv = make_float2(0.f, 0.f);
-          if (t0 + r < rs1) hv = ld_bf16x2(h1 + (t0 + r) * H + h0 + col);
-          float g0, gp0, g1, gp1;
-          gelu_pieces(hv.x, g0, gp0);
-          gelu_pieces(hv.y, g1, gp1);
+          float2 hv = make_float2(0.f, 0.f), pv = hv;
+          if (t0 + r < rs1) {
+            hv = ld_bf16x2(h1 + (t0 + r) * H + h0 + col);
+            if (GP) pv = ld_bf16x2(gpp + (t0 + r) * H + h0 + col);
+          }
+          float g0 = hv.x, gp0 = pv.x, g1 = hv.y, gp1 = pv.y;  // GP: g and gp as saved
+          if (!GP) {
+            gelu_pieces(hv.x, g0, gp0);
+            gelu_pieces(hv.y, g1, gp1);
+          }
           *reinterpret_cast<uint32_t*>(gs + r * kYP + col) = pack_bf16(g0, g1);
           *reinterpret_cast<uint32_t*>(dh1s + r * kYP + col) =
               pack_bf16(dg[j][2 * hr] * gp0, dg[j][2 * hr + 1] * gp1);
@@ -373,33 +385,37 @@ mlp_bwd_w_mma_kernel(const __nv_bfloat16* __restrict__ xn_in,
   }
 }
 
-template <int D>
-int launch_mlp_bwd_mma(const void* x, const void* dout, const void* h1, const float* s1,
-                       const float* bn1, const void* w1, const void* w2, void* dx, void* xn,
-                       float* ln_part, float* part, int R, int H, int splits, int rps, float eps,
-                       cudaStream_t stream) {
+template <int D, bool GP>
+int launch_mlp_bwd_mma(const void* x, const void* dout, const void* h1, const void* gp,
+                       const float* s1, const float* bn1, const void* w1, const void* w2,
+                       void* dx, void* xn, float* ln_part, float* part, int R, int H, int splits,
+                       int rps, float eps, cudaStream_t stream) {
   using T = __nv_bfloat16;
   auto c = [](const void* p) { return static_cast<const T*>(p); };
   const size_t s_dx = mlp_bwd_dx_mma_smem_bytes<D>(), s_w = mlp_bwd_w_mma_smem_bytes<D>();
-  cudaFuncSetAttribute(mlp_bwd_dx_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(mlp_bwd_dx_mma_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_dx);
-  cudaFuncSetAttribute(mlp_bwd_w_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(mlp_bwd_w_mma_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_w);
-  mlp_bwd_dx_mma_kernel<D><<<(R + kXR - 1) / kXR, kXT, s_dx, stream>>>(
-      c(x), c(dout), c(h1), s1, bn1, c(w1), c(w2), static_cast<T*>(dx), static_cast<T*>(xn),
-      ln_part, R, H, eps);
+  mlp_bwd_dx_mma_kernel<D, GP><<<(R + kXR - 1) / kXR, kXT, s_dx, stream>>>(
+      c(x), c(dout), c(h1), c(gp), s1, bn1, c(w1), c(w2), static_cast<T*>(dx),
+      static_cast<T*>(xn), ln_part, R, H, eps);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  mlp_bwd_w_mma_kernel<D><<<dim3(splits, H / kYH), kXT, s_w, stream>>>(
-      c(xn), c(dout), c(h1), c(w2), part, R, H, rps);
+  mlp_bwd_w_mma_kernel<D, GP><<<dim3(splits, H / kYH), kXT, s_w, stream>>>(
+      c(xn), c(dout), c(h1), c(gp), c(w2), part, R, H, rps);
   return (int)cudaGetLastError();
 }
 
-template int launch_mlp_bwd_mma<384>(const void*, const void*, const void*, const float*,
-                                     const float*, const void*, const void*, void*, void*,
-                                     float*, float*, int, int, int, int, float, cudaStream_t);
-template int launch_mlp_bwd_mma<192>(const void*, const void*, const void*, const float*,
-                                     const float*, const void*, const void*, void*, void*,
-                                     float*, float*, int, int, int, int, float, cudaStream_t);
+#define VITOCM_MLP_BWD_MMA(D, GP)                                                             \
+  template int launch_mlp_bwd_mma<D, GP>(const void*, const void*, const void*, const void*,   \
+                                         const float*, const float*, const void*, const void*, \
+                                         void*, void*, float*, float*, int, int, int, int,     \
+                                         float, cudaStream_t);
+VITOCM_MLP_BWD_MMA(384, false)
+VITOCM_MLP_BWD_MMA(384, true)
+VITOCM_MLP_BWD_MMA(192, false)
+VITOCM_MLP_BWD_MMA(192, true)
+#undef VITOCM_MLP_BWD_MMA
 
 }  // namespace vitocm

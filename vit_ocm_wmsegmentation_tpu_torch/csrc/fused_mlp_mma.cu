@@ -3,9 +3,11 @@
 // same weight layouts: out = x + W2 . gelu(W1 . LN(x) + b1) + b2 and, with
 // LNOUT, z = LN(out) from the rounded out; with h1 not null, the pre-GELU
 // h1 rounded to bf16 (GELU itself reads the unrounded value, as the TPU
-// kernel's does). Replaces the same TPU kernels
+// kernel's does); with gp not null as well, the rounded g = gelu(h1) in h1's
+// place (the very bf16 values of the g tile that W2 multiplies, so out is
+// bit-equal to the save-h1 route's) and gelu'(h1) rounded to bf16. Replaces the same TPU kernels
 // (ops/fused_mlp.py::_mlp_fwd_lnout_kernel, ::_mlp_fwd_kernel with no
-// residual outputs and on its save-h1 route) for bf16 storage; f32 storage
+// residual outputs, on its save-h1 route and on its save-gp route) for bf16 storage; f32 storage
 // keeps the CUDA-core kernel, which never rounds through TF32.
 //
 // A CTA owns 64 rows and walks H in chunks of 64 hidden units. Shared
@@ -38,15 +40,15 @@ constexpr size_t mlp_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * (2 * kMBR * (D + 8) + D * kMPH + kMBR * kMPH);
 }
 
-template <int D, bool LNOUT, bool H1>
+template <int D, bool LNOUT, bool H1, bool GP>
 __global__ void __launch_bounds__(kMMT)
 fused_mlp_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s1,
                      const float* __restrict__ bn1, const __nv_bfloat16* __restrict__ w1,
                      const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
                      const float* __restrict__ b2, const float* __restrict__ s2,
                      const float* __restrict__ bn2, __nv_bfloat16* __restrict__ out,
-                     __nv_bfloat16* __restrict__ z, __nv_bfloat16* __restrict__ h1, int R,
-                     int H, float eps) {
+                     __nv_bfloat16* __restrict__ z, __nv_bfloat16* __restrict__ h1,
+                     __nv_bfloat16* __restrict__ gp, int R, int H, float eps) {
   constexpr int PD = D + 8;       // pitch of xn and the W1 chunk
   constexpr int CPT = D / 32;     // LN: columns per lane
   constexpr int NT2 = D / 16;     // y: 8-wide column tiles per warp (D/2 columns)
@@ -124,11 +126,15 @@ fused_mlp_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
         for (int hr = 0; hr < 2; ++hr) {
           const float u0 = h[j][2 * hr] + bj0, u1 = h[j][2 * hr + 1] + bj1;
           const long long row = r0 + rb + g + 8 * hr;
+          float g0, gp0, g1, gp1;
+          gelu_pieces(u0, g0, gp0);
+          gelu_pieces(u1, g1, gp1);
+          const uint32_t gpair = pack_bf16(g0, g1);
           if (H1 && row < R)
-            *reinterpret_cast<uint32_t*>(h1 + row * H + h0 + col) = pack_bf16(u0, u1);
-          const float g0 = u0 * (0.5f * (1.f + erff(u0 * 0.70710678118654752f)));
-          const float g1 = u1 * (0.5f * (1.f + erff(u1 * 0.70710678118654752f)));
-          *reinterpret_cast<uint32_t*>(gs + (rb + g + 8 * hr) * kMPH + col) = pack_bf16(g0, g1);
+            *reinterpret_cast<uint32_t*>(h1 + row * H + h0 + col) = GP ? gpair : pack_bf16(u0, u1);
+          if (GP && row < R)
+            *reinterpret_cast<uint32_t*>(gp + row * H + h0 + col) = pack_bf16(gp0, gp1);
+          *reinterpret_cast<uint32_t*>(gs + (rb + g + 8 * hr) * kMPH + col) = gpair;
         }
       }
     }
@@ -191,37 +197,32 @@ fused_mlp_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
 template <int D, bool LNOUT>
 int launch_mlp_mma(const void* x, const float* s1, const float* bn1, const void* w1,
                    const float* b1, const void* w2, const float* b2, const float* s2,
-                   const float* bn2, void* out, void* z, void* h1, int R, int H, float eps,
-                   cudaStream_t stream) {
+                   const float* bn2, void* out, void* z, void* h1, void* gp, int R, int H,
+                   float eps, cudaStream_t stream) {
   const size_t smem = mlp_mma_smem_bytes<D>();
-  // the h1 store is a template flag, so the inference instantiations carry none of it
-  auto kern = h1 != nullptr ? fused_mlp_mma_kernel<D, LNOUT, !LNOUT>
-                            : fused_mlp_mma_kernel<D, LNOUT, false>;
+  // the residual stores are template flags, so the inference instantiations carry none of them
+  auto kern = h1 == nullptr   ? fused_mlp_mma_kernel<D, LNOUT, false, false>
+              : gp == nullptr ? fused_mlp_mma_kernel<D, LNOUT, !LNOUT, false>
+                              : fused_mlp_mma_kernel<D, LNOUT, !LNOUT, !LNOUT>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int grid = (R + kMBR - 1) / kMBR;
   using B = __nv_bfloat16;
   kern<<<grid, kMMT, smem, stream>>>(static_cast<const B*>(x), s1, bn1,
                                      static_cast<const B*>(w1), b1, static_cast<const B*>(w2),
                                      b2, s2, bn2, static_cast<B*>(out), static_cast<B*>(z),
-                                     static_cast<B*>(h1), R, H, eps);
+                                     static_cast<B*>(h1), static_cast<B*>(gp), R, H, eps);
   return (int)cudaGetLastError();
 }
 
-template int launch_mlp_mma<384, true>(const void*, const float*, const float*, const void*,
-                                       const float*, const void*, const float*, const float*,
-                                       const float*, void*, void*, void*, int, int, float,
-                                       cudaStream_t);
-template int launch_mlp_mma<384, false>(const void*, const float*, const float*, const void*,
-                                        const float*, const void*, const float*, const float*,
-                                        const float*, void*, void*, void*, int, int, float,
-                                        cudaStream_t);
-template int launch_mlp_mma<192, true>(const void*, const float*, const float*, const void*,
-                                       const float*, const void*, const float*, const float*,
-                                       const float*, void*, void*, void*, int, int, float,
-                                       cudaStream_t);
-template int launch_mlp_mma<192, false>(const void*, const float*, const float*, const void*,
-                                        const float*, const void*, const float*, const float*,
-                                        const float*, void*, void*, void*, int, int, float,
-                                        cudaStream_t);
+#define VITOCM_MLP_MMA(D, LNOUT)                                                            \
+  template int launch_mlp_mma<D, LNOUT>(const void*, const float*, const float*, const void*, \
+                                        const float*, const void*, const float*, const float*, \
+                                        const float*, void*, void*, void*, void*, int, int,     \
+                                        float, cudaStream_t);
+VITOCM_MLP_MMA(384, true)
+VITOCM_MLP_MMA(384, false)
+VITOCM_MLP_MMA(192, true)
+VITOCM_MLP_MMA(192, false)
+#undef VITOCM_MLP_MMA
 
 }  // namespace vitocm

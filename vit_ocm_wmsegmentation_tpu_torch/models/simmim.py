@@ -22,7 +22,7 @@ from torch import nn
 
 from .. import nn as tnn
 from . import vit as vit_mod
-from .vit import ViTConfig
+from .vit import TrainRoutes, ViTConfig
 
 
 def mim_vit_config(img_size: int, patch_size: int = 8) -> ViTConfig:
@@ -43,9 +43,9 @@ class SimMIM(nn.Module):
             nn.Conv2d(cfg.embed_dim, cfg.patch_size ** 2 * 3, kernel_size=1),
             nn.PixelShuffle(cfg.patch_size))
 
-    def forward(self, x, mask, remat: bool = False):
+    def forward(self, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
         """(loss, x_rec, pixel mask) of :func:`mim_loss`."""
-        return mim_loss(self, x, mask, remat)
+        return mim_loss(self, x, mask, remat, routes)
 
 
 def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None) -> SimMIM:
@@ -83,12 +83,13 @@ def tokens_to_grid(model: SimMIM, tok, gh: int, gw: int):
     return tok[:, 1:, :].reshape(tok.shape[0], gh, gw, model.cfg.embed_dim)
 
 
-def encode(model: SimMIM, x, mask, remat: bool = False):
+def encode(model: SimMIM, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
     """VisionTransformerForSimMIM.forward (model.py:25-53) on the training
-    route: (B, H, W, 3) and (B, gh, gw) -> (B, gh, gw, D)."""
+    route (its opt-in kernel routes as ``routes`` selects them):
+    (B, H, W, 3) and (B, gh, gw) -> (B, gh, gw, D)."""
     _, h, w, _ = x.shape
     p = model.cfg.patch_size
-    tok = vit_mod.run_blocks_train(model.encoder, embed_tokens(model, x, mask), remat)
+    tok = vit_mod.run_blocks_train(model.encoder, embed_tokens(model, x, mask), remat, routes)
     return tokens_to_grid(model, tok, h // p, w // p)
 
 
@@ -99,9 +100,10 @@ def decode_grid(model: SimMIM, z):
     return tnn.pixel_shuffle(rec, model.cfg.patch_size)
 
 
-def reconstruct(model: SimMIM, x, mask, remat: bool = False):
+def reconstruct(model: SimMIM, x, mask, remat: bool = False,
+                routes: TrainRoutes = TrainRoutes()):
     """Full MIM forward: encoder + PixelShuffle decoder -> (B, H, W, 3)."""
-    return decode_grid(model, encode(model, x, mask, remat))
+    return decode_grid(model, encode(model, x, mask, remat, routes))
 
 
 def masked_l1(x, x_rec, mask, p: int):
@@ -113,8 +115,8 @@ def masked_l1(x, x_rec, mask, p: int):
     return loss, pix_mask
 
 
-def mim_loss(model: SimMIM, x, mask, remat: bool = False):
+def mim_loss(model: SimMIM, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
     """(loss, x_rec, pixel mask): masked L1 / mask area / 3."""
-    x_rec = reconstruct(model, x, mask, remat)
+    x_rec = reconstruct(model, x, mask, remat, routes)
     loss, pix_mask = masked_l1(x, x_rec, mask, model.cfg.patch_size)
     return loss, x_rec, pix_mask

@@ -18,7 +18,10 @@ Training path (:func:`run_blocks_train`, the JAX package's
 ``_scan_blocks(train=True)``): every block on the differentiable kernel
 routes, the folded flash attention and the fused MLP block with its
 backward kernel (``MLP_REMAT="kernel"``), optionally under
-``torch.utils.checkpoint``.
+``torch.utils.checkpoint``. :class:`TrainRoutes` selects the opt-in kernel
+routes the JAX package's ``set_train_kernel_modes`` sets as module globals:
+the saved-P attention backward, the gelu / gelu' residuals of the MLP
+block, and LN1 fused into the qkv projection.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .. import nn as tnn
 from ..ops import attention as att
 from ..ops import flash_attention as fa
 from ..ops import fused_mlp as fm
+from ..ops import ln_linear as lnl
 from ..ops.resize import bicubic_matrix
 
 
@@ -220,29 +224,70 @@ def run_blocks(model: ViT, tok, hi: int):
     return tok
 
 
-def block_forward_train(blk, cfg: ViTConfig, x):
-    """One pre-norm block on the differentiable kernel routes
-    (vision_transformer.py:94-114; the JAX package's
-    ``_block_forward(train=True)`` with ``MLP_REMAT="kernel"``)."""
+@dataclasses.dataclass(frozen=True)
+class TrainRoutes:
+    """The training path's opt-in kernel routes (the JAX package's
+    fused_mlp.SAVE_GP, flash_attention.SAVE_P and vit.LN_QKV), each off by
+    default as the JAX package ships them:
+
+    * mlp_save_gp: the MLP block saves g = gelu(h1) and gelu'(h1) instead of
+      h1, so its backward computes no erf or exp (MLP_REMAT="kernel+gp");
+    * ln_qkv: LN1 fused into the qkv projection (:func:`ln_qkv_attention`,
+      LN_QKV="kernel");
+    * attn_save_p: the attention forward saves P and 1/denominator, its
+      backward reads them instead of recomputing exp (ATTN_SAVE_P="on")."""
+
+    mlp_save_gp: bool = False
+    ln_qkv: bool = False
+    attn_save_p: bool = False
+
+
+def ln_qkv_attention(blk, cfg: ViTConfig, x, save_p: bool = False):
+    """The attention branch with LN1 fused into the qkv projection (the JAX
+    package's ``_ln_qkv_attention``): :func:`ops.ln_linear.ln_linear_trainable`
+    (the product and the bias summed in f32 and rounded once), then the
+    folded flash attention and the out projection."""
     b, n, d = x.shape
     a = blk.attn
-    h = tnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
-    x = x + fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, cfg.num_heads,
-                         prefer_folded=True)
-    out = fm.fused_mlp_block_trainable(x.reshape(b * n, d), *_mlp_args(blk), cfg.ln_eps)
+    bias = a.qkv.bias
+    if bias is None:
+        bias = torch.zeros(3 * d, dtype=a.qkv.weight.dtype, device=x.device)
+    qkv = lnl.ln_linear_trainable(x.reshape(b * n, d), blk.norm1.weight, blk.norm1.bias,
+                                  a.qkv.weight, bias, cfg.ln_eps)
+    return fa.attend_and_project(qkv.reshape(b, n, 3 * d), a.proj.weight, a.proj.bias,
+                                 cfg.num_heads, save_p)
+
+
+def block_forward_train(blk, cfg: ViTConfig, x, routes: TrainRoutes = TrainRoutes()):
+    """One pre-norm block on the differentiable kernel routes
+    (vision_transformer.py:94-114; the JAX package's
+    ``_block_forward(train=True)`` with ``MLP_REMAT="kernel"``), the opt-in
+    routes as ``routes`` selects them."""
+    b, n, d = x.shape
+    a = blk.attn
+    if routes.ln_qkv:
+        y = ln_qkv_attention(blk, cfg, x, routes.attn_save_p)
+    else:
+        h = tnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+        y = fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, cfg.num_heads,
+                         prefer_folded=True, save_p=routes.attn_save_p)
+    x = x + y
+    out = fm.fused_mlp_block_trainable(x.reshape(b * n, d), *_mlp_args(blk), cfg.ln_eps,
+                                       routes.mlp_save_gp)
     return out.reshape(b, n, d)
 
 
-def run_blocks_train(model: ViT, tok, remat: bool = False):
+def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
     """Every block on the training route, the stream unpadded. ``remat``
     (TRAIN.USE_CHECKPOINT) recomputes each block's activations in the
-    backward (torch.utils.checkpoint), trading FLOPs for memory."""
+    backward (torch.utils.checkpoint), trading FLOPs for memory; ``routes``
+    selects the opt-in kernel routes."""
     for blk in model.blocks:
         if remat:
             tok = torch.utils.checkpoint.checkpoint(block_forward_train, blk, model.cfg, tok,
-                                                    use_reentrant=False)
+                                                    routes, use_reentrant=False)
         else:
-            tok = block_forward_train(blk, model.cfg, tok)
+            tok = block_forward_train(blk, model.cfg, tok, routes)
     return tok
 
 

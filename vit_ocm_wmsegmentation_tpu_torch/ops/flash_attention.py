@@ -11,11 +11,18 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``:
   forward :func:`flash_attention` returns (out, logsumexp) (replaces
   ``_attn_fwd_kernel`` on its lse route) and whose backward
   :func:`flash_attention_bwd` recomputes P from the logsumexp (replaces
-  ``_attn_bwd_kernel``).
+  ``_attn_bwd_kernel``);
+* training on the saved-P route (TRAIN.ATTN_SAVE_P on,
+  ``flash_attention_trainable(save_p=True)``): the forward
+  :func:`flash_attention_savep` also returns P = exp(s - row max) in the
+  storage type and 1/denominator (``_attn_fwd_kernel``'s P output) and the
+  backward :func:`flash_attention_bwd_savep` reads them instead of
+  recomputing exp (replaces ``_attn_bwd_savep_kernel``).
 
 Each wrapper launches its kernel for CUDA tensors (f32 storage:
-``csrc/attention_qkv.cu`` and ``csrc/attention_bwd.cu`` on the CUDA cores;
-bf16: the ``*_mma.cu`` files on the tensor cores; design notes there) and
+``csrc/attention_qkv.cu``, ``csrc/attention_bwd.cu`` and
+``csrc/attention_savep.cu`` on the CUDA cores; bf16: the ``*_mma.cu`` files
+on the tensor cores; design notes there) and
 takes its plain twin (``*_plain``) for CPU tensors; anything else raises.
 Each wrapper's ``launches`` counts kernel launches.
 """
@@ -160,19 +167,25 @@ def flash_attention(q, k, v):
     return out, lse
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
-    """Plain PyTorch twin of :func:`flash_attention_bwd`, with the TPU
-    kernel's rounding points, the whole (N, N) score matrix at once."""
+def _bwd_from_probs(q, k, v, o, e, do):
+    """(dq, dk, dv) from the f32 softmax probabilities e (B*h, N, N), with
+    the TPU kernels' rounding points."""
     dt = q.dtype
     qs, kf, vf = _scale_q(q).float(), k.float(), v.float()
-    lse = torch.nan_to_num(lse.float(), nan=0.0, posinf=0.0, neginf=0.0)
-    e = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
     dd = (do.float() * o.float()).sum(-1, keepdim=True)
     ds = (e * (do.float() @ vf.transpose(-1, -2) - dd)).to(dt).float()
     dq = ((ds @ kf).to(dt).float() * q.shape[-1] ** -0.5).to(dt)
     dk = (ds.transpose(-1, -2) @ qs).to(dt)
     dv = (e.to(dt).float().transpose(-1, -2) @ do.float()).to(dt)
     return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """Plain PyTorch twin of :func:`flash_attention_bwd`, with the TPU
+    kernel's rounding points, the whole (N, N) score matrix at once."""
+    lse = torch.nan_to_num(lse.float(), nan=0.0, posinf=0.0, neginf=0.0)
+    e = torch.exp(_scale_q(q).float() @ k.float().transpose(-1, -2) - lse[..., None])
+    return _bwd_from_probs(q, k, v, o, e, do)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
@@ -198,52 +211,143 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     return dq, dk, dv
 
 
+def p_columns(n: int) -> int:
+    """Columns of the saved P for n keys: n rounded up to the key tile, so
+    every P row is 16-byte aligned; the padded columns hold 0."""
+    return -(-n // KEY_TILE) * KEY_TILE
+
+
+def flash_attention_savep_plain(q, k, v):
+    """Plain PyTorch twin of :func:`flash_attention_savep`, with the TPU
+    kernel's rounding points: P = exp(s - row max) rounded to the storage
+    type, the denominator summed from the rounded P."""
+    n = q.shape[1]
+    s = _scale_q(q).float() @ k.float().transpose(-1, -2)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(q.dtype)
+    denom = p.float().sum(-1, keepdim=True)
+    out = (p.float() @ v.float()) / denom
+    return out.to(q.dtype), F.pad(p, (0, p_columns(n) - n)), (1.0 / denom)[..., 0]
+
+
+def flash_attention_savep(q, k, v):
+    """The forward of the saved-P route for folded (B*h, N, d) q, k, v (q
+    unscaled): (out in q's dtype, P (B*h, N, p_columns(N)) in q's dtype, inv
+    (B*h, N) float32), P * inv being the softmax. CPU tensors take the plain
+    twin; CUDA tensors launch the kernel (d in HEAD_DIMS, contiguous
+    float32/bfloat16)."""
+    if q.device.type == "cpu":
+        return flash_attention_savep_plain(q, k, v)
+    _check_folded("flash_attention_savep", q, k, v)
+    bh, n, d = q.shape
+    qs = _scale_q(q)
+    out = torch.empty_like(q)
+    p = torch.empty((bh, n, p_columns(n)), dtype=q.dtype, device=q.device)
+    inv = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    rc = build.library().vitocm_flash_fwd_savep(
+        build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        p.data_ptr(), inv.data_ptr(), bh, n, p.shape[-1], d, build.stream_ptr(q.device))
+    build.check(rc, "flash_attention_savep")
+    flash_attention_savep.launches += 1
+    return out, p, inv
+
+
+def flash_attention_bwd_savep_plain(q, k, v, o, p, inv, do):
+    """Plain PyTorch twin of :func:`flash_attention_bwd_savep`: e = P * inv
+    in f32, then the rounding points of :func:`flash_attention_bwd_plain`."""
+    e = p[..., :q.shape[1]].float() * inv.float()[..., None]
+    return _bwd_from_probs(q, k, v, o, e, do)
+
+
+def flash_attention_bwd_savep(q, k, v, o, p, inv, do):
+    """(dq, dk, dv) of the saved-P route from the forward's out o, P and inv
+    and the cotangent do, all folded (B*h, N, d) but P and inv as
+    :func:`flash_attention_savep` returns them. CPU tensors take the plain
+    twin; CUDA tensors launch the kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_savep_plain(q, k, v, o, p, inv, do)
+    _check_folded("flash_attention_bwd_savep", q, k, v, o, do)
+    bh, n, d = q.shape
+    if (p.shape != (bh, n, p_columns(n)) or p.dtype != q.dtype or p.device != q.device
+            or not p.is_contiguous() or p.data_ptr() % 16):
+        raise ValueError(f"flash_attention_bwd_savep: want a contiguous {q.dtype} P of shape "
+                         f"{(bh, n, p_columns(n))}, got {tuple(p.shape)} {p.dtype}")
+    if inv.shape != (bh, n) or inv.dtype != torch.float32 or not inv.is_contiguous():
+        raise ValueError(f"flash_attention_bwd_savep: want a contiguous float32 inv of shape "
+                         f"{(bh, n)}")
+    qs = _scale_q(q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((bh, 2, n), dtype=torch.float32, device=q.device)  # inv, rowsum(do o)
+    rc = build.library().vitocm_flash_bwd_savep(
+        build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        p.data_ptr(), inv.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats.data_ptr(), bh, n, p.shape[-1], d, build.stream_ptr(q.device))
+    build.check(rc, "flash_attention_bwd_savep")
+    flash_attention_bwd_savep.launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_savep.launches = 0
+flash_attention_bwd_savep.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """flash_attention forward, flash_attention_bwd backward; both looked up
-    in this module at call time, so the twins can stand in for a whole
+    """flash_attention forward and flash_attention_bwd backward or, with
+    save_p, flash_attention_savep and flash_attention_bwd_savep; all looked
+    up in this module at call time, so the twins can stand in for a whole
     route."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = flash_attention(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, save_p):
+        fwd = flash_attention_savep if save_p else flash_attention
+        out, *res = fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, *res)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, lse, do.contiguous())
+        q, k, v, out, *res = ctx.saved_tensors
+        bwd = flash_attention_bwd_savep if len(res) == 2 else flash_attention_bwd
+        return (*bwd(q, k, v, out, *res, do.contiguous()), None)
 
 
-def flash_attention_trainable(q, k, v):
+def flash_attention_trainable(q, k, v, save_p=False):
     """Differentiable softmax(q k^T / sqrt(d)) v for (B, h, N, d) q, k, v,
-    the JAX package's layout: folded to (B*h, N, d) around the kernels."""
+    the JAX package's layout: folded to (B*h, N, d) around the kernels.
+    save_p saves P and 1/denominator for the backward (TRAIN.ATTN_SAVE_P
+    on) instead of the logsumexp."""
     b, h, n, d = q.shape
     fold = lambda t: t.reshape(b * h, n, d).contiguous()  # noqa: E731
-    return _FlashAttention.apply(fold(q), fold(k), fold(v)).view(b, h, n, d)
+    return _FlashAttention.apply(fold(q), fold(k), fold(v), save_p).view(b, h, n, d)
 
 
-def mha_flash(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads, prefer_folded=False):
+def mha_flash(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads, prefer_folded=False,
+              save_p=False):
     """Full MHSA block on the attention kernels: (B, N, D) -> (B, N, D).
 
     prefer_folded=False (inference): the qkvflat route, :func:`attention_qkv`
     on the fused projection, no gradient. prefer_folded=True (training): the
-    folded route through :func:`flash_attention_trainable`, with the JAX
-    package's roundings of the qkv projection (the product and the bias each
-    rounded to x's dtype)."""
+    folded route through :func:`flash_attention_trainable` (saving P with
+    save_p), with the JAX package's roundings of the qkv projection (the
+    product and the bias each rounded to x's dtype)."""
     b, n, dm = x.shape
     if prefer_folded:
         qkv = F.linear(x, qkv_weight)
         if qkv_bias is not None:
             qkv = qkv + qkv_bias.to(x.dtype)
-        q, k, v = qkv.reshape(b, n, 3, num_heads, dm // num_heads).permute(2, 0, 3, 1, 4)
-        out = flash_attention_trainable(q, k, v).transpose(1, 2).reshape(b, n, dm)
-        return F.linear(out, proj_weight, proj_bias)
+        return attend_and_project(qkv, proj_weight, proj_bias, num_heads, save_p)
     wq, bq = _scaled_qkv_weights(qkv_weight, qkv_bias, num_heads)
     qkv = F.linear(x, wq, bq.to(x.dtype) if bq is not None else None)
     out = attention_qkv(qkv.contiguous(), num_heads, n)
+    return F.linear(out, proj_weight, proj_bias)
+
+
+def attend_and_project(qkv, proj_weight, proj_bias, num_heads, save_p=False):
+    """The training attention after the qkv projection: (B, N, 3D) split
+    into heads, :func:`flash_attention_trainable`, the out projection."""
+    b, n, d3 = qkv.shape
+    dm = d3 // 3
+    q, k, v = qkv.reshape(b, n, 3, num_heads, dm // num_heads).permute(2, 0, 3, 1, 4)
+    out = flash_attention_trainable(q, k, v, save_p).transpose(1, 2).reshape(b, n, dm)
     return F.linear(out, proj_weight, proj_bias)

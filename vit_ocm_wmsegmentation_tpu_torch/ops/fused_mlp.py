@@ -10,9 +10,15 @@ Counterpart of the inference forward of
   ``_mlp_fwd_kernel`` with no residual outputs);
 * :func:`fused_mlp_block_h1` returns ``(out, h1)``, the pre-GELU hidden
   activation saved for the backward (``_mlp_fwd_kernel``, ``want="h1"``);
+* :func:`fused_mlp_block_gp` returns ``(out, g, gp)``, gelu(h1) and
+  gelu'(h1) saved for a backward without erf or exp (``_mlp_fwd_kernel``,
+  ``want="gp"``, the JAX package's SAVE_GP route); its out is bit-equal to
+  :func:`fused_mlp_block_h1`'s;
 * :func:`fused_mlp_bwd` is the backward from x, h1 and the cotangent
-  (replaces ``_mlp_bwd_kernel``); :func:`fused_mlp_block_trainable` wires
-  the last two into a ``torch.autograd.Function``.
+  (replaces ``_mlp_bwd_kernel``), :func:`fused_mlp_bwd_gp` the backward
+  from x, g, gp and the cotangent (``_mlp_bwd_kernel`` with ``gpp``);
+  :func:`fused_mlp_block_trainable` wires either pair into a
+  ``torch.autograd.Function``.
 
 They launch the kernels of ``csrc/fused_mlp.cu`` and
 ``csrc/fused_mlp_bwd.cu`` (float32, CUDA cores) and ``csrc/fused_mlp_mma.cu``
@@ -43,23 +49,37 @@ MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (fused_
 _BWD_MIN_TILE = 32  # rows of the f32 backward's dx tile; the bf16 one takes 64
 
 
-def _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1=False):
+def _gelu_prime(h):
+    """gelu'(h) = Phi(h) + h phi(h) in f32, the kernels' order of operations."""
+    return 0.5 * (1.0 + torch.erf(h * _INV_SQRT2)) + h * (torch.exp(-0.5 * h * h) * _INV_SQRT2PI)
+
+
+def _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, want=None):
     """out in x's dtype, with the kernel's rounding points: xn and g rounded
-    to the storage type before each product, f32 accumulation; with
-    want_h1, also the pre-GELU h1 rounded to the storage type (GELU reads
-    the unrounded value)."""
+    to the storage type before each product, f32 accumulation; want="h1"
+    also returns the pre-GELU h1 rounded to the storage type (GELU reads
+    the unrounded value), want="gp" the rounded g and gelu'(h1)."""
     xn = tnn.layer_norm(x, scale, bias, eps).float()
     h1 = xn @ w1.float().T + b1.float()
-    g = tnn.gelu(h1).to(x.dtype).float()
-    y = g @ w2.float().T + b2.float()
+    g = tnn.gelu(h1).to(x.dtype)
+    y = g.float() @ w2.float().T + b2.float()
     out = (x.float() + y).to(x.dtype)
-    return (out, h1.to(x.dtype)) if want_h1 else out
+    if want == "h1":
+        return out, h1.to(x.dtype)
+    if want == "gp":
+        return out, g, _gelu_prime(h1).to(x.dtype)
+    return out
 
 
 def fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps=1e-6, want_h1=False):
     """Plain PyTorch twin of :func:`fused_mlp_block` and, with want_h1, of
     :func:`fused_mlp_block_h1`."""
-    return _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1)
+    return _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, "h1" if want_h1 else None)
+
+
+def fused_mlp_block_gp_plain(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
+    """Plain PyTorch twin of :func:`fused_mlp_block_gp`."""
+    return _mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, "gp")
 
 
 def fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps=1e-6):
@@ -97,21 +117,26 @@ def _f32_vector(name, t, size, device):
     return t.reshape(-1).float().contiguous()
 
 
-def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want_h1=False):
+def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None):
+    """One forward launch; returns (out, z) with lnout, else (out, h1 or g,
+    gp), the residuals None where ``want`` (None, "h1", "gp") asks for none."""
     r, d, hdim = _check(x, w1, w2)
     vec = lambda name, t, size=d: _f32_vector(name, t, size, x.device)  # noqa: E731
     args = [vec("scale", scale), vec("bias", bias), vec("b1", b1, hdim), vec("b2", b2)]
     args += [vec("scale2", scale2), vec("bias2", bias2)] if lnout else [None, None]
+    hidden = lambda: torch.empty((r, hdim), dtype=x.dtype, device=x.device)  # noqa: E731
     out = torch.empty_like(x)
     z = torch.empty_like(x) if lnout else None
-    h1 = torch.empty((r, hdim), dtype=x.dtype, device=x.device) if want_h1 else None
-    s1, bn1, b1f, b2f, s2, bn2 = (t.data_ptr() if t is not None else None for t in args)
+    h1 = hidden() if want is not None else None
+    gp = hidden() if want == "gp" else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    s1, bn1, b1f, b2f, s2, bn2 = (ptr(t) for t in args)
     rc = build.library().vitocm_fused_mlp(
         build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
-        w2.data_ptr(), b2f, s2, bn2, out.data_ptr(), z.data_ptr() if lnout else None,
-        h1.data_ptr() if want_h1 else None, r, d, hdim, float(eps), build.stream_ptr(x.device))
+        w2.data_ptr(), b2f, s2, bn2, out.data_ptr(), ptr(z), ptr(h1), ptr(gp), r, d, hdim,
+        float(eps), build.stream_ptr(x.device))
     build.check(rc, "fused_mlp")
-    return out, (z if lnout else h1)
+    return (out, z) if lnout else (out, h1, gp)
 
 
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
@@ -119,7 +144,7 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
     CPU tensors take the plain twin; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps)
-    out, _ = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False)
+    out, _, _ = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False)
     fused_mlp_block.launches += 1
     return out
 
@@ -140,26 +165,34 @@ def fused_mlp_block_h1(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
     take the plain twin; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps, want_h1=True)
-    out, h1 = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False,
-                      want_h1=True)
+    out, h1, _ = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False, want="h1")
     fused_mlp_block_h1.launches += 1
     return out, h1
 
 
-def fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps=1e-6):
-    """Plain PyTorch twin of :func:`fused_mlp_bwd`, with the TPU kernel's
-    rounding points: xn, g = gelu(h1) and dh1 rounded to the storage type
-    before their products, f32 everywhere else."""
+def fused_mlp_block_gp(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
+    """(out, g, gp): out as :func:`fused_mlp_block` (bit-equal to
+    :func:`fused_mlp_block_h1`'s), g = gelu(h1) and gp = gelu'(h1) (R, H)
+    rounded to x's dtype, the residuals of :func:`fused_mlp_bwd_gp`. CPU
+    tensors take the plain twin; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_gp_plain(x, scale, bias, w1, b1, w2, b2, eps)
+    out = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False, want="gp")
+    fused_mlp_block_gp.launches += 1
+    return out
+
+
+def _mlp_bwd_plain(x, do, g, gp, scale, bias, w1, w2, eps):
+    """The backward's arithmetic from g (in the storage type) and gp (f32):
+    xn and dh1 rounded to the storage type before their products, f32
+    everywhere else."""
     dt = x.dtype
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     r = torch.rsqrt((x32 - mu).square().mean(-1, keepdim=True) + eps)
     xh = (x32 - mu) * r
     xn = (xh * scale.float() + bias.float()).to(dt).float()
-    h = h1.float()
-    phi = 0.5 * (1.0 + torch.erf(h * _INV_SQRT2))
-    g = (h * phi).to(dt).float()
-    gp = phi + h * (torch.exp(-0.5 * h * h) * _INV_SQRT2PI)
+    g = g.float()
     do32 = do.float()
     dh1 = ((do32 @ w2.float()) * gp).to(dt).float()
     dxn = dh1 @ w1.float()
@@ -169,6 +202,20 @@ def fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps=1e-6):
             do32.T @ g, do32.sum(0))
 
 
+def fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps=1e-6):
+    """Plain PyTorch twin of :func:`fused_mlp_bwd`, with the TPU kernel's
+    rounding points: g = gelu(h1) rounded to the storage type, gelu'(h1) in
+    f32, then :func:`_mlp_bwd_plain`."""
+    h = h1.float()
+    return _mlp_bwd_plain(x, do, tnn.gelu(h).to(x.dtype), _gelu_prime(h), scale, bias, w1, w2,
+                          eps)
+
+
+def fused_mlp_bwd_gp_plain(x, do, g, gp, scale, bias, w1, w2, eps=1e-6):
+    """Plain PyTorch twin of :func:`fused_mlp_bwd_gp`: the saved g and gp."""
+    return _mlp_bwd_plain(x, do, g, gp.float(), scale, bias, w1, w2, eps)
+
+
 def fused_mlp_bwd(x, do, h1, scale, bias, w1, w2, eps=1e-6):
     """Backward of :func:`fused_mlp_block` from x, the saved h1 and the
     cotangent do of out: (dx in x's dtype, then f32 dscale, dbias, dw1 (H, D),
@@ -176,8 +223,27 @@ def fused_mlp_bwd(x, do, h1, scale, bias, w1, w2, eps=1e-6):
     launch the kernels (dx, weight-gradient partials, their reduction)."""
     if x.device.type == "cpu":
         return fused_mlp_bwd_plain(x, do, h1, scale, bias, w1, w2, eps)
+    out = _launch_bwd(x, do, h1, None, scale, bias, w1, w2, eps)
+    fused_mlp_bwd.launches += 1
+    return out
+
+
+def fused_mlp_bwd_gp(x, do, g, gp, scale, bias, w1, w2, eps=1e-6):
+    """Backward of :func:`fused_mlp_block` from x, the saved g and gp of
+    :func:`fused_mlp_block_gp` and the cotangent do: the gradients of
+    :func:`fused_mlp_bwd`, with no erf or exp in the kernels. CPU tensors
+    take the plain twin; CUDA tensors launch the kernels."""
+    if x.device.type == "cpu":
+        return fused_mlp_bwd_gp_plain(x, do, g, gp, scale, bias, w1, w2, eps)
+    out = _launch_bwd(x, do, g, gp, scale, bias, w1, w2, eps)
+    fused_mlp_bwd_gp.launches += 1
+    return out
+
+
+def _launch_bwd(x, do, h1, gp, scale, bias, w1, w2, eps):
     r, d, hdim = _check(x, w1, w2)
-    for name, t, shape in (("do", do, (r, d)), ("h1", h1, (r, hdim))):
+    hidden = (("h1", h1),) if gp is None else (("g", h1), ("gp", gp))
+    for name, t, shape in (("do", do, (r, d)), *((n, t, (r, hdim)) for n, t in hidden)):
         if (tuple(t.shape) != shape or t.device != x.device or t.dtype != x.dtype
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"fused_mlp_bwd: {name} must be a contiguous, 16-byte aligned "
@@ -191,13 +257,12 @@ def fused_mlp_bwd(x, do, h1, scale, bias, w1, w2, eps=1e-6):
     grads = torch.empty(width + 2 * d, **f32)
     dx, xn = torch.empty_like(x), torch.empty_like(x)  # xn: LN(x), from the dx kernel
     rc = build.library().vitocm_fused_mlp_bwd(
-        build.DTYPE_CODES[x.dtype], x.data_ptr(), do.data_ptr(), h1.data_ptr(), s1.data_ptr(),
-        bn1.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), xn.data_ptr(),
-        part.data_ptr(),
+        build.DTYPE_CODES[x.dtype], x.data_ptr(), do.data_ptr(), h1.data_ptr(),
+        gp.data_ptr() if gp is not None else None, s1.data_ptr(), bn1.data_ptr(),
+        w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), xn.data_ptr(), part.data_ptr(),
         ln_part.data_ptr(), grads.data_ptr(), r, d, hdim, MLP_SPLITS, float(eps),
         build.stream_ptr(x.device))
     build.check(rc, "fused_mlp_bwd")
-    fused_mlp_bwd.launches += 1
     hd = hdim * d
     return (dx, grads[width:width + d], grads[width + d:], grads[:hd].view(hdim, d),
             grads[2 * hd:2 * hd + hdim], grads[hd:2 * hd].view(d, hdim),
@@ -207,33 +272,41 @@ def fused_mlp_bwd(x, do, h1, scale, bias, w1, w2, eps=1e-6):
 fused_mlp_block.launches = 0
 fused_mlp_block_lnout.launches = 0
 fused_mlp_block_h1.launches = 0
+fused_mlp_block_gp.launches = 0
 fused_mlp_bwd.launches = 0
+fused_mlp_bwd_gp.launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):
-    """fused_mlp_block_h1 forward, fused_mlp_bwd backward; both looked up in
-    this module at call time, so the twins can stand in for a whole route.
+    """fused_mlp_block_h1 forward and fused_mlp_bwd backward, or with
+    save_gp fused_mlp_block_gp and fused_mlp_bwd_gp; all looked up in this
+    module at call time, so the twins can stand in for a whole route.
     Parameter gradients come back in f32 and are cast to each primal's
     dtype, as the JAX package's custom VJP does."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps):
-        out, h1 = fused_mlp_block_h1(x, scale, bias, w1, b1, w2, b2, eps)
-        ctx.save_for_backward(x, h1, scale, bias, w1, w2)
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, save_gp):
+        if save_gp:
+            out, *res = fused_mlp_block_gp(x, scale, bias, w1, b1, w2, b2, eps)
+        else:
+            out, *res = fused_mlp_block_h1(x, scale, bias, w1, b1, w2, b2, eps)
+        ctx.save_for_backward(x, scale, bias, w1, w2, *res)
         ctx.eps, ctx.bias_dtypes = eps, (b1.dtype, b2.dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        x, h1, scale, bias, w1, w2 = ctx.saved_tensors
-        dx, ds, dbb, dw1, db1, dw2, db2 = fused_mlp_bwd(x, do.contiguous(), h1, scale, bias, w1,
-                                                       w2, ctx.eps)
+        x, scale, bias, w1, w2, *res = ctx.saved_tensors
+        bwd = fused_mlp_bwd_gp if len(res) == 2 else fused_mlp_bwd
+        dx, ds, dbb, dw1, db1, dw2, db2 = bwd(x, do.contiguous(), *res, scale, bias, w1, w2,
+                                              ctx.eps)
         b1_dt, b2_dt = ctx.bias_dtypes
         return (dx, ds.to(scale.dtype), dbb.to(bias.dtype), dw1.to(w1.dtype), db1.to(b1_dt),
-                dw2.to(w2.dtype), db2.to(b2_dt), None)
+                dw2.to(w2.dtype), db2.to(b2_dt), None, None)
 
 
-def fused_mlp_block_trainable(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
+def fused_mlp_block_trainable(x, scale, bias, w1, b1, w2, b2, eps=1e-6, save_gp=False):
     """Differentiable :func:`fused_mlp_block` for x (R, D): the training
-    route (the JAX package's MLP_REMAT="kernel")."""
-    return _FusedMLP.apply(x, scale, bias, w1, b1, w2, b2, eps)
+    route (the JAX package's MLP_REMAT="kernel"), saving h1 or, with
+    save_gp, g and gp (MLP_REMAT="kernel+gp")."""
+    return _FusedMLP.apply(x, scale, bias, w1, b1, w2, b2, eps, save_gp)

@@ -6,6 +6,10 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
   masked-L1 loss on the training kernels, the global norm of the gradients,
   then clip and AdamW (train/optim.py). It returns (loss, grad norm before
   clipping) as the JAX step reports them;
+* :func:`train_routes` reads the opt-in kernel routes TRAIN.MLP_REMAT
+  ("kernel+gp"), TRAIN.LN_QKV ("kernel") and TRAIN.ATTN_SAVE_P ("on") into
+  a ``models.vit.TrainRoutes``, as the JAX package's
+  ``set_train_kernel_modes`` sets its globals;
 * AMP (AMP_OPT_LEVEL other than "" and "O0") works as the JAX package's
   ``amp_cast``: the f32 master parameters are cast to bf16 copies inside the
   step and x to bf16, so forward and backward run in bf16 and the gradients
@@ -17,9 +21,9 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
   (mim.py:116-135). Its library matmuls run under
   ``pipeline.exact_matmuls()`` (no TF32, f32 reductions of bf16 products).
 
-Not ported yet, and refused: TRAIN.PP_STAGES > 1, TRAIN.FSDP, the
-JAX-only route knobs TRAIN.MLP_REMAT / LN_QKV / ATTN_SAVE_P other than
-"auto", DATA.DEVICE_AUG, W&B logging and the per-epoch evaluation.
+Not ported yet, and refused: TRAIN.PP_STAGES > 1, TRAIN.FSDP, the XLA
+remat routes TRAIN.MLP_REMAT "none" / "gelu" / "gelu+ln" (no kernel of
+their own), DATA.DEVICE_AUG, W&B logging and the per-epoch evaluation.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import time
 import torch
 
 from ..models import simmim
+from ..models.vit import TrainRoutes
 from ..ops.metrics import AverageMeter
 from ..pipeline import exact_matmuls
 from . import checkpoint as ckpt
@@ -37,18 +42,20 @@ from .optim import Optimizer, global_norm
 from .schedule import build_schedule
 
 
-def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False):
+def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
+                    routes: TrainRoutes = TrainRoutes()):
     """step(x (B, H, W, 3), mask (B, gh, gw)) -> (loss, grad norm), both
     0-dim f32 tensors on the model's device; updates model and optimizer in
-    place (every ACCUMULATION_STEPS-th call applies an update)."""
+    place (every ACCUMULATION_STEPS-th call applies an update). ``routes``
+    selects the opt-in kernel routes (:func:`train_routes`)."""
     def step(x, mask):
         if amp:
             live = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                     for n, p in model.named_parameters()}
             loss, _, _ = torch.func.functional_call(model, live,
-                                                    (x.to(torch.bfloat16), mask, remat))
+                                                    (x.to(torch.bfloat16), mask, remat, routes))
         else:
-            loss, _, _ = model(x, mask, remat)
+            loss, _, _ = model(x, mask, remat, routes)
         grads = torch.autograd.grad(loss, optimizer.params)
         gnorm = global_norm(grads)
         optimizer.step(grads)
@@ -57,16 +64,39 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False)
     return step
 
 
+# the JAX package's choices (models/vit.py _*_CHOICES)
+MLP_REMAT_CHOICES = ("auto", "none", "gelu", "gelu+ln", "kernel", "kernel+gp", "kernel+h1")
+LN_QKV_CHOICES = ("auto", "none", "kernel")
+ATTN_SAVE_P_CHOICES = ("auto", "on", "off")
+_XLA_REMAT = ("none", "gelu", "gelu+ln")
+
+
+def train_routes(cfg) -> TrainRoutes:
+    """The effective kernel routes of cfg.TRAIN.MLP_REMAT, LN_QKV and
+    ATTN_SAVE_P. "auto" is the JAX package's shipped default (the MLP
+    kernel saving h1, LN_QKV off, saved P off); bare "kernel" is
+    "kernel+h1". Raises ValueError on a value the JAX package does not
+    accept, NotImplementedError on its XLA remat routes."""
+    tr = cfg.TRAIN
+    mlp, ln_qkv, save_p = (str(tr.get(k, "auto")) for k in ("MLP_REMAT", "LN_QKV", "ATTN_SAVE_P"))
+    for key, val, choices in (("MLP_REMAT", mlp, MLP_REMAT_CHOICES),
+                              ("LN_QKV", ln_qkv, LN_QKV_CHOICES),
+                              ("ATTN_SAVE_P", save_p, ATTN_SAVE_P_CHOICES)):
+        if val not in choices:
+            raise ValueError(f"TRAIN.{key}={val!r} not in {choices}")
+    if mlp in _XLA_REMAT:
+        raise NotImplementedError(f"TRAIN.MLP_REMAT={mlp!r}: the XLA remat routes "
+                                  f"{', '.join(map(repr, _XLA_REMAT))} are not ported yet")
+    return TrainRoutes(mlp_save_gp=mlp == "kernel+gp", ln_qkv=ln_qkv == "kernel",
+                       attn_save_p=save_p == "on")
+
+
 def _refuse_unported(cfg):
     tr = cfg.TRAIN
     if int(tr.get("PP_STAGES", 1)) > 1:
         raise NotImplementedError("TRAIN.PP_STAGES > 1 (pipeline parallelism) is not ported yet")
     if bool(tr.get("FSDP", False)):
         raise NotImplementedError("TRAIN.FSDP is not ported yet")
-    for key in ("MLP_REMAT", "LN_QKV", "ATTN_SAVE_P"):
-        if tr.get(key, "auto") != "auto":
-            raise NotImplementedError(f"TRAIN.{key}={tr[key]!r}: the port has one training "
-                                      f"route; only 'auto' is accepted")
     if cfg.DATA.get("DEVICE_AUG", False):
         raise NotImplementedError("DATA.DEVICE_AUG is not ported yet")
 
@@ -77,7 +107,11 @@ def train_mim(cfg, loader, *, device, logger=None):
     from ..utils.logger import create_logger
 
     _refuse_unported(cfg)
+    routes = train_routes(cfg)
     logger = logger or create_logger(cfg.OUTPUT, name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
+    logger.info(f"train kernel routes: MLP_REMAT=kernel+{'gp' if routes.mlp_save_gp else 'h1'} "
+                f"LN_QKV={'kernel' if routes.ln_qkv else None} "
+                f"ATTN_SAVE_P={routes.attn_save_p}")
     device = torch.device(device)
     vit_cfg = simmim.mim_vit_config(cfg.DATA.IMG_SIZE, cfg.MODEL.PATCH_SIZE)
     model = simmim.init(vit_cfg, torch.Generator().manual_seed(cfg.SEED), device)
@@ -101,7 +135,7 @@ def train_mim(cfg, loader, *, device, logger=None):
                     f"(optimizer updates {optimizer.updates})")
 
     amp, remat = cfg.AMP_OPT_LEVEL not in ("", "O0"), bool(cfg.TRAIN.USE_CHECKPOINT)
-    step = make_train_step(model, optimizer, amp=amp, remat=remat)
+    step = make_train_step(model, optimizer, amp=amp, remat=remat, routes=routes)
     logger.info(f"number of params: {sum(p.numel() for p in model.parameters())}")
     logger.info(f"Start training on {device} (amp={amp}, remat={remat})")
     history, min_loss, consec = [], float("inf"), 0

@@ -148,8 +148,9 @@ def default_config() -> CfgNode:
                 "ACCUMULATION_STEPS": 0,
                 "USE_CHECKPOINT": False,
                 # the JAX package's training-path kernel routes (no
-                # reference counterpart); the port has one route and
-                # accepts only "auto"
+                # reference counterpart): "auto" is its shipped default;
+                # "kernel+gp", LN_QKV "kernel" and ATTN_SAVE_P "on" take
+                # the opt-in kernels (train/mim_trainer.train_routes)
                 "MLP_REMAT": "auto",
                 "LN_QKV": "auto",
                 "ATTN_SAVE_P": "auto",
