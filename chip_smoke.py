@@ -17,7 +17,13 @@ and then, failing on the first phase that fails:
    values (counts exactly equal to the twin's); the opt-in training routes'
    kernels (saved-P attention forward and backward, the MLP block's gp
    forward and backward, LN -> qkv forward and backward) at the MIM step's
-   shapes, the gp forward's out bit-equal to the h1 forward's;
+   shapes, the gp forward's out bit-equal to the h1 forward's; the tools/
+   probes' kernels: the tiled matmul at 2048^3 in bf16 and int8 (int8
+   stores bit-equal, wrapped), int8_dot at the mosaic's four projection
+   shapes (112945 rows; bit-equal), probe attention in int8 (each output
+   within one bf16 ulp) and bf16, the four attention modes and the nine
+   attention functions of the probes at (49 x 6, 2305 of 2432 keys, 64)
+   (within 1e-2 of max|twin|);
 2. runs ``segment_mosaic`` on a 1152^2 uint8 mosaic (window 384, stride 128,
    49 tiles) with ViT-S/8 at full width and random weights from a seed, in
    float32 and bfloat16: bf16-vs-f32 mask Dice > 0.99, kernel route vs plain
@@ -54,7 +60,20 @@ and then, failing on the first phase that fails:
    --save all --writers 2``: each artifact equals the pipeline's output for
    the decoded image, byte for byte; then one 8192^2 mosaic in single-image
    mode with ``--streamed auto``, which must take the streamed route;
-8. prints the per-kernel JSON line, then the result line
+8. runs the int8 serving route (``--quant int8``) on phase 2's mosaic,
+   f32 and bf16, ``--infer_mlp auto`` and ``none``: the launches of one call
+   (22 or 44 int8_dot, 11 attention, 10 LN-out MLP with auto), int8 vs the
+   unquantized f32 mask (weight seeds 0-3 pooled) and int8 kernel vs plain
+   route (f32: seed 0; bf16: seeds 0-3 pooled), Dice > 0.99 and >= 0.99 in
+   f32, 0.98 in bf16, where the route sits on bf16's own noise floor
+   against f32 (printed beside it), ms per
+   mosaic beside the unquantized route, a 2048^2 streamed int8 mosaic
+   against the fused one (>= 0.999 of pixels), and three mosaics served with
+   ``--quant int8 --infer_mlp none``, masks equal to the pipeline's;
+9. runs each probe CLI once through ``python -m`` (3 timing iterations):
+   probe_dot in its four modes, bench_attention_variants and bench_attn_opt
+   with every mode and variant; each exits 0 and its lines parse;
+10. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -68,6 +87,7 @@ import copy
 import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,13 +105,14 @@ GRAD_TOL = {"f32": 1e-4, "bf16": 2e-2}  # gradients
 LSE_TOL = {"f32": 1e-5, "bf16": 1e-3}  # f32 lse; in bf16 a one-ulp flip of a rounded P moves it
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, f32 outside them; HBM3.
 # The histogram's one integer add a byte is counted at the f32 CUDA-core rate.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "u8": 67e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "u8": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 CSRC = "vit_ocm_wmsegmentation_tpu_torch/csrc/"
 FA = "vit_ocm_wmsegmentation_tpu/ops/flash_attention.py"
 FM = "vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py"
 TH = "vit_ocm_wmsegmentation_tpu/ops/threshold.py"
 LN = "vit_ocm_wmsegmentation_tpu/ops/ln_linear.py"
+PD, BAV, BAO = "tools/probe_dot.py", "tools/bench_attention_variants.py", "tools/bench_attn_opt.py"
 # wrapper -> (module, source file per storage dtype, TPU kernel it replaces)
 KERNELS = {
     "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
@@ -117,7 +138,23 @@ KERNELS = {
                          FM + ":243"),
     "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
     "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":44"),
+    "int8_dot": ("qz", {"int8": "matmul_mma.cu"}, PD + ":38"),
+    "probe_matmul": ("pr", {"bf16": "matmul_mma.cu", "int8": "matmul_mma.cu"}, PD + ":38"),
+    "probe_attention": ("pr", {"bf16": "probe_attention_mma.cu", "int8": "probe_attention_mma.cu"},
+                        PD + ":72"),
 }
+# the probe attention's functions -> the TPU kernel body each replaces
+PROBE_REPLACES = {"dot": PD + ":72", "full": BAV + ":31", "bf16exp": BAV + ":31",
+                  "noexp": BAV + ":31", "dotsonly": BAV + ":31", "v0": BAO + ":107",
+                  "exp2": BAO + ":107", "nomax": BAO + ":120", "normbound": BAO + ":189",
+                  "bf16sm": BAO + ":425", "combo": BAO + ":210", "qkvflat": BAO + ":269",
+                  "qkvflat_pipe2": BAO + ":333", "qkvflat_pipe2b": BAO + ":333"}
+PROJ_SHAPES = ((384, 1152), (384, 384), (384, 1536), (1536, 384))  # (K, N): qkv, proj, fc1, fc2
+# --quant int8 on the 1152^2 mosaic: launches of one segment_mosaic call
+INT8_LAUNCHES = {"auto": {"int8_dot": 22, "attention_qkv": 11, "fused_mlp_block_lnout": 10,
+                          "fused_mlp_block": 1},
+                 "none": {"int8_dot": 44, "attention_qkv": 11}}
+PROBE_N, PROBE_NP, PROBE_GROUPS = 2305, 2432, 49 * 6  # tools/ probes' attention shape
 MOSAIC_LAUNCHES = {"attention_qkv": 11, "fused_mlp_block_lnout": 10, "fused_mlp_block": 1}
 MIM_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 4, "fused_mlp_block_h1": 4,
                 "fused_mlp_bwd": 4}
@@ -144,9 +181,11 @@ def _modules():
     from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
     from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
     from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as ln
+    from vit_ocm_wmsegmentation_tpu_torch.ops import probes as pr
+    from vit_ocm_wmsegmentation_tpu_torch.ops import quant as qz
     from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
-    return {"fa": fa, "fm": fm, "ln": ln, "th": th}
+    return {"fa": fa, "fm": fm, "ln": ln, "th": th, "qz": qz, "pr": pr}
 
 
 def launch_counts():
@@ -911,6 +950,389 @@ def phase_mim_cli():
             raise AssertionError(f"the routes' epoch: losses {hist}, launches {counts} != {want}")
 
 
+def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, nbytes):
+    """One kernel row: kernel against its twin, then kernel, twin and library
+    times (CUDA events) beside the bound."""
+    import torch
+
+    got = kern()
+    torch.cuda.synchronize()
+    err = check(got, plain())
+    del got
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain, iters=5, warmup=1)
+    lib_ms = None
+    if library is not None:
+        try:  # a yardstick only: a library call that refuses these inputs reports null
+            lib_ms = cuda_ms(library)
+        except RuntimeError as e:
+            print(f"  {name}: the library call failed ({str(e).splitlines()[0]}); library_ms null")
+    bound_ms, bound_by = bound(flops, nbytes, tag)
+    lib = f", library {lib_ms:.3f} ms" if lib_ms is not None else ""
+    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {bound_ms:.3f} ms "
+          f"({bound_by})")
+    return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _equal(name, got, want):
+    import torch
+
+    if not (got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)):
+        err = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"{name} is not bit-equal to its plain twin (max|d| {err:.3e})")
+    print(f"  {name}: bit-equal to its plain twin")
+    return 0.0
+
+
+def _within_one_ulp(name, got, want):
+    """Each bf16 output within one bf16 ulp of the twin's (int32 products
+    are exact; only the last conversion may round apart)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    err = float((g - w).abs().max())
+    if not bool(((g - w).abs() <= ulp).all()):
+        raise AssertionError(f"{name}: an output differs from its twin's by more than one bf16 ulp")
+    print(f"  {name}: within one bf16 ulp of its plain twin (max|d| {err:.3e})")
+    return err
+
+
+def _matmul_rows(gen):
+    """Row 11a: the tiled matmul at 2048^3 (bf16, int8) and int8_dot at the
+    mosaic's four projection shapes (112945 rows, bf16 in and out)."""
+    import torch
+
+    pr, qz = _modules()["pr"], _modules()["qz"]
+    dev = torch.device("cuda")
+    rows, m = {}, 2048
+    for tag, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        if dtype == torch.int8:
+            a = torch.randint(-3, 3, (m, m), generator=gen, device=dev, dtype=dtype)
+            bt = torch.randint(-3, 3, (m, m), generator=gen, device=dev, dtype=dtype)
+            check = lambda g, w: _equal("probe_matmul[int8]", g, w)  # noqa: E731
+            b_km = bt.t()  # (K, N) column-major, cuBLAS's int8 layout
+            library = lambda: torch._int_mm(a, b_km)  # noqa: E731
+        else:
+            a = (torch.randn(m, m, generator=gen, device=dev) * 0.1).to(dtype)
+            bt = (torch.randn(m, m, generator=gen, device=dev) * 0.1).to(dtype)
+            check = lambda g, w: _compare("probe_matmul", "bf16", g, w, BF16_TOL)  # noqa: E731
+            library = lambda: torch.matmul(a, bt.t())  # noqa: E731
+        isz = a.element_size()
+        rows[f"probe_matmul[{tag}]"] = _timed_row(
+            f"probe_matmul[{tag}]", "matmul_mma.cu", PD + ":38", tag,
+            lambda: pr.probe_matmul(a, bt), lambda: pr.probe_matmul_plain(a, bt), check, library,
+            2 * m ** 3, 3 * m * m * isz)
+    n_rows = TILES * TOKENS
+    for k, n in PROJ_SHAPES:
+        x = torch.randn(n_rows, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        wq = qz.colwise_int8(w)
+        name = f"int8_dot[{k}->{n}]"
+
+        def library(x=x, wq=wq, bias=bias):
+            xq, sx = qz.rowwise_int8(x)
+            acc = torch._int_mm(xq, wq[0].t())
+            return ((acc.float() * sx) * wq[1] + bias).to(torch.bfloat16)
+
+        rows[name] = _timed_row(
+            name, "matmul_mma.cu", PD + ":38", "int8",
+            lambda x=x, wq=wq, bias=bias: qz.int8_dot(x, wq, bias, torch.bfloat16),
+            lambda x=x, wq=wq, bias=bias: qz.int8_dot_plain(x, wq, bias, torch.bfloat16),
+            lambda g, wnt, name=name: _equal(name, g, wnt), library,
+            2 * n_rows * k * n, n_rows * k * 2 + n * k + n * 8 + n_rows * n * 2)
+        del x
+    return rows
+
+
+def _probe_inputs(function, gen, dtype=None):
+    """probe_attention's keyword arguments at the tools/ probes' shapes, drawn
+    on the card (the CLIs of phase 9 draw the originals' numpy inputs)."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.ops.probes import VARIANTS
+
+    dev = torch.device("cuda")
+    g, n, np_, d = PROBE_GROUPS, PROBE_N, PROBE_NP, 64
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    bias = torch.where(torch.arange(np_, device=dev) < n, 0.0, -1e30).float()
+    if function == "dot":
+        if dtype == torch.int8:
+            ri = lambda *s: torch.randint(-100, 100, s, generator=gen, device=dev,  # noqa: E731
+                                          dtype=torch.int8)
+            q, kt, v = ri(g, np_, d), ri(g, d, np_), ri(g, np_, 2 * d)
+        else:
+            q, kt, v = rnd(g, np_, d), rnd(g, d, np_), rnd(g, np_, 2 * d)
+        return {"q": q, "k": kt, "v": v, "bias": torch.zeros(np_, device=dev), "scale": 1 / 16}
+    if function in ("full", "bf16exp", "noexp", "dotsonly"):  # folded as the original folds
+        kt, v = rnd(g, d, np_), rnd(g, np_, d)
+        kt[..., n:] = 0
+        v[:, n:] = 0
+        return {"q": rnd(g, n, d), "k": kt, "v": v, "bias": bias, "scale": d ** -0.5}
+    scale = d ** -0.5 * (1.4426950408889634 if "exp2" in VARIANTS[function].exp else 1.0)
+    layout = VARIANTS[function].layout
+    if layout == "qkvflat":
+        qkv = torch.randn(g // 6, np_, 3 * 6 * d, generator=gen, device=dev)
+        qkv[..., :6 * d] *= scale
+        return {"q": qkv.to(torch.bfloat16), "bias": bias, "heads": 6}
+    q = rnd(g, 2312, d, scale=scale)
+    if layout == "folded":
+        return {"q": q, "k": rnd(g, np_, d), "v": rnd(g, np_, d), "bias": bias}
+    ve = torch.zeros(g, np_, 2 * d, device=dev, dtype=torch.bfloat16)
+    ve[..., :d] = rnd(g, np_, d)
+    ve[..., d] = 1
+    return {"q": q, "k": rnd(g, d, np_), "v": ve, "bias": bias}
+
+
+def _probe_attention_rows(gen):
+    """Rows 11b, 12, 13: probe attention, int8 and bf16 (probe_dot.attn),
+    the four modes of row 12 and the nine functions of row 13, at
+    (49 x 6, 2305 of 2432 keys, 64); SDPA on the 2305 valid keys is the
+    library call of the softmax-normalized functions."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_ocm_wmsegmentation_tpu_torch.ops.probes import VARIANTS
+
+    pr = _modules()["pr"]
+    g, n, d = PROBE_GROUPS, PROBE_N, 64
+    sdpa_in = [torch.randn(g // 6, 6, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3)]
+    sdpa = lambda: F.scaled_dot_product_attention(*sdpa_in, scale=d ** -0.5)  # noqa: E731
+    flops = 4 * g * n * n * d
+    rows = {}
+    cases = [("dot", torch.int8), ("dot", torch.bfloat16)] + [(f, None) for f in VARIANTS
+                                                              if f != "dot"]
+    for function, dtype in cases:
+        kw = _probe_inputs(function, gen, dtype)
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        name = f"probe_attention[{function} {tag}]" if function == "dot" else \
+            f"probe_attention[{function}]"
+        if dtype == torch.int8:
+            check = lambda got, want, name=name: _within_one_ulp(name, got, want)  # noqa: E731
+        else:
+            check = lambda got, want, name=name: _compare(name, "bf16", got, want,  # noqa: E731
+                                                          BF16_TOL)
+        normalized = VARIANTS[function].den in ("ones", "sum") and function != "dot"
+        nbytes = sum(t.numel() * t.element_size() for t in kw.values()
+                     if isinstance(t, torch.Tensor))
+        nbytes += (kw["q"].numel() if function.startswith("qkvflat") else
+                   kw["q"].shape[0] * kw["q"].shape[1] * d) * 2
+        rows[name] = _timed_row(
+            name, "probe_attention_mma.cu", PROBE_REPLACES[function], tag,
+            lambda function=function, kw=kw: pr.probe_attention(function, **kw),
+            lambda function=function, kw=kw: pr.probe_attention_plain(function, **kw), check,
+            sdpa if normalized else None, flops, nbytes)
+        del kw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_probe_kernels():
+    """The probe kernels against their twins at the tools/ probes' shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = _matmul_rows(gen)
+    torch.cuda.empty_cache()
+    rows.update(_probe_attention_rows(gen))
+    return rows
+
+
+def phase_int8_route(models):
+    """The int8 serving route (--quant int8) at full width on phase 2's
+    1152^2 mosaic: launches, mask gates over weight seeds 0-3, ms per mosaic
+    beside the unquantized routes, the streamed path, the serving CLI.
+    Returns the int8_dot launches of one bf16 --infer_mlp none call by
+    projection shape."""
+    import torch
+    from PIL import Image
+
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch import sw_processing as sw
+    from vit_ocm_wmsegmentation_tpu_torch.models.vit import InferRoutes
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
+
+    pr = _modules()["pr"]
+    dev = torch.device("cuda")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    int8 = {"auto": InferRoutes("lnout", "int8"), "none": InferRoutes("none", "int8")}
+    full = {"auto": InferRoutes(), "none": InferRoutes("none")}
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((rng.random((SIZE, SIZE)) * 255).astype(np.uint8)).to(dev)
+
+    def run(model, tag, routes, im=img):
+        return pl.segment_mosaic(model, im, WINDOW, STRIDE, dtype=dtypes[tag], routes=routes)
+
+    for tag in dtypes:  # warm-up: the weights are quantized once per model here
+        run(models[tag], tag, int8["none"])
+    torch.cuda.synchronize()
+    shapes = {}
+    launch = pr.launch_matmul
+
+    def by_shape(a, bt, *args, **kw):  # int8_dot's GEMM launches by projection shape
+        key = f"int8_dot[{a.shape[1]}->{bt.shape[0]}]"
+        shapes[key] = shapes.get(key, 0) + 1
+        return launch(a, bt, *args, **kw)
+
+    for tag in dtypes:
+        for mlp, routes in int8.items():
+            reset_counts()
+            with mock.patch.object(pr, "launch_matmul", by_shape) if (tag, mlp) == ("bf16", "none") \
+                    else contextlib.nullcontext():
+                mask, attn = run(models[tag], tag, routes)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            want = {name: INT8_LAUNCHES[mlp].get(name, 0) for name in KERNELS}
+            print(f"  int8 route [{tag}, --infer_mlp {mlp}] launches: "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            if counts != want:
+                raise AssertionError(f"int8 route launch counts {counts} != {want}")
+            if not bool(attn.isfinite().all()) or not set(mask.unique().tolist()) <= {0, 255}:
+                raise AssertionError(f"int8 route [{tag}, {mlp}]: bad outputs")
+    if sum(shapes.values()) != INT8_LAUNCHES["none"]["int8_dot"] or len(shapes) != 4:
+        raise AssertionError(f"int8_dot launches by shape {shapes}")
+
+    # mask gates over weight seeds 0-3 (random weights sit at a noise floor)
+    pooled = {}
+
+    def keep(key, mask):
+        pooled.setdefault(key, []).append(mask)
+        return mask
+
+    for seed in range(4):
+        if seed:
+            m32 = load_model("vit_small", 8, seed=seed, device=dev)
+            ms_ = {"f32": m32, "bf16": pl.cast_params(copy.deepcopy(m32), torch.bfloat16)}
+        else:
+            ms_ = models
+        ref = keep("f32", run(ms_["f32"], "f32", full["auto"])[0].cpu().numpy())
+        keep("bf16", run(ms_["bf16"], "bf16", full["auto"])[0].cpu().numpy())
+        for tag in dtypes:
+            for mlp in int8:
+                k = keep(("int8", tag, mlp), run(ms_[tag], tag, int8[mlp])[0].cpu().numpy())
+                if tag == "bf16" or seed == 0:
+                    reset_counts()
+                    with plain_route():
+                        p = keep(("plain", tag, mlp), run(ms_[tag], tag, int8[mlp])[0].cpu().numpy())
+                    keep(("kernel", tag, mlp), k)
+                    if any(launch_counts().values()):
+                        raise AssertionError("the plain route launched a kernel")
+                    print(f"  weight seed {seed} [{tag}, {mlp}]: int8 vs f32 mask Dice "
+                          f"{dice(k, ref):.5f}, int8 kernel vs plain route {dice(k, p):.5f}")
+        del ms_
+    cat = {key: np.concatenate(v) for key, v in pooled.items()}
+    floor = dice(cat["bf16"], cat["f32"])
+    print(f"  unquantized bf16 vs f32 mask Dice {floor:.5f} (seeds 0-3 pooled): the bf16 noise "
+          f"floor of random weights at this size")
+    # the f32 readings isolate the int8 rounding and hold the 0.99 gates; in
+    # bf16 the int8 route sits on the bf16 noise floor above (PERF.md), so
+    # its readings are held to 0.98, which a broken route falls far below
+    for tag in dtypes:
+        for mlp in int8:
+            d_ref = dice(cat[("int8", tag, mlp)], cat["f32"])
+            d_plain = dice(cat[("kernel", tag, mlp)], cat[("plain", tag, mlp)])
+            gate = 0.99 if tag == "f32" else 0.98
+            what = "seeds 0-3 pooled" if tag == "bf16" else "seed 0"
+            print(f"  int8 [{tag}, --infer_mlp {mlp}]: vs unquantized f32 mask Dice {d_ref:.5f} "
+                  f"(seeds 0-3 pooled, gate > {gate}); kernel vs plain route {d_plain:.5f} "
+                  f"({what}, gate >= {gate})")
+            if not (d_ref > gate and d_plain >= gate):
+                raise AssertionError(f"int8 [{tag}, {mlp}] mask gate failed")
+
+    for tag in dtypes:
+        for mlp in int8:
+            t8 = cuda_ms(lambda: run(models[tag], tag, int8[mlp]), iters=5, warmup=1)
+            tf = cuda_ms(lambda: run(models[tag], tag, full[mlp]), iters=5, warmup=1)
+            print(f"  segment_mosaic [{tag}, --infer_mlp {mlp}]: --quant int8 {t8:.2f} ms/mosaic, "
+                  f"unquantized {tf:.2f} ms/mosaic ({t8 / tf:.3f}x), CUDA events")
+
+    big = torch.from_numpy((np.random.default_rng(0).random((BAND_SIZE, BAND_SIZE)) * 255)
+                           .astype(np.uint8)).to(dev)
+    smask, _ = _streamed_call(models["bf16"], big, torch.bfloat16, routes=int8["auto"])
+    fmask, _ = run(models["bf16"], "bf16", int8["auto"], big)
+    agree = float((smask == fmask).float().mean())
+    print(f"  streamed vs fused int8 [bf16] {BAND_SIZE}^2: mask agreement {agree:.6f} "
+          f"(gate >= 0.999)")
+    if not agree >= 0.999:
+        raise AssertionError(f"streamed vs fused int8 mask agreement {agree:.6f} < 0.999")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for i in range(3):
+            Image.fromarray((np.random.default_rng(i + 21).random((SIZE, SIZE)) * 255)
+                            .astype(np.uint8)).save(os.path.join(src, f"mosaic{i}.png"))
+        t0 = time.perf_counter()
+        masks = sw.main(["--image_path", src, "--output_dir", dst, "--bf16", "1", "--quant",
+                         "int8", "--infer_mlp", "none", "--save", "mask", "--device", "cuda"])
+        print(f"  served 3 mosaics with --quant int8 --infer_mlp none in "
+              f"{time.perf_counter() - t0:.2f} s (host clock)")
+        for name, mask in masks.items():
+            gray = torch.from_numpy(sw.decode(os.path.join(src, name + ".png"),
+                                              (SIZE, SIZE))).cuda()
+            want, _ = run(models["bf16"], "bf16", int8["none"], gray)
+            if not np.array_equal(want.cpu().numpy(), mask):
+                raise AssertionError(f"{name}: served int8 mask differs from segment_mosaic's")
+        if sorted(masks) != [f"mosaic{i}" for i in range(3)]:
+            raise AssertionError(f"served {sorted(masks)}")
+    print("  served int8 masks equal segment_mosaic's")
+    return shapes
+
+
+_PD_LINE = re.compile(r"^\s*([\d.]+) ms\s+.*?max\|d\| (\S+).*launches (\d+)")
+_BAV_LINE = re.compile(r"^(\w+)\s+bq=\s*(\d+)\s+([\d.]+) ms .*max\|d\| (\S+)\s+launches (\d+)")
+
+
+def phase_probe_clis():
+    """Each probe CLI once through ``python -m`` (3 timing iterations):
+    probe_dot in its four modes, the other two with every mode or variant.
+    Returns their kernel launches by kernel-table row."""
+    launches = {}
+    runs = [("probe_dot", [m]) for m in ("mm_bf16", "mm_int8", "attn_int8", "attn_bf16")]
+    runs += [("bench_attention_variants", []), ("bench_attn_opt", ["all"])]
+    for mod, argv in runs:
+        cmd = [sys.executable, "-m", f"vit_ocm_wmsegmentation_tpu_torch.tools.{mod}", *argv,
+               "--iters", "3"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        print(f"  {' '.join(cmd[2:])}: exit {r.returncode}, {len(lines)} lines, "
+              f"{time.perf_counter() - t0:.1f} s")
+        for ln in lines:
+            print(f"    {ln}")
+        if r.returncode != 0:
+            raise AssertionError(f"{mod} failed:\n{r.stderr[-3000:]}")
+        if mod == "probe_dot":
+            m = _PD_LINE.match(lines[-1])
+            if m is None or len(lines) != 1:
+                raise AssertionError(f"probe_dot {argv[0]}: unparsed output {lines}")
+            kind, dt = argv[0].split("_")
+            key = f"probe_matmul[{dt}]" if kind == "mm" else f"probe_attention[dot {dt}]"
+            launches[key] = int(m.group(3))
+        elif mod == "bench_attention_variants":
+            parsed = [_BAV_LINE.match(ln) for ln in lines]
+            if len(lines) != 12 or not all(parsed):
+                raise AssertionError(f"bench_attention_variants: unparsed output {lines}")
+            for m in parsed[::3]:
+                launches[f"probe_attention[{m.group(1)}]"] = int(m.group(5))
+        else:
+            rows = [json.loads(ln) for ln in lines]
+            if len(rows) != 16 or any(r_["ms"] is None for r_ in rows):
+                raise AssertionError(f"bench_attn_opt: unparsed output {lines}")
+            for r_ in rows:
+                key = f"probe_attention[{r_['function']}]"
+                launches[key] = launches.get(key, 0) + r_["launches"]
+    return launches
+
+
+
 def main():
     import torch
 
@@ -943,6 +1365,7 @@ def main():
     with pipeline.exact_matmuls():  # the plain twins' f32 matmuls too
         print("phase 1: kernels against their plain twins")
         kernels = phase_kernels()
+        probe_rows = phase_probe_kernels()
         took("phase 1")
         print("phase 2: segment_mosaic at full width")
         launches, models = phase_slice()
@@ -965,7 +1388,13 @@ def main():
     print("phase 7: streamed serving with every artifact")
     phase_serving_streamed(models["bf16"], streamed_mask)
     took("phase 7")
-    print(f"phases 1-7: {time.perf_counter() - phases:.1f} s (host clock)")
+    print("phase 8: the int8 serving route at full width")
+    int8_launches = phase_int8_route(models)
+    took("phase 8")
+    print("phase 9: the probe CLIs")
+    probe_launches = {**phase_probe_clis(), **int8_launches}
+    took("phase 9")
+    print(f"phases 1-9: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():
@@ -980,6 +1409,10 @@ def main():
             path_launches = route_launches[("all three", tag)][name]
         rows.append({"name": f"{name}[{tag}]", "route": "cuda", "source": CSRC + sources[tag],
                      "replaces": replaces, "launches": path_launches, **r})
+    for name, r in probe_rows.items():  # the int8 route's GEMM and the tools/ probes
+        if not probe_launches.get(name):
+            raise AssertionError(f"{name} was not launched on its path (phases 8-9)")
+        rows.append({**r, "launches": probe_launches[name]})
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

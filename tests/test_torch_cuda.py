@@ -15,6 +15,8 @@ from vit_ocm_wmsegmentation_tpu_torch.models import vit
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
 from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as lnl
+from vit_ocm_wmsegmentation_tpu_torch.ops import probes
+from vit_ocm_wmsegmentation_tpu_torch.ops import quant
 from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 pytestmark = pytest.mark.cuda
@@ -278,3 +280,132 @@ def test_new_wrappers_reject_layouts_they_do_not_take(cuda):
     w1, w2 = torch.zeros(1536, 384, device=cuda), torch.zeros(384, 1536, device=cuda)
     with pytest.raises(ValueError, match="gp"):
         fm.fused_mlp_bwd_gp(x, x, torch.zeros(4, 1536, device=cuda), x, v, v, w1, w2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,n,k", [(130, 72, 48), (1, 1, 64), (257, 129, 1536), (64, 3, 16)])
+def test_probe_matmul_kernel_matches_plain(cuda, dtype, m, n, k):
+    """M, N not multiples of the 128 tile, K not of the 64-byte stage. int8
+    stores wrap modulo 256 and are exact; bf16 sums differ in order only."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    if dtype == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda, dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=gen, device=cuda, dtype=torch.int8)
+    else:
+        a = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+        bt = torch.randn(n, k, generator=gen, device=cuda).to(dtype)
+    before = probes.probe_matmul.launches
+    got = probes.probe_matmul(a, bt)
+    assert probes.probe_matmul.launches == before + 1
+    want = probes.probe_matmul_plain(a, bt)
+    assert got.dtype == want.dtype == dtype and got.shape == (m, n)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES)
+@pytest.mark.parametrize("lead,k,n", [((3, 70), 384, 1152), ((129,), 1536, 384), ((5,), 64, 1)])
+def test_int8_dot_kernel_equals_plain(cuda, out_dtype, lead, k, n):
+    """Integer accumulators are exact and the dequant takes the twin's
+    operations in its order: the outputs are bit-equal, bias or not."""
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn(*lead, k, generator=gen, device=cuda).to(out_dtype)
+    x[..., 0, :] = 0  # an all-zero row takes scale 1
+    w = torch.randn(n, k, generator=gen, device=cuda) * k ** -0.5
+    bias = torch.randn(n, generator=gen, device=cuda)
+    wq = quant.colwise_int8(w)
+    for b in (bias, None):
+        before = quant.int8_dot.launches
+        got = quant.int8_dot(x, wq, b, out_dtype)
+        assert quant.int8_dot.launches == before + 1
+        want = quant.int8_dot_plain(x, wq, b, out_dtype)
+        assert got.shape == (*lead, n) and got.dtype == out_dtype
+        assert torch.equal(got, want)
+
+
+def _probe_case(variant, dev, rows=130, keys=208, groups=3):
+    gen = torch.Generator(device=dev).manual_seed(keys)
+    var = probes.VARIANTS[variant]
+    bias = torch.zeros(keys, device=dev)
+    bias[-5:] = -1e30  # padded keys
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    if var.layout == "qkvflat":
+        qkv = r(2, keys, 3 * 2 * 64)
+        qkv[..., :128] *= 0.125
+        return {"q": qkv, "bias": bias, "heads": 2}
+    q = r(groups, rows, 64) * 0.125
+    k = r(groups, 64, keys) if var.layout == "folded_t" else r(groups, keys, 64)
+    v = r(groups, keys, 128 if var.layout == "folded_t" else 64)
+    return {"q": q, "k": k, "v": v, "bias": bias, "scale": 1.0}
+
+
+@pytest.mark.parametrize("variant", sorted(probes.VARIANTS))
+def test_probe_attention_kernel_matches_plain(cuda, variant):
+    """Odd shapes: 130 query rows, 208 keys (keys past the last 64-key tile,
+    5 padded at -1e30), 3 groups; qkvflat at 2 x 208 rows, 2 heads."""
+    kw = _probe_case(variant, cuda)
+    before = probes.probe_attention.launches
+    got = probes.probe_attention(variant, **kw)
+    assert probes.probe_attention.launches == before + 1
+    _close(got, probes.probe_attention_plain(variant, **kw), torch.bfloat16)
+
+
+def test_probe_attention_int8_matches_plain(cuda):
+    """probe_dot's int8 attention: int32 products, the same exp and the same
+    truncation to int8 give outputs equal to the twin's."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randint(-100, 100, (3, 130, 64), generator=gen, device=cuda, dtype=torch.int8)
+    kt = torch.randint(-100, 100, (3, 64, 208), generator=gen, device=cuda, dtype=torch.int8)
+    v = torch.randint(-100, 100, (3, 208, 128), generator=gen, device=cuda, dtype=torch.int8)
+    bias = torch.zeros(208, device=cuda)
+    got = probes.probe_attention("dot", q, kt, v, bias, 1.0 / 16.0)
+    want = probes.probe_attention_plain("dot", q, kt, v, bias, 1.0 / 16.0)
+    assert torch.equal(got, want)
+
+
+def test_probe_wrappers_reject_layouts_they_do_not_take(cuda):
+    i8 = lambda *s: torch.zeros(*s, dtype=torch.int8, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="multiple of 16"):
+        probes.probe_matmul(i8(4, 24), i8(8, 24))
+    with pytest.raises(ValueError, match="dtype"):
+        probes.probe_matmul(i8(4, 32), torch.zeros(8, 32, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant.int8_dot(torch.zeros(4, 40, device=cuda), torch.zeros(8, 40, device=cuda))
+    bias = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="int8 for 'dot' only"):
+        probes.probe_attention("full", i8(1, 8, 64), i8(1, 64, 64), i8(1, 64, 64), bias)
+    bf = lambda *s: torch.zeros(*s, dtype=torch.bfloat16, device=cuda)  # noqa: E731
+    with pytest.raises(ValueError, match="bias of 64"):
+        probes.probe_attention("v0", bf(1, 8, 64), bf(1, 64, 64), bf(1, 64, 64), bias[:60])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        probes.probe_attention("v0", bf(1, 8, 64), bf(1, 64, 60), bf(1, 60, 64), bias[:60])
+    with pytest.raises(ValueError, match="qkv"):
+        probes.probe_attention("qkvflat", bf(1, 8, 384), bias=bias[:8], heads=3)
+
+
+@pytest.mark.parametrize("mlp", ["lnout", "kernel", "none"])
+def test_vit_tiny_mosaic_int8_route_matches_plain_route(cuda, monkeypatch, mlp):
+    """--quant int8 on each --infer_mlp route, f32. With the int8 GEMM's twin
+    in its place the outputs are bit-equal (the kernel's integers and dequant
+    are exact). Against every wrapper's twin, the attention kernel's f32
+    summation order moves some round-half cases of the next quantization by
+    one int8 code, so the random-weight masks agree only to the noise floor
+    that bf16 shows against f32 (Dice ~0.99 at this size)."""
+    model = vit.init(vit.VIT_TINY(patch_size=8), torch.Generator().manual_seed(0), cuda)
+    routes = vit.InferRoutes(mlp, "int8")
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((rng.random((192, 192)) * 255).astype(np.uint8)).to(cuda)
+    before = quant.int8_dot.launches
+    mask, attn = pl.segment_mosaic(model, img, 96, 32, routes=routes)
+    assert quant.int8_dot.launches - before == 11 * (2 if mlp == "lnout" else 4)
+    monkeypatch.setattr(quant, "int8_dot", quant.int8_dot_plain)
+    gmask, gattn = pl.segment_mosaic(model, img, 96, 32, routes=routes)
+    assert torch.equal(mask, gmask) and torch.equal(attn, gattn)
+    monkeypatch.setattr(fa, "attention_qkv", fa.attention_qkv_plain)
+    monkeypatch.setattr(fm, "fused_mlp_block", fm.fused_mlp_block_plain)
+    monkeypatch.setattr(fm, "fused_mlp_block_lnout", fm.fused_mlp_block_lnout_plain)
+    pmask, _ = pl.segment_mosaic(model, img, 96, 32, routes=routes)
+    a, b = mask.cpu().numpy() > 0, pmask.cpu().numpy() > 0
+    assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.98

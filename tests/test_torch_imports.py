@@ -13,7 +13,9 @@ from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
 from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "vit_ocm_wmsegmentation_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "vit_ocm_wmsegmentation_tpu")
+# the JAX package, and the repository's tools/ (its probes import JAX; the
+# port keeps its own copies under vit_ocm_wmsegmentation_tpu_torch/tools)
+FORBIDDEN = ("jax", "jaxlib", "vit_ocm_wmsegmentation_tpu", "tools")
 
 
 def _imported_modules(path):
@@ -38,6 +40,7 @@ def test_port_module_imports_no_jax(path):
 def test_import_check_matches_names_exactly():
     assert _forbidden("jax.numpy") and _forbidden("vit_ocm_wmsegmentation_tpu.ops")
     assert not _forbidden("vit_ocm_wmsegmentation_tpu_torch.ops") and not _forbidden("jaxtyping")
+    assert _forbidden("tools.probe_dot") and not _forbidden("vit_ocm_wmsegmentation_tpu_torch.tools")
     assert list(PORT.rglob("*.py")), "port package not found"
 
 

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # storage dtype -> the C interface's dtype code (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_CODE = 2  # int8 operands of csrc/matmul_mma.cu and csrc/probe_attention_mma.cu
 
 _lock = threading.Lock()
 _lib = None
@@ -74,6 +75,10 @@ def _declare(lib):
     lib.vitocm_ln_linear_bwd.restype = _I
     lib.vitocm_histogram_u8.argtypes = [_P, ctypes.c_size_t, _P, _P]
     lib.vitocm_histogram_u8.restype = _I
+    lib.vitocm_matmul.argtypes = [_I, _I, *[_P] * 6, _I, _I, _I, _P]
+    lib.vitocm_matmul.restype = _I
+    lib.vitocm_probe_attention.argtypes = [*[_I] * 6, *[_P] * 6, *[_I] * 5, ctypes.c_float, _P]
+    lib.vitocm_probe_attention.restype = _I
     return lib
 
 

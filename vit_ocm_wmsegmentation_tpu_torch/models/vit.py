@@ -13,6 +13,10 @@ matmul; blocks 0..L-2 with the attention kernel and the fused MLP kernels,
 where each block's MLP kernel also emits the next block's normalized input
 (the JAX package's cross-layer "LN-out" route) and the last of them takes
 the plain fused MLP; the last block reduces to the CLS-row softmax.
+:class:`InferRoutes` (the CLIs' ``--infer_mlp`` and ``--quant``) selects the
+fused MLP kernel per block or the stock MLP instead, and the int8
+projections of ``ops/quant.py``, route for route as the JAX package's
+``set_infer_mlp`` / ``set_infer_quant`` do.
 
 Training path (:func:`run_blocks_train`, the JAX package's
 ``_scan_blocks(train=True)``): every block on the differentiable kernel
@@ -39,6 +43,7 @@ from ..ops import attention as att
 from ..ops import flash_attention as fa
 from ..ops import fused_mlp as fm
 from ..ops import ln_linear as lnl
+from ..ops import quant as qz
 from ..ops.resize import bicubic_matrix
 
 
@@ -198,29 +203,143 @@ def _mlp_args(blk):
             blk.mlp.fc2.weight, blk.mlp.fc2.bias)
 
 
-def run_blocks(model: ViT, tok, hi: int):
-    """Blocks [0, hi) on the cross-layer fused route: each block's MLP kernel
-    emits the next block's normalized input z, so only block 0's LN1 runs
-    on its own; block hi-1 takes the plain fused MLP."""
+INFER_MLP_CHOICES = ("auto", "none", "kernel", "lnout")
+QUANT_CHOICES = ("none", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class InferRoutes:
+    """The inference path's routes, the JAX package's ``set_infer_mlp`` /
+    ``set_infer_quant`` module globals carried as an argument:
+
+    * mlp: "lnout" (the default: the cross-layer fused MLP kernel emitting the
+      next block's LN input), "kernel" (the fused MLP kernel per block) or
+      "none" (the stock MLP in plain torch, exact erf);
+    * quant: None, or "int8" for the W8A8 projections of ops/quant.py.
+
+    With int8 the routes follow the JAX package's table
+    (``vit.py:536-560, 598-624, 671-684``): "lnout" quantizes the attention
+    projections and keeps the fused MLP kernel in full precision (its gate
+    does not read the quant mode); "kernel" and "none" take the stock MLP with
+    both products in int8. The last block's CLS row is never quantized."""
+
+    mlp: str = "lnout"
+    quant: str | None = None
+
+    def __post_init__(self):
+        if self.mlp not in ("lnout", "kernel", "none"):
+            raise ValueError(f"InferRoutes.mlp {self.mlp!r} not in ('lnout', 'kernel', 'none')")
+        if self.quant not in (None, "int8"):
+            raise ValueError(f"InferRoutes.quant {self.quant!r} not in (None, 'int8')")
+
+
+def infer_routes(infer_mlp: str = "auto", quant: str = "none") -> InferRoutes:
+    """InferRoutes from the CLIs' --infer_mlp and --quant (auto = lnout, the
+    JAX package's shipped route)."""
+    if infer_mlp not in INFER_MLP_CHOICES:
+        raise ValueError(f"infer mlp mode {infer_mlp!r} not in {INFER_MLP_CHOICES}")
+    if quant not in QUANT_CHOICES:
+        raise ValueError(f"infer quant mode {quant!r} not in {QUANT_CHOICES}")
+    return InferRoutes("lnout" if infer_mlp == "auto" else infer_mlp,
+                       None if quant == "none" else quant)
+
+
+def _int8_key(model: ViT):
+    return tuple((p.data_ptr(), p._version, p.dtype) for blk in model.blocks
+                 for p in (blk.attn.qkv.weight, blk.attn.proj.weight, blk.mlp.fc1.weight,
+                           blk.mlp.fc2.weight))
+
+
+@torch.no_grad()
+def int8_weights(model: ViT):
+    """Per block, the int8 route's weights quantized once per model (the JAX
+    package folds them as jit constants): "qkv", the qkv weight with 1/sqrt(d)
+    folded into its q rows, and "qkv_bias", its f32 bias; "proj", "fc1",
+    "fc2". Each is ops.quant.colwise_int8's (int8, scale) pair of the weight
+    in its current dtype. Cached on the model; quantized again only when a
+    weight was replaced, moved, cast or written to."""
+    key = _int8_key(model)
+    cached = model.__dict__.get("_int8_cache")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    heads = model.cfg.num_heads
+    out = []
+    for blk in model.blocks:
+        wq, bq = fa._scaled_qkv_weights(blk.attn.qkv.weight, blk.attn.qkv.bias, heads)
+        out.append({"qkv": qz.colwise_int8(wq), "qkv_bias": bq,
+                    "proj": qz.colwise_int8(blk.attn.proj.weight),
+                    "fc1": qz.colwise_int8(blk.mlp.fc1.weight),
+                    "fc2": qz.colwise_int8(blk.mlp.fc2.weight)})
+    model.__dict__["_int8_cache"] = (key, out)
+    return out
+
+
+def _linear(x, weight, bias):
+    """nn.linear of the JAX package: f32 accumulation, the bias added in f32,
+    one cast to x's dtype."""
+    y = x.float() @ weight.float().T
+    return (y + bias.float() if bias is not None else y).to(x.dtype)
+
+
+def mlp_forward(blk, cfg: ViTConfig, x, int8=None):
+    """The stock LN2 -> fc1 -> GELU -> fc2 branch of a block (the JAX
+    package's ``_mlp_forward`` on inference), without the residual. With
+    ``int8`` (a block of :func:`int8_weights`) both products run as
+    ops.quant.int8_dot; LN, GELU and the biases stay float."""
+    h = tnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias, cfg.ln_eps)
+    m = blk.mlp
+    if int8 is None:
+        return _linear(tnn.gelu(_linear(h, m.fc1.weight, m.fc1.bias)), m.fc2.weight, m.fc2.bias)
+    h = qz.int8_dot(h, int8["fc1"], m.fc1.bias.float(), x.dtype)
+    return qz.int8_dot(tnn.gelu(h), int8["fc2"], m.fc2.bias.float(), x.dtype)
+
+
+def _attention(blk, cfg: ViTConfig, h, int8):
+    a = blk.attn
+    return fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, cfg.num_heads,
+                        quant=int8 is not None, int8=int8)
+
+
+def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes()):
+    """Blocks [0, hi) on the inference routes. On "lnout" each block's MLP
+    kernel emits the next block's normalized input z, so only block 0's LN1
+    runs on its own, and block hi-1 takes the plain fused MLP; on "kernel"
+    every block runs LN1 and the fused MLP kernel; on "none", and on "kernel"
+    with int8, the stock MLP (:func:`mlp_forward`)."""
     cfg = model.cfg
     if hi <= 0:
         return tok
     b, n, d = tok.shape
-    h = tnn.layer_norm(tok, model.blocks[0].norm1.weight, model.blocks[0].norm1.bias, cfg.ln_eps)
+    q8 = int8_weights(model) if routes.quant == "int8" else None
+
+    def int8_of(i):
+        return q8[i] if q8 is not None else None
+
+    if routes.mlp == "lnout":
+        h = tnn.layer_norm(tok, model.blocks[0].norm1.weight, model.blocks[0].norm1.bias,
+                           cfg.ln_eps)
+        for i in range(hi):
+            blk = model.blocks[i]
+            tok = tok + _attention(blk, cfg, h, int8_of(i))
+            rows = tok.reshape(b * n, d)
+            if i + 1 < hi:
+                nxt = model.blocks[i + 1].norm1
+                rows, z = fm.fused_mlp_block_lnout(rows, *_mlp_args(blk), nxt.weight, nxt.bias,
+                                                   cfg.ln_eps)
+                h = z.reshape(b, n, d)
+            else:
+                rows = fm.fused_mlp_block(rows, *_mlp_args(blk), cfg.ln_eps)
+            tok = rows.reshape(b, n, d)
+        return tok
     for i in range(hi):
         blk = model.blocks[i]
-        a = blk.attn
-        tok = tok + fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
-                                 cfg.num_heads)
-        rows = tok.reshape(b * n, d)
-        if i + 1 < hi:
-            nxt = model.blocks[i + 1].norm1
-            rows, z = fm.fused_mlp_block_lnout(rows, *_mlp_args(blk), nxt.weight, nxt.bias,
-                                               cfg.ln_eps)
-            h = z.reshape(b, n, d)
+        h = tnn.layer_norm(tok, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+        tok = tok + _attention(blk, cfg, h, int8_of(i))
+        if routes.mlp == "kernel" and q8 is None:
+            tok = fm.fused_mlp_block(tok.reshape(b * n, d), *_mlp_args(blk),
+                                     cfg.ln_eps).reshape(b, n, d)
         else:
-            rows = fm.fused_mlp_block(rows, *_mlp_args(blk), cfg.ln_eps)
-        tok = rows.reshape(b, n, d)
+            tok = tok + mlp_forward(blk, cfg, tok, int8_of(i))
     return tok
 
 
@@ -292,14 +411,15 @@ def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes =
 
 
 @torch.inference_mode()
-def cls_attention_grid(model: ViT, x):
+def cls_attention_grid(model: ViT, x, routes: InferRoutes = InferRoutes()):
     """Last-block CLS-row attention as a patch grid: (B, H, W, 3) ->
     (B, h, gh, gw), i.e. attn[:, :, 0, 1:] of the reference's last block
-    (utils.py:229-233), without any N x N matrix."""
+    (utils.py:229-233), without any N x N matrix. ``routes`` selects the
+    inference routes of blocks 0..L-2; the CLS row is never quantized."""
     cfg = model.cfg
     b, hgt, wdt, _ = x.shape
     gh, gw = hgt // cfg.patch_size, wdt // cfg.patch_size
-    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1)
+    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1, routes)
     last = model.blocks[cfg.depth - 1]
     h = tnn.layer_norm(tok, last.norm1.weight, last.norm1.bias, cfg.ln_eps)
     row = att.cls_row_attention(h, last.attn.qkv.weight, last.attn.qkv.bias, cfg.num_heads)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import build
+from . import quant as qz
 
 HEAD_DIMS = (64, 128)  # the kernels' head dims (every DINO ViT; the MIM ViT)
 KEY_TILE = 64  # keys per online-softmax step, in the kernels (kBK) and their twins
@@ -323,20 +324,49 @@ def flash_attention_trainable(q, k, v, save_p=False):
 
 
 def mha_flash(x, qkv_weight, qkv_bias, proj_weight, proj_bias, num_heads, prefer_folded=False,
-              save_p=False):
+              save_p=False, quant=False, int8=None):
     """Full MHSA block on the attention kernels: (B, N, D) -> (B, N, D).
 
     prefer_folded=False (inference): the qkvflat route, :func:`attention_qkv`
     on the fused projection, no gradient. prefer_folded=True (training): the
     folded route through :func:`flash_attention_trainable` (saving P with
     save_p), with the JAX package's roundings of the qkv projection (the
-    product and the bias each rounded to x's dtype)."""
+    product and the bias each rounded to x's dtype).
+
+    quant=True (inference only, the --quant int8 route) runs the qkv and out
+    projections as :func:`ops.quant.int8_dot`, the attention products staying
+    in x's dtype, as the JAX package's ``mha_flash(quant=True)`` does: the
+    flat branch quantizes the scaled qkv weight and adds its f32 bias before
+    the one cast; the folded branch quantizes the raw weight and keeps that
+    branch's two roundings. ``int8`` holds the weights quantized once
+    (``models.vit.int8_weights``: "qkv" scaled, "proj"); without it they are
+    quantized here."""
     b, n, dm = x.shape
+    int8 = int8 or {}
+    if quant:
+        proj8 = int8.get("proj", proj_weight)
+        pb = proj_bias.float() if proj_bias is not None else None
     if prefer_folded:
-        qkv = F.linear(x, qkv_weight)
+        if not quant:
+            qkv = F.linear(x, qkv_weight)
+            if qkv_bias is not None:
+                qkv = qkv + qkv_bias.to(x.dtype)
+            return attend_and_project(qkv, proj_weight, proj_bias, num_heads, save_p)
+        qkv = qz.int8_dot(x, qkv_weight, out_dtype=x.dtype)
         if qkv_bias is not None:
             qkv = qkv + qkv_bias.to(x.dtype)
-        return attend_and_project(qkv, proj_weight, proj_bias, num_heads, save_p)
+        q, k, v = qkv.reshape(b, n, 3, num_heads, dm // num_heads).permute(2, 0, 3, 1, 4)
+        out = flash_attention_trainable(q, k, v, save_p).transpose(1, 2).reshape(b, n, dm)
+        return qz.int8_dot(out, proj8, pb, x.dtype)
+    if quant:
+        wq8 = int8.get("qkv")
+        bq = int8.get("qkv_bias")
+        if wq8 is None:
+            wq, bq = _scaled_qkv_weights(qkv_weight, qkv_bias, num_heads)
+            wq8 = qz.colwise_int8(wq)
+        qkv = qz.int8_dot(x, wq8, bq, x.dtype)
+        out = attention_qkv(qkv.contiguous(), num_heads, n)
+        return qz.int8_dot(out, proj8, pb, x.dtype)
     wq, bq = _scaled_qkv_weights(qkv_weight, qkv_bias, num_heads)
     qkv = F.linear(x, wq, bq.to(x.dtype) if bq is not None else None)
     out = attention_qkv(qkv.contiguous(), num_heads, n)

@@ -55,13 +55,14 @@ def cast_params(model, dtype):
     return model.to(dtype)
 
 
-def head_average_attention(model, x, median_size=1):
+def head_average_attention(model, x, median_size=1, routes=vit.InferRoutes()):
     """(B, H, W, 3) -> (B, gh, gw): CLS attention grid averaged over heads
-    in the compute dtype (eval.py:142-144). Only median_size=1 (no median
-    filter) is ported."""
+    in the compute dtype (eval.py:142-144), on the inference ``routes``
+    (models.vit.InferRoutes). Only median_size=1 (no median filter) is
+    ported."""
     if median_size != 1:
         raise NotImplementedError("median_size > 1 is not ported yet")
-    return vit.cls_attention_grid(model, x).mean(dim=1)
+    return vit.cls_attention_grid(model, x, routes).mean(dim=1)
 
 
 def validate_window_geometry(window: int, stride: int) -> None:
@@ -102,38 +103,42 @@ def mosaic_tiles(img_u8, window, stride):
                             st.tile_starts(w, window, stride), window)
 
 
-def _per_tile_attention(model, tiles_u8, window, median_size=1, dtype=torch.float32):
+def _per_tile_attention(model, tiles_u8, window, median_size=1, dtype=torch.float32,
+                        routes=vit.InferRoutes()):
     """Tile batch -> per-tile smoothed attention maps (sw_processing.py:
     235-258): head average, min-max per tile, *255, bilinear to the window."""
-    avg = head_average_attention(model, to_model_input(tiles_u8, dtype), median_size).float()
+    avg = head_average_attention(model, to_model_input(tiles_u8, dtype), median_size,
+                                 routes).float()
     g = th.min_max_normalize(avg, dims=(-2, -1)) * 255.0
     return resize_linear_cv2(g, (window, window))
 
 
 @torch.inference_mode()
 def attention_mosaic(model, img_u8, window=384, stride=128, median_size=1,
-                     dtype=torch.float32):
-    """Full-mosaic attention map: (H, W) uint8 -> (H, W) float32."""
+                     dtype=torch.float32, routes=vit.InferRoutes()):
+    """Full-mosaic attention map: (H, W) uint8 -> (H, W) float32, the ViT on
+    the inference ``routes`` (models.vit.InferRoutes: --infer_mlp, --quant)."""
     validate_window_geometry(window, stride)
     padded, (h, w) = pad_mosaic(img_u8, window, stride)
     tiles = mosaic_tiles(padded, window, stride)
     with exact_matmuls():
         maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
-                                              median_size, dtype)
+                                              median_size, dtype, routes)
                           for i in range(0, tiles.shape[0], TILE_CHUNK)])
     return st.stitch_blended(maps, window, stride, padded.shape)[:h, :w]
 
 
 @torch.inference_mode()
 def segment_mosaic(model, img_u8, window=384, stride=128, median_size=1,
-                   dtype=torch.float32, exact_stitch=False):
+                   dtype=torch.float32, exact_stitch=False, routes=vit.InferRoutes()):
     """Mosaic white-matter mask, the sw_processing.py end-to-end flow.
 
     Returns (mask uint8 {0,255}, attention (H, W) float32). By default the
     threshold reads the original mosaic; ``exact_stitch=True`` reads the
     reference's re-stitched uint8 image instead (ops.stitch.restitch_u8),
-    bit-exactly as the reference computes it."""
-    attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype)
+    bit-exactly as the reference computes it. ``routes`` selects the ViT's
+    inference routes (models.vit.InferRoutes)."""
+    attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype, routes)
     timg = img_u8
     if exact_stitch:
         padded, (h, w) = pad_mosaic(img_u8, window, stride)
@@ -154,7 +159,7 @@ DEFAULT_BAND_CHUNK = 8
 
 
 def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, median_size,
-                      dtype):
+                      dtype, routes=vit.InferRoutes()):
     """Process the row of tiles starting at mosaic row y0 and add its
     weighted attention strip into the (H, W) f32 canvas ``acc`` in place
     (the torch counterpart of the JAX package's donated canvas).
@@ -167,7 +172,7 @@ def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, media
     strip = img_dev[y0 : y0 + window]
     tiles = strip.unfold(1, window, stride).permute(1, 0, 2)  # (J, window, window)
     maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
-                                          median_size, dtype)
+                                          median_size, dtype, routes)
                       for i in range(0, tiles.shape[0], TILE_CHUNK)])
     ones = torch.ones((1, window), dtype=torch.float32, device=acc.device)
     band = st.overlap_add(maps * wy_row[None, :, None], ones, wx, window, stride,
@@ -178,7 +183,8 @@ def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, media
 @torch.inference_mode()
 def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1,
                             dtype=torch.float32, exact_stitch=False, progress=None,
-                            band_chunk=None, single_dispatch=False, mesh=None):
+                            band_chunk=None, single_dispatch=False, mesh=None,
+                            routes=vit.InferRoutes()):
     """segment_mosaic with memory bounded for gigapixel mosaics.
 
     segment_mosaic holds every tile's (window, window) attention map before
@@ -196,6 +202,7 @@ def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1
     segment_mosaic's to float tolerance (the canvas sums band by band where
     the fused stitch sums shifted blocks). ``single_dispatch`` and ``mesh``
     are the JAX package's TPU dispatch and multi-chip options and raise.
+    ``routes`` selects the ViT's inference routes (models.vit.InferRoutes).
     Returns (mask (H, W) uint8 {0,255}, attention (H, W) float32)."""
     if single_dispatch:
         raise NotImplementedError("single_dispatch is not ported yet")
@@ -219,7 +226,7 @@ def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1
     with exact_matmuls():
         for r, y0 in enumerate(ys):
             _band_update_impl(model, padded, acc, int(y0), wy[r], wx, window, stride,
-                              median_size, dtype)
+                              median_size, dtype, routes)
             if progress is not None and ((r + 1) % band_chunk == 0 or r + 1 == len(ys)):
                 progress(r + 1, len(ys))
     attn = acc[:h, :w]

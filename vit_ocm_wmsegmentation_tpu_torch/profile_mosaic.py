@@ -34,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 from . import pipeline as pl
 from .ops import flash_attention as fa
 from .ops import fused_mlp as fm
+from .ops import quant as qz
 from .ops import stitch as st
 from .ops import threshold as th
 from .ops.resize import resize_linear_cv2
@@ -50,10 +51,11 @@ def dice(a, b):
 
 @contextlib.contextmanager
 def plain_route():
-    """Every kernel wrapper of the mosaic path swapped for its plain twin."""
+    """Every kernel wrapper of the mosaic path (the int8 route's GEMM too)
+    swapped for its plain twin."""
     with contextlib.ExitStack() as stack:
         for mod, name in ((fa, "attention_qkv"), (fm, "fused_mlp_block"),
-                          (fm, "fused_mlp_block_lnout")):
+                          (fm, "fused_mlp_block_lnout"), (qz, "int8_dot")):
             stack.enter_context(mock.patch.object(mod, name, getattr(mod, name + "_plain")))
         yield
 

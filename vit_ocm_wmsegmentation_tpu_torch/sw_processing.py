@@ -12,7 +12,8 @@ mosaic i+2 and uploads it on a side stream, the main thread issues the
 compute of mosaic i+1, and writer threads (``--writers``) encode mosaic i
 into ``<output_dir>/<name>/`` (``--save mask`` writes the mask only).
 Mosaics above ``pipeline.STREAM_AUTO_MP`` megapixels take the band-streamed
-path (``--streamed``). The flags follow the repository's root
+path (``--streamed``). ``--infer_mlp`` and ``--quant int8`` select the
+ViT's inference routes (models.vit.InferRoutes). The flags follow the repository's root
 ``sw_processing.py`` where they apply. The device is ``--device`` (default
 ``cuda``); a missing device raises, the CPU is taken only when asked for.
 """
@@ -62,6 +63,14 @@ def parse_args(argv=None):
     parser.add_argument("--save", default="all", choices=["all", "mask"],
                         help="directory mode: artifacts per mosaic; 'mask' writes only "
                              "otsu_sw.jpg")
+    parser.add_argument("--infer_mlp", default="auto", choices=list(vit.INFER_MLP_CHOICES),
+                        help="inference MLP route: auto = lnout (the cross-layer fused MLP "
+                             "kernel, the JAX package's shipped route); kernel = the fused MLP "
+                             "kernel per block; none = the stock MLP (exact erf)")
+    parser.add_argument("--quant", default="none", choices=list(vit.QUANT_CHOICES),
+                        help="inference quantization: int8 runs the projection matmuls (and the "
+                             "stock MLP's) as dynamic W8A8 products on the int8 GEMM kernel "
+                             "(ops/quant.py); the weights are quantized once")
     parser.add_argument("--streamed", default="auto", choices=["auto", "0", "1"],
                         help="take the band-streamed path (segment_mosaic_streamed: one "
                              "f32 canvas on the device, one tile row at a time); auto = "
@@ -86,9 +95,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_model(arch: str, patch_size: int, pretrained_weights: str = "",
-               checkpoint_key: str = "teacher", seed: int = 0, device=None):
+               checkpoint_key: str = "teacher", seed: int = 0, device=None, dtype=None,
+               quant: str = "none"):
     """The ViT for ``arch``: a local checkpoint when given, else random
-    weights from ``seed`` (no download is attempted)."""
+    weights from ``seed`` (no download is attempted), on ``device``, cast to
+    ``dtype`` when given; with ``quant="int8"`` its int8 route's weights are
+    quantized here, once (models.vit.int8_weights)."""
     if arch not in vit.ARCHS:
         raise SystemExit(f"unknown arch {arch!r}; choices: {sorted(vit.ARCHS)}")
     cfg = vit.ARCHS[arch](patch_size=patch_size)
@@ -99,7 +111,13 @@ def load_model(arch: str, patch_size: int, pretrained_weights: str = "",
         print(f"Pretrained weights loaded from {pretrained_weights}")
     else:
         print("There is no reference weights available for this model => We use random weights.")
-    return model.to(device) if device is not None else model
+    if device is not None:
+        model = model.to(device)
+    if dtype is not None:
+        model = pl.cast_params(model, dtype)
+    if quant == "int8":
+        vit.int8_weights(model)
+    return model
 
 
 def decode(path: str, size) -> np.ndarray:
@@ -131,10 +149,10 @@ def main(argv=None):
     pl.validate_window_geometry(args.window_size, args.stride)
     if args.writers < 0:
         raise SystemExit(f"--writers must be >= 0, got {args.writers}")
-    model = load_model(args.arch, args.patch_size, args.pretrained_weights,
-                       args.checkpoint_key, device=device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = pl.cast_params(model, dtype)
+    routes = vit.infer_routes(args.infer_mlp, args.quant)
+    model = load_model(args.arch, args.patch_size, args.pretrained_weights,
+                       args.checkpoint_key, device=device, dtype=dtype, quant=args.quant)
     streamed = streamed_route(args.streamed, size)
     cuda = device.type == "cuda"
 
@@ -144,11 +162,12 @@ def main(argv=None):
         if streamed:
             mask, attn = pl.segment_mosaic_streamed(
                 model, gray_dev, args.window_size, args.stride, dtype=dtype,
-                exact_stitch=bool(args.exact_stitch), band_chunk=args.band_chunk,
+                exact_stitch=bool(args.exact_stitch), band_chunk=args.band_chunk, routes=routes,
                 progress=lambda done, total: print(f"  band {done}/{total} issued", flush=True))
         else:
             mask, attn = pl.segment_mosaic(model, gray_dev, args.window_size, args.stride,
-                                           dtype=dtype, exact_stitch=bool(args.exact_stitch))
+                                           dtype=dtype, exact_stitch=bool(args.exact_stitch),
+                                           routes=routes)
         if mask_only:
             return (mask,)
         # the attention leaves the device as uint8 viridis indices
