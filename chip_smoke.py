@@ -6,12 +6,16 @@
 Builds the port's CUDA kernels from ``vit_ocm_wmsegmentation_tpu_torch/csrc``
 and then, failing on the first phase that fails:
 
-0. prints the card's name and power limit (nvidia-smi) and the build time;
+0. prints the card's name and power limit (nvidia-smi) and the build time,
+   ptxas' registers, spills and shared memory for the wgmma kernels
+   (``csrc/*_wgmma.cu``) and asserts that their SASS holds warpgroup products
+   (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
    kernel, the twin and, where one PyTorch call computes the same function,
-   that call (CUDA events, median of 10 after warm-up); the mosaic kernels
+   that call (CUDA events, median of 10 after warm-up), and the MLP block's
+   two products alone as F.linear (a GEMM-only reference); the mosaic kernels
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
    the histogram on a 32768^2 uint8 image and on 2^24 + 67 pixels of two
    values (counts exactly equal to the twin's); the opt-in training routes'
@@ -115,11 +119,11 @@ LN = "vit_ocm_wmsegmentation_tpu/ops/ln_linear.py"
 PD, BAV, BAO = "tools/probe_dot.py", "tools/bench_attention_variants.py", "tools/bench_attn_opt.py"
 # wrapper -> (module, source file per storage dtype, TPU kernel it replaces)
 KERNELS = {
-    "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
+    "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_wgmma.cu"},
                       FA + ":468"),
-    "fused_mlp_block_lnout": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"},
+    "fused_mlp_block_lnout": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
                               FM + ":154"),
-    "fused_mlp_block": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"}, FM + ":123"),
+    "fused_mlp_block": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"}, FM + ":123"),
     "flash_attention": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
                         FA + ":74"),
     "flash_attention_bwd": ("fa", {"f32": "attention_bwd.cu", "bf16": "attention_bwd_mma.cu"},
@@ -175,6 +179,9 @@ STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 38
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
+# the Hopper kernels (csrc/*_wgmma.cu): their SASS must hold warpgroup
+# products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
+WGMMA_KERNELS = ("attention_wgmma_kernel", "fused_mlp_wgmma_kernel")
 
 
 def _modules():
@@ -427,6 +434,59 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
     return cases
 
 
+def check_wgmma_build():
+    """Phase 0's report on the wgmma kernels: ptxas' registers, spills and
+    shared memory, and their SASS, which must hold HGMMA and UTMALDG and no
+    HMMA (cuobjdump of the built library)."""
+    from vit_ocm_wmsegmentation_tpu_torch import build
+
+    entry = None
+    for line in build.build_info["ptxas"].splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1) for k in WGMMA_KERNELS) else None
+        elif entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", build.build_info["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if any(k in name for k in WGMMA_KERNELS) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    for name in WGMMA_KERNELS:
+        found = {fn: c for fn, c in counts.items() if name in fn}
+        if not found:
+            raise AssertionError(f"{name}: not in the built library's SASS")
+        for fn, c in found.items():
+            print(f"  SASS {fn}: {c}")
+            if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+                raise AssertionError(f"{fn}: want HGMMA and UTMALDG and no HMMA in its SASS, got {c}")
+
+
+def _mlp_gemm_reference(tag, dtype, gen):
+    """The MLP block's two products alone, F.linear at the mosaic's shapes:
+    a GEMM-only reference for the fused kernel (not the same function, so
+    not its library_ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    rows, dm, hid = TILES * TOKENS, 384, 1536
+    x = torch.randn(rows, dm, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(rows, hid, generator=gen, device="cuda").to(dtype)
+    w1 = torch.randn(hid, dm, generator=gen, device="cuda").to(dtype)
+    w2 = torch.randn(dm, hid, generator=gen, device="cuda").to(dtype)
+    fc1, fc2 = cuda_ms(lambda: F.linear(x, w1)), cuda_ms(lambda: F.linear(g, w2))
+    print(f"  MLP GEMMs alone [{tag}], {rows} x {dm} x {hid}: F.linear fc1 {fc1:.3f} ms + fc2 "
+          f"{fc2:.3f} ms = {fc1 + fc2:.3f} ms (a reference, not the fused function)")
+
+
 def phase_kernels():
     """Each kernel against its plain twin at its main path's shapes."""
     import torch
@@ -434,6 +494,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        _mlp_gemm_reference(tag, dtype, gen)
         for name, (kern, plain, check, library, flops, nbytes) in _kernel_cases(tag, dtype,
                                                                                 gen).items():
             got = kern()
@@ -1353,6 +1414,7 @@ def main():
     for line in build.build_info["ptxas"].splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    check_wgmma_build()
 
     phases = time.perf_counter()
     t = [phases]

@@ -46,6 +46,34 @@ def test_attention_qkv_plain_matches_jax_kernel(b, n, h, d):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("n", [1, 63, 65, 129, 200])
+def test_attention_qkv_twin_matches_jax_kernel_at_kernel_head_dims(n, d, dtype):
+    """The twin the wgmma kernel is held to on the card, against the JAX
+    kernel in interpret mode, at the kernels' head dims and ragged n (one
+    key; one past, one short of, the 64-key tile; 200). f32 as above; bf16:
+    both round P and the output to bf16 but shift exp differently (running
+    row max against the Cauchy-Schwarz bound), so an output may land one
+    bf16 ulp away, 2^-7 of max|out| at most."""
+    rng = np.random.default_rng(n + d)
+    h = 2
+    qkv = rng.normal(size=(2, -(-n // 128) * 128, 3 * h * d)).astype(np.float32)
+    qkv[..., : h * d] *= d ** -0.5
+    jq = jnp.asarray(qkv, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32)))
+    if dtype == "bf16":
+        tq = tq.to(torch.bfloat16)
+    want = np.asarray(jfa.attention_qkv(jq, h, n, True).astype(jnp.float32))[:, :n]
+    got = tfa.attention_qkv(tq, h, n)
+    assert got.dtype == tq.dtype
+    got = got[:, :n].float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
+    else:
+        assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("h,d", [(6, 64), (2, 16)])
 def test_attention_qkv_masks_keys_past_n(h, d):
     """Rows >= n of the input never reach rows < n of the output."""

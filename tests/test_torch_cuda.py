@@ -69,6 +69,103 @@ def test_mlp_kernels_match_plain(cuda, dtype, rows, d):
     _close(fm.fused_mlp_block(*args), fm.fused_mlp_block_plain(*args), dtype)
 
 
+@pytest.mark.parametrize("b,heads,d", [(2, 6, 64), (3, 2, 128)])
+@pytest.mark.parametrize("n", [1, 63, 65, 130, 2305])
+def test_attention_wgmma_kernel_matches_plain(cuda, n, b, heads, d):
+    """The bf16 flat layout's wgmma kernel (csrc/attention_qkv_wgmma.cu) at
+    ragged n: one key, one past and one short of the 64-key tile and of the
+    128-row CTA, the mosaic's 2305; B * heads above 1, rows = n (keys
+    never masked inside the tensor) and rows = n + 7 (keys n .. n + 6
+    masked)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    for rows in (n, n + 7):
+        qkv = torch.randn(b, rows, 3 * heads * d, generator=gen, device=cuda)
+        qkv[..., : heads * d] *= d ** -0.5
+        qkv = qkv.to(torch.bfloat16)
+        assert fa.attention_qkv_route(qkv, heads, n) == "attention_qkv_wgmma.cu"
+        before = fa.attention_qkv.launches
+        got = fa.attention_qkv(qkv, heads, n)
+        assert fa.attention_qkv.launches == before + 1
+        _close(got, fa.attention_qkv_plain(qkv, heads, n), torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,h", [(384, 1536), (192, 768), (384, 1568), (192, 800)])
+@pytest.mark.parametrize("rows", [1, 70, 129, 1100])
+def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
+    """The bf16 inference MLP's wgmma kernel (csrc/fused_mlp_wgmma.cu), lnout
+    and plain, at row counts around its 128-row tile, both widths, H = 4D
+    and H a multiple of its 32-unit chunk only."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + d + h)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
+    dtype = torch.bfloat16
+    x = r(rows, d, std=2.0, mean=0.5).to(dtype)
+    w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
+    args = (x, r(d, std=0.1, mean=1.0), r(d, std=0.1), w1, r(h, std=0.1), w2, r(d, std=0.1))
+    ln2 = (r(d, std=0.1, mean=1.0), r(d, std=0.1))
+    assert fm.mlp_route(x, w1, w2) == "fused_mlp_wgmma.cu"
+    before = (fm.fused_mlp_block_lnout.launches, fm.fused_mlp_block.launches)
+    out, z = fm.fused_mlp_block_lnout(*args, *ln2)
+    pout, pz = fm.fused_mlp_block_lnout_plain(*args, *ln2)
+    _close(out, pout, dtype)
+    _close(z, pz, dtype)
+    plain = fm.fused_mlp_block(*args)
+    assert torch.equal(plain, out)  # the same kernel without the z epilogue
+    assert (fm.fused_mlp_block_lnout.launches, fm.fused_mlp_block.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _digests(dev):
+    """SHA-256 of the outputs of the kernels this file's wgmma routes left in
+    place (the bf16 training forwards on mma.sync, the f32 inference
+    kernels), on numpy-seeded inputs."""
+    import hashlib
+
+    rng = np.random.default_rng(6)
+    t = lambda *s, dtype=torch.bfloat16, std=1.0, mean=0.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * std + mean).astype(np.float32)).to(dev, dtype)
+    out = {}
+
+    def keep(name, tensors):
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v)
+        keep(f"flash_attention[{tag}]", (o, lse))
+        keep(f"flash_attention_bwd[{tag}]", fa.flash_attention_bwd(q, k, v, o, lse, do))
+        d, h, rows = 384, 1536, 1100
+        x = t(rows, d, dtype=dtype, std=2.0, mean=0.5)
+        mlp = (t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1),
+               t(h, d, dtype=dtype, std=d ** -0.5), t(h, dtype=torch.float32, std=0.1),
+               t(d, h, dtype=dtype, std=h ** -0.5), t(d, dtype=torch.float32, std=0.1))
+        keep(f"fused_mlp_block_h1[{tag}]", fm.fused_mlp_block_h1(x, *mlp))
+        keep(f"fused_mlp_block_gp[{tag}]", fm.fused_mlp_block_gp(x, *mlp))
+    qkv = t(2, 130, 3 * 6 * 64, dtype=torch.float32)
+    keep("attention_qkv[f32]", (fa.attention_qkv(qkv, 6, 130),))
+    keep("fused_mlp_block_lnout[f32]", fm.fused_mlp_block_lnout(
+        x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
+    torch.cuda.synchronize()
+    return out
+
+
+# _digests of a build from before the bf16 inference kernels moved to the
+# wgmma sources (H100 80GB HBM3, torch 2.11.0+cu128, CUDA 12.9): the kernels
+# the move left in place must give the same bits
+RECORDED_DIGESTS = {
+    "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
+    "fused_mlp_block_h1[bf16]": "2533b057ee11d01f", "fused_mlp_block_gp[bf16]": "e708bb277ec8f537",
+    "flash_attention[f32]": "19ae2c9d2133c5ef", "flash_attention_bwd[f32]": "3f8d8ed972bf9737",
+    "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
+    "attention_qkv[f32]": "a9fe9617829128fd", "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af"}
+
+
+def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
+    assert _digests(cuda) == RECORDED_DIGESTS
+
+
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # lse stays f32, but in bf16 a one-ulp flip of a rounded P term moves the
 # denominator by up to 2^-8 of that term

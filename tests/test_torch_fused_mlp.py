@@ -19,12 +19,12 @@ from port_helpers import one_torch_thread  # noqa: F401  (autouse)
 R, D, H = 70, 64, 256  # 70 rows: not a multiple of any row tile
 
 
-def _inputs(seed):
+def _inputs(seed, r=R, d=D, h=H):
     rng = np.random.default_rng(seed)
     f = lambda *s, std=1.0, mean=0.0: (rng.normal(size=s) * std + mean).astype(np.float32)  # noqa: E731
-    return {"x": f(R, D, std=2.0, mean=0.5), "s": f(D, std=0.1, mean=1.0), "b": f(D, std=0.1),
-            "w1": f(D, H, std=D ** -0.5), "b1": f(H, std=0.1), "w2": f(H, D, std=H ** -0.5),
-            "b2": f(D, std=0.1), "s2": f(D, std=0.1, mean=1.0), "bb2": f(D, std=0.1)}
+    return {"x": f(r, d, std=2.0, mean=0.5), "s": f(d, std=0.1, mean=1.0), "b": f(d, std=0.1),
+            "w1": f(d, h, std=d ** -0.5), "b1": f(h, std=0.1), "w2": f(h, d, std=h ** -0.5),
+            "b2": f(d, std=0.1), "s2": f(d, std=0.1, mean=1.0), "bb2": f(d, std=0.1)}
 
 
 def _jax_args(a, dtype):
@@ -88,3 +88,30 @@ def test_fused_mlp_bf16_matches_jax_kernel_bf16():
     for got, want in ((out, jout), (z, jz), (plain, jplain)):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("r,d,h", [(70, 192, 768), (200, 192, 800), (130, 384, 1536),
+                                   (200, 384, 1568)])
+def test_fused_mlp_twins_match_jax_kernels_at_kernel_widths(r, d, h, dtype):
+    """The twins the wgmma kernel is held to on the card, against the JAX
+    kernels in interpret mode, at the kernels' widths D, row counts that are
+    no multiple of its 128-row tile, and H a multiple of its 32-unit chunk
+    (800 and 1568 of no larger power of two). f32 within 1e-5; bf16: one
+    bf16 ulp of a rounded out (or z) apart at most, 2^-7 of max|out|."""
+    a = _inputs(r + d, r, d, h)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    assert h % tfm.HIDDEN_CHUNK == 0 and d in tfm.KERNEL_WIDTHS
+    jm, jl = _jax_args(a, jdt)
+    jout, jz = jfm.fused_mlp_block_lnout(*jm, *jl, 1e-6, jfm.DEFAULT_BLOCK_R, True)
+    jplain = jfm.fused_mlp_block(*jm, 1e-6, jfm.DEFAULT_BLOCK_R, True)
+    tm, tl = _torch_args(a, tdt)
+    out, z = tfm.fused_mlp_block_lnout(*tm, *tl, 1e-6)
+    plain = tfm.fused_mlp_block(*tm, 1e-6)
+    for got, want in ((out, jout), (z, jz), (plain, jplain)):
+        assert got.dtype == tdt
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        if dtype == "f32":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        else:
+            assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()

@@ -1,0 +1,139 @@
+"""Which kernel each inference wrapper launches, decided on the CPU.
+
+The wrappers choose their kernel by route, explicitly (no fallback):
+bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
+csrc/fused_mlp_wgmma.cu), the bfloat16 training forward the mma.sync ones,
+float32 the CUDA-core ones. The route functions read only shapes, dtypes and
+layouts, so these tests run without a card; on the CPU the wrappers take
+their plain twins and count no launch.
+"""
+
+import pytest
+import torch
+
+from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
+from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+
+from port_helpers import one_torch_thread  # noqa: F401  (autouse)
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _qkv(dtype, heads=2, d=64, rows=10):
+    return torch.zeros(2, rows, 3 * heads * d, dtype=dtype)
+
+
+def _mlp(dtype, d=384, h=1536, rows=5):
+    return (torch.zeros(rows, d, dtype=dtype), torch.zeros(h, d, dtype=dtype),
+            torch.zeros(d, h, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,d,want", [(F32, 64, "attention_qkv.cu"),
+                                          (F32, 128, "attention_qkv.cu"),
+                                          (BF16, 64, "attention_qkv_wgmma.cu"),
+                                          (BF16, 128, "attention_qkv_wgmma.cu")])
+def test_attention_route_names_the_kernel(dtype, d, want):
+    assert fa.attention_qkv_route(_qkv(dtype, d=d), 2, 10) == want
+
+
+@pytest.mark.parametrize("dtype,d,h,residual,want", [
+    (BF16, 384, 1536, None, "fused_mlp_wgmma.cu"),
+    (BF16, 192, 800, None, "fused_mlp_wgmma.cu"),  # H a multiple of the wgmma chunk only
+    (BF16, 384, 1536, "h1", "fused_mlp_mma.cu"),
+    (BF16, 192, 768, "gp", "fused_mlp_mma.cu"),
+    (F32, 384, 1536, None, "fused_mlp.cu"),
+    (F32, 192, 768, "h1", "fused_mlp.cu"),
+])
+def test_mlp_route_names_the_kernel(dtype, d, h, residual, want):
+    assert fm.mlp_route(*_mlp(dtype, d, h), residual) == want
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head dim 32", "head dim"),
+    ("n = 0", "outside"),
+    ("n past the rows", "outside"),
+    ("float16", "float32/bfloat16"),
+    ("not contiguous", "contiguous"),
+])
+def test_attention_route_raises_on_what_no_kernel_takes(case, match):
+    qkv, heads, n = _qkv(BF16), 2, 10
+    if case == "head dim 32":
+        qkv = _qkv(BF16, d=32)
+    elif case == "n = 0":
+        n = 0
+    elif case == "n past the rows":
+        n = 11
+    elif case == "float16":
+        qkv = qkv.half()
+    else:
+        qkv = qkv.transpose(0, 1)
+    with pytest.raises(ValueError, match=match):
+        fa.attention_qkv_route(qkv, heads, n)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("D 256", "D in"),
+    ("H 48", "H % 32"),
+    ("training H 800", "H % 64"),
+    ("swapped weights", "w1"),
+    ("mixed dtypes", "must be contiguous"),
+    ("1-D x", r"\(R, D\)"),
+])
+def test_mlp_route_raises_on_what_no_kernel_takes(case, match):
+    residual = None
+    x, w1, w2 = _mlp(BF16)
+    if case == "D 256":
+        x, w1, w2 = _mlp(BF16, d=256, h=1024)
+    elif case == "H 48":
+        x, w1, w2 = _mlp(BF16, h=48)
+    elif case == "training H 800":
+        x, w1, w2 = _mlp(BF16, d=192, h=800)
+        residual = "h1"
+    elif case == "swapped weights":
+        w1, w2 = w2, w1
+    elif case == "mixed dtypes":
+        w1 = w1.float()
+    else:
+        x = x[0]
+    with pytest.raises(ValueError, match=match):
+        fm.mlp_route(x, w1, w2, residual)
+
+
+def _call(name, dtype):
+    if name == "attention_qkv":
+        return fa.attention_qkv(_qkv(dtype), 2, 10)
+    x, w1, w2 = _mlp(dtype, d=192, h=768)
+    v, b1 = torch.zeros(192), torch.zeros(768)
+    if name == "fused_mlp_block":
+        return fm.fused_mlp_block(x, v, v, w1, b1, w2, v)
+    return fm.fused_mlp_block_lnout(x, v, v, w1, b1, w2, v, v, v)
+
+
+WRAPPERS = {"attention_qkv": fa, "fused_mlp_block": fm, "fused_mlp_block_lnout": fm}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cpu_calls_take_the_twin_and_count_no_launch(name, dtype):
+    wrapper = getattr(WRAPPERS[name], name)
+    before = wrapper.launches
+    out = _call(name, dtype)
+    out = out if torch.is_tensor(out) else out[0]
+    assert out.dtype == dtype and out.device.type == "cpu"
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrappers_raise_on_devices_without_a_kernel(name):
+    """Neither the CPU nor CUDA: no twin, no kernel, an error."""
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if name == "attention_qkv":
+            fa.attention_qkv(_qkv(BF16).to("meta"), 2, 10)
+        else:
+            x, w1, w2 = (t.to("meta") for t in _mlp(BF16))
+            v = torch.zeros(384, device="meta")
+            b1 = torch.zeros(1536, device="meta")
+            if name == "fused_mlp_block":
+                fm.fused_mlp_block(x, v, v, w1, b1, w2, v)
+            else:
+                fm.fused_mlp_block_lnout(x, v, v, w1, b1, w2, v, v, v)

@@ -27,6 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+# libcuda, for cuTensorMapEncodeTiled (the TMA maps of the wgmma kernels)
+LINK_FLAGS = ["-lcuda"]
 
 # storage dtype -> the C interface's dtype code (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +59,8 @@ def _nvcc() -> str:
 def _declare(lib):
     lib.vitocm_attention_qkv.argtypes = [_I, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.vitocm_attention_qkv.restype = _I
+    lib.vitocm_attention_qkv_wgmma.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
+    lib.vitocm_attention_qkv_wgmma.restype = _I
     lib.vitocm_flash_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.vitocm_flash_fwd.restype = _I
     lib.vitocm_flash_bwd.argtypes = [_I, *[_P] * 10, _I, _I, _I, _P]
@@ -67,6 +71,8 @@ def _declare(lib):
     lib.vitocm_flash_bwd_savep.restype = _I
     lib.vitocm_fused_mlp.argtypes = [_I, _I, *[_P] * 13, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp.restype = _I
+    lib.vitocm_fused_mlp_wgmma.argtypes = [_I, *[_P] * 11, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_fused_mlp_wgmma.restype = _I
     lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 13, _I, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp_bwd.restype = _I
     lib.vitocm_ln_linear.argtypes = [_I, *[_P] * 6, _I, _I, _I, ctypes.c_float, _P]
@@ -102,8 +108,8 @@ def _compile(srcs, so):
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *[obj for _, obj, _ in procs]],
-                       capture_output=True, text=True)
+    r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *[obj for _, obj, _ in procs],
+                        *LINK_FLAGS], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
@@ -121,7 +127,7 @@ def library():
         if not torch.cuda.is_available():
             raise RuntimeError("the port's CUDA kernels need a CUDA device; none is available")
         srcs = _sources()
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for s in srcs:
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + f.read())

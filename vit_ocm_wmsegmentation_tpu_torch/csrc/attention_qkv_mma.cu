@@ -3,10 +3,11 @@
 // numerics: f32 scores, an online softmax over 64-key tiles shifted by the
 // running row max, P rounded to bf16 before P.V, the denominator summed
 // from the rounded P and clamped at 1e-35, lse = max + log(sum) in f32,
-// keys >= n masked. Replaces the same TPU kernels
-// (ops/flash_attention.py::_attn_fwd_qkvflat_kernel and, on its logsumexp
-// route, ::_attn_fwd_kernel) for bf16 storage; f32 storage keeps the
-// CUDA-core kernel, which never rounds through TF32.
+// keys >= n masked. Replaces the same TPU kernel on its logsumexp route
+// (ops/flash_attention.py::_attn_fwd_kernel, the training forward) for bf16
+// storage, folded layout only: the flat inference layout
+// (_attn_fwd_qkvflat_kernel) takes attention_qkv_wgmma.cu; f32 storage keeps
+// the CUDA-core kernel, which never rounds through TF32.
 //
 // A CTA owns (batch, head, 64 query rows), four warps of 16 rows each. Each
 // warp keeps its Q rows as A fragments in registers; per 64-key tile the K
@@ -196,9 +197,7 @@ int launch_attention_mma(const void* q, const void* k, const void* v, void* out,
 #define VITOCM_ATTN_MMA(D, FOLDED)                                                          \
   template int launch_attention_mma<D, FOLDED>(const void*, const void*, const void*, void*, \
                                                float*, int, int, int, int, cudaStream_t);
-VITOCM_ATTN_MMA(64, false)
 VITOCM_ATTN_MMA(64, true)
-VITOCM_ATTN_MMA(128, false)
 VITOCM_ATTN_MMA(128, true)
 #undef VITOCM_ATTN_MMA
 

@@ -1,0 +1,297 @@
+// Inference attention straight from the fused qkv projection, bf16 storage,
+// on Hopper's warpgroup tensor cores: wgmma fed by TMA through an mbarrier
+// ring. Replaces vit_ocm_wmsegmentation_tpu/ops/flash_attention.py::
+// _attn_fwd_qkvflat_kernel (attention_qkv) for bf16; the flat layout of
+// attention.cuh: qkv (B, N, 3*nh*D), q section pre-scaled, out (B, N, nh*D),
+// keys at rows >= n masked. Head dims 64 (every DINO ViT) and 128.
+//
+// Numerics of attention_qkv_mma.cu and of the twin (ops/flash_attention.py::
+// _softmax_tiles): f32 scores, an online softmax over 64-key tiles shifted by
+// the running row max, expf, P rounded to bf16 before P.V, the denominator
+// summed from the rounded P and clamped at 1e-35. Only the order of the f32
+// sums inside each product differs. (exp as ex2.approx of x log2 e is
+// faster on an H100 but moved the seed-0 bf16 mask gate of chip_smoke.py
+// under its 0.99: not taken.)
+//
+// What bounds it on the H100: at the mosaic's (49, 2305, 3*384), 400 GFLOP of
+// products (0.40 ms at 989 TFLOP/s) and 1.7 G exp (0.46 ms on the SFU's 16
+// a clock an SM); the bytes (0.35 GB) are far below either. The mma.sync
+// kernel it replaces copied K and V with all threads between two
+// __syncthreads (tensor cores idle) and re-read each head's K and V once per
+// 64 query rows. Here a CTA owns (batch, head, 128 query rows): two consumer
+// warpgroups of 64 rows each and one producer warp. The producer loads the
+// CTA's Q once and then keeps K and V tiles (64 keys x D) in flight with TMA
+// into a ring of stages (3 at D = 64, 2 at D = 128), each guarded by a
+// "full" mbarrier (its bytes arrived) and an "empty" one (all 8 consumer
+// warps done with it). TMA reads through a 3-D map over (B, N, 3*nh*D) with
+// 64 x 64 boxes and the 128-byte swizzle; rows past N read as 0, so the
+// ragged last tile needs no copy code. Per tile a consumer warpgroup
+// computes S = Q K^T with wgmma (both operands from shared memory,
+// K-major), runs the softmax on the S accumulators (a row's 64 scores in the
+// 4 lanes of a quad; P rounded and packed once, as the A operand and for the
+// row sums; a warp whose rows kept their max skips the rescale of O, a x 1),
+// and O += P V with P as the register A operand and V read MN-major from
+// shared memory. Two CTAs fit an SM at D = 64 (66 KB of shared memory, 96
+// registers a thread), so one warpgroup's softmax overlaps another's
+// products. What holds it back is the softmax's instruction count, not the
+// copies: on an H100, sharing each K/V tile between the CTAs of a cluster
+// by TMA multicast (fewer L2 reads) made the call slower, as did 4 stages,
+// 3 or 4 consumer warpgroups a CTA, and issuing the next tile's S before
+// this tile's softmax (one CTA an SM then).
+
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
+
+namespace vitocm {
+
+constexpr int kWG = 2;                      // consumer warpgroups, 64 query rows each
+constexpr int kWQ = 64 * kWG;               // query rows per CTA
+constexpr int kWK = 64;                     // keys per tile
+constexpr int kWThreads = 128 * kWG + 32;   // the consumers + the producer warp
+
+template <int D>
+struct AttnWgmma {
+  static constexpr int CH = D / 64;              // 64-column (128-byte) chunks
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int Q_BYTES = CH * kWQ * 128;  // chunk c: kWQ rows at c * kWQ * 128
+  static constexpr int KV_BYTES = CH * kWK * 128; // K (or V) of one stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (2 * STAGES + 1);
+};
+
+// S = Q K^T of one tile, issued (not waited for): 64 rows x 64 keys
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sc)[32], const unsigned char* qw,
+                                             const unsigned char* ks) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk >> 2, off = (kk & 3) * 32;
+    wgmma_ss_m64n64k16(sc, desc_k128(qw + c * kWQ * 128 + off), desc_k128(ks + c * kWK * 128 + off));
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one score tile (keys k0 .., masked at n): updates
+// the running max m and sum l of rows g, g + 8, returns P rounded to bf16
+// and packed in pairs (the A operand of P.V) and the rescale factors a.
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], int k0, int n, int t4, float& m0,
+                                             float& m1, float& l0, float& l1, uint32_t (&p01)[8],
+                                             uint32_t (&p23)[8], float& a0, float& a1) {
+  // sc[4j + e]: row g + 8 (e >> 1), key k0 + 8j + 2 t4 + (e & 1)
+  if (k0 + kWK > n) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = k0 + 8 * j + 2 * t4;
+      if (key >= n) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+      if (key + 1 >= n) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  a0 = expf(m0 - mn0);  // 0 on the first tile
+  a1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p01[j] = pack_bf16(expf(sc[4 * j] - mn0), expf(sc[4 * j + 1] - mn0));
+    p23[j] = pack_bf16(expf(sc[4 * j + 2] - mn1), expf(sc[4 * j + 3] - mn1));
+    sum0 += __uint_as_float(p01[j] << 16) + __uint_as_float(p01[j] & 0xffff0000u);
+    sum1 += __uint_as_float(p23[j] << 16) + __uint_as_float(p23[j] & 0xffff0000u);
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// O = O * a + P V of one tile, issued (not waited for); x 1 changes no bit,
+// so a warp whose rows kept their max skips the rescale
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 64][32], const uint32_t (&p01)[8],
+                                         const uint32_t (&p23)[8], float a0, float a1,
+                                         const unsigned char* vs) {
+  if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j] *= a0;
+        o[c][4 * j + 1] *= a0;
+        o[c][4 * j + 2] *= a1;
+        o[c][4 * j + 3] *= a1;
+      }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // key-step kk: columns 16 kk .. 16 kk + 15
+    const uint32_t pa[4] = {p01[2 * kk], p23[2 * kk], p01[2 * kk + 1], p23[2 * kk + 1]};
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wgmma_rs_m64n64k16<1>(o[c], pa, desc_mn128(vs + c * kWK * 128 + kk * 16 * 128, kWK * 128));
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, D == 64 ? 2 : 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                       __nv_bfloat16* __restrict__ out, int N, int n, int nh) {
+  using C = AttnWgmma<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ring = qs + C::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hh = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kWQ;
+  const int tiles = (n + kWK - 1) / kWK;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);  // every consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kWG) {  // producer: one lane issues every copy
+    if (lane == 0) {
+      const int qc = hh * D, kc = (nh + hh) * D, vc = (2 * nh + hh) * D;
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int c = 0; c < C::CH; ++c)
+        for (int r = 0; r < kWQ; r += 64)
+          tma_load_3d(qs + c * kWQ * 128 + r * 128, &qkv_map, qbar, qc + 64 * c, q0 + r, b);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % C::STAGES;
+        mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        unsigned char* st = ring + s * C::STAGE_BYTES;
+        for (int c = 0; c < C::CH; ++c) {
+          tma_load_3d(st + c * kWK * 128, &qkv_map, &full[s], kc + 64 * c, t * kWK, b);
+          tma_load_3d(st + C::KV_BYTES + c * kWK * 128, &qkv_map, &full[s], vc + 64 * c,
+                      t * kWK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg ..; warp wl of it owns rows
+  // 16 wl + g and 16 wl + g + 8 of those. A warpgroup with no row below N
+  // only releases the tiles.
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const bool live = q0 + 64 * wg < N;
+  const unsigned char* qw = qs + wg * 64 * 128;
+  float o[C::CH][32];
+#pragma unroll
+  for (int c = 0; c < C::CH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;               // this lane's share of the row sums
+  auto stage = [&](int t) { return ring + (t % C::STAGES) * C::STAGE_BYTES; };
+  auto release = [&](int t) {
+    if (lane == 0) mbar_arrive(&empty[t % C::STAGES]);
+  };
+  auto await = [&](int t) { mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1); };
+  mbar_wait(qbar, 0);
+
+  if (!live) {
+    for (int t = 0; t < tiles; ++t) {
+      await(t);
+      release(t);
+    }
+    return;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    await(t);
+    float sc[32];
+    issue_scores<D>(sc, qw, stage(t));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    uint32_t p01[8], p23[8];
+    float a0, a1;
+    softmax_tile(sc, t * kWK, n, t4, m0, m1, l0, l1, p01, p23, a0, a1);
+    issue_pv<D>(o, p01, p23, a0, a1, stage(t) + C::KV_BYTES);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::CH; ++c) fence_regs(o[c]);
+    release(t);
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-35f);
+  l1 = fmaxf(l1, 1e-35f);
+  const int r0 = q0 + 64 * wg + 16 * wl + g, r1 = r0 + 8;
+  const long long os = (long long)nh * D;
+  __nv_bfloat16* ob = out + (long long)b * N * os + hh * D;
+#pragma unroll
+  for (int c = 0; c < C::CH; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * t4;
+      if (r0 < N)
+        *reinterpret_cast<uint32_t*>(ob + r0 * os + col) =
+            pack_bf16(o[c][4 * j] / l0, o[c][4 * j + 1] / l0);
+      if (r1 < N)
+        *reinterpret_cast<uint32_t*>(ob + r1 * os + col) =
+            pack_bf16(o[c][4 * j + 2] / l1, o[c][4 * j + 3] / l1);
+    }
+}
+
+template <int D>
+static int launch_attention_wgmma(const void* qkv, void* out, int B, int N, int n, int nh,
+                                  cudaStream_t stream) {
+  using C = AttnWgmma<D>;
+  const uint64_t cols = 3ull * nh * D;
+  const uint64_t dims[3] = {cols, (uint64_t)N, (uint64_t)B};
+  const uint64_t strides[2] = {cols * 2, cols * 2 * N};
+  const uint32_t box[3] = {64, kWK, 1};
+  CUtensorMap map;
+  if (!make_tmap_bf16(&map, qkv, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  auto kern = attention_wgmma_kernel<D>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  dim3 grid((N + kWQ - 1) / kWQ, nh, B);
+  kern<<<grid, kWThreads, C::SMEM, stream>>>(map, static_cast<__nv_bfloat16*>(out), N, n, nh);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace vitocm
+
+// Inference route, bf16: qkv (B, N, 3*nh*d) 16-byte aligned, out (B, N,
+// nh*d); keys masked at rows >= n; d in {64, 128}. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int vitocm_attention_qkv_wgmma(const void* qkv, void* out, int B, int N, int n, int nh,
+                                          int head_dim, void* stream) {
+  using namespace vitocm;
+  if (n < 1 || n > N || B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_attention_wgmma<64>(qkv, out, B, N, n, nh, s);
+  if (head_dim == 128) return launch_attention_wgmma<128>(qkv, out, B, N, n, nh, s);
+  return (int)cudaErrorInvalidValue;
+}

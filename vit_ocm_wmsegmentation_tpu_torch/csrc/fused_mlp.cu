@@ -32,7 +32,8 @@
 // kernel serves f32 storage only: the products run on the CUDA cores in f32,
 // never through TF32, so it is bound by shared-memory loads and FMA issue;
 // the weight chunks are re-read from L2 by every CTA. bf16 storage takes the
-// tensor-core kernel of fused_mlp_mma.cu (64-row tiles, 64-unit chunks).
+// tensor-core kernels of fused_mlp_wgmma.cu (inference) and fused_mlp_mma.cu
+// (the training forward).
 //
 // Numerics, kept from the TPU kernel: LN statistics in f32 (biased
 // variance); f32 products and accumulation (the TPU kernel's roundings of
@@ -198,12 +199,13 @@ static int launch_mlp(const void* x, const float* s1, const float* bn1, const vo
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernel of fused_mlp_mma.cu
-template <int D, bool LNOUT>
+// bf16 storage takes the tensor-core kernels: fused_mlp_mma.cu for the
+// training forward (h1 not null), fused_mlp_wgmma.cu for inference (its own
+// entry point, vitocm_fused_mlp_wgmma)
+template <int D>
 int launch_mlp_mma(const void* x, const float* s1, const float* bn1, const void* w1,
-                   const float* b1, const void* w2, const float* b2, const float* s2,
-                   const float* bn2, void* out, void* z, void* h1, void* gp, int R, int H,
-                   float eps, cudaStream_t stream);
+                   const float* b1, const void* w2, const float* b2, void* out, void* h1,
+                   void* gp, int R, int H, float eps, cudaStream_t stream);
 
 template <int D, bool LNOUT>
 static int launch_any(int dtype, const void* x, const float* s1, const float* bn1,
@@ -213,9 +215,10 @@ static int launch_any(int dtype, const void* x, const float* s1, const float* bn
   if (dtype == kF32)
     return launch_mlp<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H, eps,
                                 stream);
-  if (dtype == kBF16)
-    return launch_mlp_mma<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
-                                    eps, stream);
+  if constexpr (!LNOUT) {
+    if (dtype == kBF16 && h1 != nullptr)
+      return launch_mlp_mma<D>(x, s1, bn1, w1, b1, w2, b2, out, h1, gp, R, H, eps, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -238,7 +241,8 @@ static int dispatch_lnout(int dtype, int lnout, const void* x, const float* s1,
 // type; s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0 ignores s2, bn2
 // and z; h1 may be null, and must be with lnout = 1; gp not null (it needs
 // h1) takes the SAVE_GP route: g = gelu(h1) into h1, gelu'(h1) into gp.
-// D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
+// bf16 only with h1 (the training forward); bf16 inference takes
+// vitocm_fused_mlp_wgmma. D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int vitocm_fused_mlp(int dtype, int lnout, const void* x, const void* s1,
                                 const void* bn1, const void* w1, const void* b1, const void* w2,

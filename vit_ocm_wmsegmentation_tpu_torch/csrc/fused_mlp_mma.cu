@@ -5,10 +5,13 @@
 // h1 rounded to bf16 (GELU itself reads the unrounded value, as the TPU
 // kernel's does); with gp not null as well, the rounded g = gelu(h1) in h1's
 // place (the very bf16 values of the g tile that W2 multiplies, so out is
-// bit-equal to the save-h1 route's) and gelu'(h1) rounded to bf16. Replaces the same TPU kernels
-// (ops/fused_mlp.py::_mlp_fwd_lnout_kernel, ::_mlp_fwd_kernel with no
-// residual outputs, on its save-h1 route and on its save-gp route) for bf16 storage; f32 storage
-// keeps the CUDA-core kernel, which never rounds through TF32.
+// bit-equal to the save-h1 route's) and gelu'(h1) rounded to bf16. Replaces the same TPU kernel
+// (ops/fused_mlp.py::_mlp_fwd_kernel on its save-h1 and save-gp routes, the
+// training forward) for bf16 storage: the kernel template mirrors
+// fused_mlp.cu's, but only the training modes are instantiated; the
+// inference forward (_mlp_fwd_lnout_kernel, _mlp_fwd_kernel with no
+// residual outputs) takes fused_mlp_wgmma.cu. f32 storage keeps the
+// CUDA-core kernel, which never rounds through TF32.
 //
 // A CTA owns 64 rows and walks H in chunks of 64 hidden units. Shared
 // memory holds, in bf16, the normalized rows xn (64 x D), the chunk's W1
@@ -194,35 +197,29 @@ fused_mlp_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   }
 }
 
-template <int D, bool LNOUT>
+template <int D>
 int launch_mlp_mma(const void* x, const float* s1, const float* bn1, const void* w1,
-                   const float* b1, const void* w2, const float* b2, const float* s2,
-                   const float* bn2, void* out, void* z, void* h1, void* gp, int R, int H,
-                   float eps, cudaStream_t stream) {
+                   const float* b1, const void* w2, const float* b2, void* out, void* h1,
+                   void* gp, int R, int H, float eps, cudaStream_t stream) {
   const size_t smem = mlp_mma_smem_bytes<D>();
-  // the residual stores are template flags, so the inference instantiations carry none of them
-  auto kern = h1 == nullptr   ? fused_mlp_mma_kernel<D, LNOUT, false, false>
-              : gp == nullptr ? fused_mlp_mma_kernel<D, LNOUT, !LNOUT, false>
-                              : fused_mlp_mma_kernel<D, LNOUT, !LNOUT, !LNOUT>;
+  // the training forward only: h1 saved, or g and gp with gp not null
+  auto kern = gp == nullptr ? fused_mlp_mma_kernel<D, false, true, false>
+                            : fused_mlp_mma_kernel<D, false, true, true>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int grid = (R + kMBR - 1) / kMBR;
   using B = __nv_bfloat16;
   kern<<<grid, kMMT, smem, stream>>>(static_cast<const B*>(x), s1, bn1,
                                      static_cast<const B*>(w1), b1, static_cast<const B*>(w2),
-                                     b2, s2, bn2, static_cast<B*>(out), static_cast<B*>(z),
+                                     b2, nullptr, nullptr, static_cast<B*>(out), nullptr,
                                      static_cast<B*>(h1), static_cast<B*>(gp), R, H, eps);
   return (int)cudaGetLastError();
 }
 
-#define VITOCM_MLP_MMA(D, LNOUT)                                                            \
-  template int launch_mlp_mma<D, LNOUT>(const void*, const float*, const float*, const void*, \
-                                        const float*, const void*, const float*, const float*, \
-                                        const float*, void*, void*, void*, void*, int, int,     \
-                                        float, cudaStream_t);
-VITOCM_MLP_MMA(384, true)
-VITOCM_MLP_MMA(384, false)
-VITOCM_MLP_MMA(192, true)
-VITOCM_MLP_MMA(192, false)
-#undef VITOCM_MLP_MMA
+template int launch_mlp_mma<384>(const void*, const float*, const float*, const void*,
+                                 const float*, const void*, const float*, void*, void*, void*,
+                                 int, int, float, cudaStream_t);
+template int launch_mlp_mma<192>(const void*, const float*, const float*, const void*,
+                                 const float*, const void*, const float*, void*, void*, void*,
+                                 int, int, float, cudaStream_t);
 
 }  // namespace vitocm

@@ -21,9 +21,10 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``:
 
 Each wrapper launches its kernel for CUDA tensors (f32 storage:
 ``csrc/attention_qkv.cu``, ``csrc/attention_bwd.cu`` and
-``csrc/attention_savep.cu`` on the CUDA cores; bf16: the ``*_mma.cu`` files
-on the tensor cores; design notes there) and
-takes its plain twin (``*_plain``) for CPU tensors; anything else raises.
+``csrc/attention_savep.cu`` on the CUDA cores; bf16: :func:`attention_qkv`
+on ``csrc/attention_qkv_wgmma.cu`` (wgmma fed by TMA), the training kernels
+on the ``*_mma.cu`` files (mma.sync); design notes there) and takes its
+plain twin (``*_plain``) for CPU tensors; anything else raises.
 Each wrapper's ``launches`` counts kernel launches.
 """
 
@@ -82,27 +83,50 @@ def _check_dtype_device(name, t, want_dim):
                          f"contiguous={t.is_contiguous()}")
 
 
-def attention_qkv(qkv, num_heads: int, n: int):
-    """softmax attention straight from the fused qkv projection.
-
-    qkv: (B, N, 3*h*d) contiguous, float32 or bfloat16, the q section
-    already scaled by 1/sqrt(d); keys at rows >= n are masked. Returns
-    (B, N, h*d), heads side by side. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (d in HEAD_DIMS); anything else raises."""
-    if qkv.device.type == "cpu":
-        return attention_qkv_plain(qkv, num_heads, n)
-    _check_dtype_device("attention_qkv", qkv, 3)
-    b, rows, cols = qkv.shape
+def attention_qkv_route(qkv, num_heads: int, n: int) -> str:
+    """The kernel source a CUDA call with this qkv launches: bfloat16
+    "attention_qkv_wgmma.cu", float32 "attention_qkv.cu" (the training
+    layout's bf16 kernel, attention_qkv_mma.cu, is :func:`flash_attention`'s).
+    Raises on shapes, dtypes and layouts neither takes; the device is the
+    caller's check."""
+    if (qkv.dim() != 3 or qkv.dtype not in build.DTYPE_CODES or not qkv.is_contiguous()
+            or qkv.data_ptr() % 16):
+        raise ValueError(f"attention_qkv: want a contiguous, 16-byte aligned 3-D float32/"
+                         f"bfloat16 tensor, got {tuple(qkv.shape)} {qkv.dtype} "
+                         f"contiguous={qkv.is_contiguous()}")
+    _, rows, cols = qkv.shape
     d = cols // 3 // num_heads
     if cols != 3 * num_heads * d or d not in HEAD_DIMS:
         raise ValueError(f"attention_qkv: kernel needs head dim in {HEAD_DIMS}, got {cols} "
                          f"columns for {num_heads} heads")
     if not 1 <= n <= rows:
         raise ValueError(f"attention_qkv: n={n} outside [1, {rows}]")
+    return "attention_qkv_wgmma.cu" if qkv.dtype == torch.bfloat16 else "attention_qkv.cu"
+
+
+def attention_qkv(qkv, num_heads: int, n: int):
+    """softmax attention straight from the fused qkv projection.
+
+    qkv: (B, N, 3*h*d) contiguous, float32 or bfloat16, the q section
+    already scaled by 1/sqrt(d); keys at rows >= n are masked. Returns
+    (B, N, h*d), heads side by side. CPU tensors take the plain twin; CUDA
+    tensors launch the kernel of :func:`attention_qkv_route` (d in
+    HEAD_DIMS); anything else raises."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, n)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_qkv: no kernel for device {qkv.device}")
+    route = attention_qkv_route(qkv, num_heads, n)
+    b, rows, cols = qkv.shape
+    d = cols // 3 // num_heads
     out = torch.empty((b, rows, num_heads * d), dtype=qkv.dtype, device=qkv.device)
-    rc = build.library().vitocm_attention_qkv(
-        build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), out.data_ptr(), b, rows, n, num_heads,
-        d, build.stream_ptr(qkv.device))
+    lib, stream = build.library(), build.stream_ptr(qkv.device)
+    if route == "attention_qkv_wgmma.cu":
+        rc = lib.vitocm_attention_qkv_wgmma(qkv.data_ptr(), out.data_ptr(), b, rows, n, num_heads,
+                                            d, stream)
+    else:
+        rc = lib.vitocm_attention_qkv(build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), out.data_ptr(),
+                                      b, rows, n, num_heads, d, stream)
     build.check(rc, "attention_qkv")
     attention_qkv.launches += 1
     return out

@@ -20,11 +20,14 @@ Counterpart of the inference forward of
   :func:`fused_mlp_block_trainable` wires either pair into a
   ``torch.autograd.Function``.
 
-They launch the kernels of ``csrc/fused_mlp.cu`` and
-``csrc/fused_mlp_bwd.cu`` (float32, CUDA cores) and ``csrc/fused_mlp_mma.cu``
-and ``csrc/fused_mlp_bwd_mma.cu`` (bfloat16, tensor cores; design notes
-there) for CUDA tensors and their plain twins for CPU tensors. Weights come in
-nn.Linear's layout:
+They launch the kernels of ``csrc/`` for CUDA tensors and their plain twins
+for CPU tensors. Which kernel a CUDA call launches is fixed by its route
+(:func:`mlp_route`), never by a fallback: float32 takes ``fused_mlp.cu`` and
+``fused_mlp_bwd.cu`` (CUDA cores); bfloat16 inference (lnout and plain, no
+residuals) takes ``fused_mlp_wgmma.cu`` (wgmma fed by TMA), the bfloat16
+training forward (h1, gp) ``fused_mlp_mma.cu`` and its backward
+``fused_mlp_bwd_mma.cu`` (mma.sync); design notes in each source. Weights
+come in nn.Linear's layout:
 ``w1`` = fc1.weight (H, D), ``w2`` = fc2.weight (D, H) -- the transpose of
 the JAX package's (D, H) / (H, D). Each wrapper's ``launches`` counts kernel
 launches.
@@ -39,8 +42,9 @@ import torch
 from .. import build
 from .. import nn as tnn
 
-KERNEL_WIDTHS = (192, 384)  # D values the kernel is instantiated for
-HIDDEN_CHUNK = 64  # H must be a multiple of this (the bf16 kernel's chunk)
+KERNEL_WIDTHS = (192, 384)  # D values the kernels are instantiated for
+HIDDEN_CHUNK = 32  # H must be a multiple of this on the wgmma route (its chunk)
+MMA_HIDDEN_CHUNK = 64  # ... and of this on the other routes (the mma.sync kernels' chunk)
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -89,18 +93,23 @@ def fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, e
     return out, tnn.layer_norm(out, scale2, bias2, eps)
 
 
-def _check(x, w1, w2):
-    """(R, D, H) of a kernel call; raises on anything the kernel does not take."""
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp: no kernel for device {x.device}")
+def mlp_route(x, w1, w2, want=None):
+    """The kernel source a CUDA call with these operands launches: bfloat16
+    with no residual (``want`` None: fused_mlp_block, fused_mlp_block_lnout)
+    "fused_mlp_wgmma.cu", bfloat16 with ``want`` "h1" or "gp" (the training
+    forward) "fused_mlp_mma.cu", float32 "fused_mlp.cu". Raises on shapes,
+    dtypes and layouts no kernel takes; the device is the caller's check."""
     if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"fused_mlp: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
-    r, d = x.shape
+    d = x.shape[1]
     hdim = w1.shape[0]
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"fused_mlp: kernel built for D in {KERNEL_WIDTHS}, got D={d}")
-    if hdim % HIDDEN_CHUNK or tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim):
-        raise ValueError(f"fused_mlp: want w1 (H, D) and w2 (D, H) with H % {HIDDEN_CHUNK} == 0, "
+    route = ("fused_mlp.cu" if x.dtype == torch.float32
+             else "fused_mlp_wgmma.cu" if want is None else "fused_mlp_mma.cu")
+    chunk = HIDDEN_CHUNK if route == "fused_mlp_wgmma.cu" else MMA_HIDDEN_CHUNK
+    if hdim % chunk or tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim):
+        raise ValueError(f"fused_mlp: want w1 (H, D) and w2 (D, H) with H % {chunk} == 0, "
                          f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
         if (t.device != x.device or t.dtype != x.dtype or not t.is_contiguous()
@@ -108,7 +117,15 @@ def _check(x, w1, w2):
             raise ValueError(f"fused_mlp: {name} must be contiguous, 16-byte aligned {x.dtype} on "
                              f"{x.device}, got {t.dtype} on {t.device} "
                              f"contiguous={t.is_contiguous()}")
-    return r, d, hdim
+    return route
+
+
+def _check(x, w1, w2, want=None):
+    """(R, D, H, route) of a kernel call; raises on anything no kernel takes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: no kernel for device {x.device}")
+    route = mlp_route(x, w1, w2, want)
+    return (*x.shape, w1.shape[0], route)
 
 
 def _f32_vector(name, t, size, device):
@@ -120,7 +137,7 @@ def _f32_vector(name, t, size, device):
 def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None):
     """One forward launch; returns (out, z) with lnout, else (out, h1 or g,
     gp), the residuals None where ``want`` (None, "h1", "gp") asks for none."""
-    r, d, hdim = _check(x, w1, w2)
+    r, d, hdim, route = _check(x, w1, w2, want)
     vec = lambda name, t, size=d: _f32_vector(name, t, size, x.device)  # noqa: E731
     args = [vec("scale", scale), vec("bias", bias), vec("b1", b1, hdim), vec("b2", b2)]
     args += [vec("scale2", scale2), vec("bias2", bias2)] if lnout else [None, None]
@@ -131,17 +148,23 @@ def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None
     gp = hidden() if want == "gp" else None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     s1, bn1, b1f, b2f, s2, bn2 = (ptr(t) for t in args)
-    rc = build.library().vitocm_fused_mlp(
-        build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
-        w2.data_ptr(), b2f, s2, bn2, out.data_ptr(), ptr(z), ptr(h1), ptr(gp), r, d, hdim,
-        float(eps), build.stream_ptr(x.device))
+    if route == "fused_mlp_wgmma.cu":
+        rc = build.library().vitocm_fused_mlp_wgmma(
+            int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f, w2.data_ptr(), b2f, s2, bn2,
+            out.data_ptr(), ptr(z), r, d, hdim, float(eps), build.stream_ptr(x.device))
+    else:
+        rc = build.library().vitocm_fused_mlp(
+            build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
+            w2.data_ptr(), b2f, s2, bn2, out.data_ptr(), ptr(z), ptr(h1), ptr(gp), r, d, hdim,
+            float(eps), build.stream_ptr(x.device))
     build.check(rc, "fused_mlp")
     return (out, z) if lnout else (out, h1, gp)
 
 
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
     """x + gelu(LN(x; scale, bias) @ w1.T + b1) @ w2.T + b2 for x (R, D).
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    CPU tensors take the plain twin; CUDA tensors launch the kernel of
+    :func:`mlp_route` (bfloat16: fused_mlp_wgmma.cu, float32: fused_mlp.cu)."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps)
     out, _, _ = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False)
@@ -151,7 +174,8 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
 
 def fused_mlp_block_lnout(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps=1e-6):
     """(out, z): out as :func:`fused_mlp_block`, z = LN(out)*scale2 + bias2.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel."""
+    CPU tensors take the plain twin; CUDA tensors launch the kernel of
+    :func:`mlp_route` (bfloat16: fused_mlp_wgmma.cu, float32: fused_mlp.cu)."""
     if x.device.type == "cpu":
         return fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps)
     out, z = _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout=True)
@@ -241,7 +265,7 @@ def fused_mlp_bwd_gp(x, do, g, gp, scale, bias, w1, w2, eps=1e-6):
 
 
 def _launch_bwd(x, do, h1, gp, scale, bias, w1, w2, eps):
-    r, d, hdim = _check(x, w1, w2)
+    r, d, hdim, _ = _check(x, w1, w2, "h1")  # the mma.sync kernels' chunk
     hidden = (("h1", h1),) if gp is None else (("g", h1), ("gp", gp))
     for name, t, shape in (("do", do, (r, d)), *((n, t, (r, hdim)) for n, t in hidden)):
         if (tuple(t.shape) != shape or t.device != x.device or t.dtype != x.dtype
