@@ -8,7 +8,9 @@ and then, failing on the first phase that fails:
 
 0. prints the card's name and power limit (nvidia-smi) and the build time,
    ptxas' registers, spills and shared memory for the wgmma kernels
-   (``csrc/*_wgmma.cu``) and asserts that their SASS holds warpgroup products
+   (``csrc/*_wgmma.cu``: inference and training attention forward, the
+   training attention's dk/dv and dq kernels, the inference MLP) and asserts
+   that they spill nothing and that their SASS holds warpgroup products
    (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
@@ -124,9 +126,9 @@ KERNELS = {
     "fused_mlp_block_lnout": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
                               FM + ":154"),
     "fused_mlp_block": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"}, FM + ":123"),
-    "flash_attention": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_mma.cu"},
+    "flash_attention": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_wgmma.cu"},
                         FA + ":74"),
-    "flash_attention_bwd": ("fa", {"f32": "attention_bwd.cu", "bf16": "attention_bwd_mma.cu"},
+    "flash_attention_bwd": ("fa", {"f32": "attention_bwd.cu", "bf16": "attention_bwd_wgmma.cu"},
                             FA + ":297"),
     "fused_mlp_block_h1": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"},
                            FM + ":123"),
@@ -180,8 +182,10 @@ STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 # the Hopper kernels (csrc/*_wgmma.cu): their SASS must hold warpgroup
-# products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
-WGMMA_KERNELS = ("attention_wgmma_kernel", "fused_mlp_wgmma_kernel")
+# products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); the
+# attention kernel in both layouts (inference flat, training folded)
+WGMMA_KERNELS = ("attention_wgmma_kernel", "fused_mlp_wgmma_kernel", "attn_bwd_dkdv_wgmma_kernel",
+                 "attn_bwd_dq_wgmma_kernel")
 
 
 def _modules():
@@ -436,8 +440,8 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
 
 def check_wgmma_build():
     """Phase 0's report on the wgmma kernels: ptxas' registers, spills and
-    shared memory, and their SASS, which must hold HGMMA and UTMALDG and no
-    HMMA (cuobjdump of the built library)."""
+    shared memory, which must show no spill, and their SASS, which must hold
+    HGMMA and UTMALDG and no HMMA (cuobjdump of the built library)."""
     from vit_ocm_wmsegmentation_tpu_torch import build
 
     entry = None
@@ -447,6 +451,8 @@ def check_wgmma_build():
             entry = m.group(1) if any(k in m.group(1) for k in WGMMA_KERNELS) else None
         elif entry and ("Used" in line or "spill" in line):
             print(f"  ptxas {entry}: {line.strip().removeprefix('ptxas info    : ')}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                raise AssertionError(f"{entry} spills: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", build.build_info["path"]],
                           capture_output=True, text=True, check=True).stdout

@@ -115,9 +115,11 @@ def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
 
 
 def _digests(dev):
-    """SHA-256 of the outputs of the kernels this file's wgmma routes left in
-    place (the bf16 training forwards on mma.sync, the f32 inference
-    kernels), on numpy-seeded inputs."""
+    """SHA-256 of kernel outputs on numpy-seeded inputs: the bf16 MLP
+    training forwards (mma.sync), the f32 kernels, and the bf16 inference
+    attention and LN-out MLP (wgmma). The bf16 training attention's outputs
+    are drawn and computed (their inputs keep the draws of the others in
+    place) but not kept."""
     import hashlib
 
     rng = np.random.default_rng(6)
@@ -134,8 +136,9 @@ def _digests(dev):
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
         o, lse = fa.flash_attention(q, k, v)
-        keep(f"flash_attention[{tag}]", (o, lse))
-        keep(f"flash_attention_bwd[{tag}]", fa.flash_attention_bwd(q, k, v, o, lse, do))
+        if tag == "f32":
+            keep(f"flash_attention[{tag}]", (o, lse))
+            keep(f"flash_attention_bwd[{tag}]", fa.flash_attention_bwd(q, k, v, o, lse, do))
         d, h, rows = 384, 1536, 1100
         x = t(rows, d, dtype=dtype, std=2.0, mean=0.5)
         mlp = (t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1),
@@ -147,19 +150,28 @@ def _digests(dev):
     keep("attention_qkv[f32]", (fa.attention_qkv(qkv, 6, 130),))
     keep("fused_mlp_block_lnout[f32]", fm.fused_mlp_block_lnout(
         x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
+    qkv = t(2, 130, 3 * 6 * 64, std=0.5)
+    keep("attention_qkv[bf16]", (fa.attention_qkv(qkv, 6, 130), fa.attention_qkv(qkv, 6, 77)))
+    x = t(rows, d, std=2.0, mean=0.5)
+    mlp = (mlp[0], mlp[1], t(h, d, std=d ** -0.5), mlp[3], t(d, h, std=h ** -0.5), mlp[5])
+    keep("fused_mlp_block_lnout[bf16]", fm.fused_mlp_block_lnout(
+        x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
     torch.cuda.synchronize()
     return out
 
 
-# _digests of a build from before the bf16 inference kernels moved to the
-# wgmma sources (H100 80GB HBM3, torch 2.11.0+cu128, CUDA 12.9): the kernels
-# the move left in place must give the same bits
+# _digests of builds from before (H100 80GB HBM3, torch 2.11.0+cu128, CUDA
+# 12.9): of the build before the bf16 inference kernels moved to the wgmma
+# sources, for the kernels that move left in place; of the build before the
+# wgmma attention kernel took the training layout too, for the wgmma
+# inference kernels, whose source that change shares. Each must give the
+# same bits.
 RECORDED_DIGESTS = {
-    "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
     "fused_mlp_block_h1[bf16]": "2533b057ee11d01f", "fused_mlp_block_gp[bf16]": "e708bb277ec8f537",
     "flash_attention[f32]": "19ae2c9d2133c5ef", "flash_attention_bwd[f32]": "3f8d8ed972bf9737",
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
-    "attention_qkv[f32]": "a9fe9617829128fd", "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af"}
+    "attention_qkv[f32]": "a9fe9617829128fd", "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
+    "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564"}
 
 
 def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
@@ -181,8 +193,12 @@ def _close_grad(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128)])
+@pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128),
+                                    (2, 65, 128), (3, 127, 64), (2, 128, 128), (2, 192, 64),
+                                    (3, 257, 128), (2, 257, 64), (48, 2305, 128)])
 def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
+    """Around the tiles of the bf16 wgmma kernels (64 keys or queries a tile,
+    128 queries or keys a CTA) and at the MIM step's (48, 2305, 128)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
     before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
@@ -196,6 +212,21 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
         _close_grad(g, w, dtype)
     assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("bh,n,d", [(3, 257, 128), (2, 129, 64), (48, 2305, 128)])
+def test_flash_attention_wgmma_kernels_are_deterministic(cuda, bh, n, d):
+    """The bf16 training attention's wgmma kernels, forward and backward (dk,
+    dv and dq each summed in a fixed order, no atomics): two calls on the
+    same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d + 5)
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    assert fa.flash_attention_route(q, k, v) == "attention_qkv_wgmma.cu"
+    assert fa.flash_attention_bwd_route(q, k, v, q, do) == "attention_bwd_wgmma.cu"
+    out, lse = fa.flash_attention(q, k, v)
+    assert _bit_equal((out, lse), fa.flash_attention(q, k, v))
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert _bit_equal(grads, fa.flash_attention_bwd(q, k, v, out, lse, do))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

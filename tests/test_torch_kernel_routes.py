@@ -1,11 +1,13 @@
-"""Which kernel each inference wrapper launches, decided on the CPU.
+"""Which kernel each wrapper launches, decided on the CPU.
 
 The wrappers choose their kernel by route, explicitly (no fallback):
 bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
-csrc/fused_mlp_wgmma.cu), the bfloat16 training forward the mma.sync ones,
-float32 the CUDA-core ones. The route functions read only shapes, dtypes and
-layouts, so these tests run without a card; on the CPU the wrappers take
-their plain twins and count no launch.
+csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
+(csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu);
+the bfloat16 MLP training forward takes the mma.sync kernel, float32 the
+CUDA-core ones. The route functions read only shapes, dtypes and layouts, so
+these tests run without a card; on the CPU the wrappers take their plain
+twins and count no launch.
 """
 
 import pytest
@@ -34,6 +36,49 @@ def _mlp(dtype, d=384, h=1536, rows=5):
                                           (BF16, 128, "attention_qkv_wgmma.cu")])
 def test_attention_route_names_the_kernel(dtype, d, want):
     assert fa.attention_qkv_route(_qkv(dtype, d=d), 2, 10) == want
+
+
+ATTN_ROUTES = {"flash_attention": (fa.flash_attention_route, "attention_qkv.cu",
+                                   "attention_qkv_wgmma.cu"),
+               "flash_attention_bwd": (fa.flash_attention_bwd_route, "attention_bwd.cu",
+                                       "attention_bwd_wgmma.cu")}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("name", sorted(ATTN_ROUTES))
+def test_training_attention_routes_name_the_kernel(name, dtype, d):
+    route, f32_source, bf16_source = ATTN_ROUTES[name]
+    q = torch.zeros(6, 130, d, dtype=dtype)
+    others = (q,) * (2 if name == "flash_attention" else 4)  # k, v (and o, do)
+    assert route(q, *others) == (bf16_source if dtype == BF16 else f32_source)
+    assert route(q) == route(q, *others)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head dim 96", "head dim"),
+    ("not contiguous", "contiguous"),
+    ("misaligned", "16-byte aligned"),
+    ("mixed dtypes", "share"),
+    ("meta device", "no kernel for device meta"),
+])
+@pytest.mark.parametrize("name", sorted(ATTN_ROUTES))
+def test_training_attention_routes_raise_on_what_no_kernel_takes(name, case, match):
+    route = ATTN_ROUTES[name][0]
+    q, others = torch.zeros(2, 10, 64, dtype=BF16), ()
+    if case == "head dim 96":
+        q = torch.zeros(2, 10, 96, dtype=BF16)
+    elif case == "not contiguous":
+        q = torch.zeros(2, 64, 10, dtype=BF16).transpose(1, 2)
+    elif case == "misaligned":  # one element past a 16-byte boundary
+        q = torch.zeros(2 * 10 * 64 + 1, dtype=BF16)[1:].view(2, 10, 64)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    elif case == "mixed dtypes":
+        others = (q, q.float())
+    else:
+        q = q.to("meta")
+    with pytest.raises(ValueError, match=match):
+        route(q, *others)
 
 
 @pytest.mark.parametrize("dtype,d,h,residual,want", [
@@ -102,6 +147,12 @@ def test_mlp_route_raises_on_what_no_kernel_takes(case, match):
 def _call(name, dtype):
     if name == "attention_qkv":
         return fa.attention_qkv(_qkv(dtype), 2, 10)
+    if name.startswith("flash_attention"):
+        q = torch.randn(2, 10, 64).to(dtype)
+        if name == "flash_attention":
+            return fa.flash_attention(q, q, q)
+        o, lse = fa.flash_attention(q, q, q)
+        return fa.flash_attention_bwd(q, q, q, o, lse, q)
     x, w1, w2 = _mlp(dtype, d=192, h=768)
     v, b1 = torch.zeros(192), torch.zeros(768)
     if name == "fused_mlp_block":
@@ -109,7 +160,8 @@ def _call(name, dtype):
     return fm.fused_mlp_block_lnout(x, v, v, w1, b1, w2, v, v, v)
 
 
-WRAPPERS = {"attention_qkv": fa, "fused_mlp_block": fm, "fused_mlp_block_lnout": fm}
+WRAPPERS = {"attention_qkv": fa, "fused_mlp_block": fm, "fused_mlp_block_lnout": fm,
+            "flash_attention": fa, "flash_attention_bwd": fa}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -129,6 +181,12 @@ def test_wrappers_raise_on_devices_without_a_kernel(name):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         if name == "attention_qkv":
             fa.attention_qkv(_qkv(BF16).to("meta"), 2, 10)
+        elif name.startswith("flash_attention"):
+            q = torch.zeros(2, 10, 64, dtype=BF16, device="meta")
+            if name == "flash_attention":
+                fa.flash_attention(q, q, q)
+            else:
+                fa.flash_attention_bwd(q, q, q, q, torch.zeros(2, 10, device="meta"), q)
         else:
             x, w1, w2 = (t.to("meta") for t in _mlp(BF16))
             v = torch.zeros(384, device="meta")

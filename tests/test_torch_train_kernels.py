@@ -44,9 +44,13 @@ def _pair(a, tag):
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_attention_function_matches_jax_vjp(d, tag):
-    b, h, n = 2, 2, 130  # ragged: not a multiple of any key or query tile
-    rng = np.random.default_rng(d)
+@pytest.mark.parametrize("n", [2, 64, 65, 128, 129, 130, 257])
+def test_attention_function_matches_jax_vjp(n, d, tag):
+    """At the edges of the kernels' 64-row tiles and 128-row CTAs (one key,
+    a tile exactly, one past it, a CTA exactly, one past it, 130, and one
+    past two CTAs)."""
+    b, h = (2, 2) if n == 130 else (1, 1)
+    rng = np.random.default_rng(d if n == 130 else d + n)
     arrays = [rng.normal(0, 1, (b, h, n, d)).astype(np.float32) for _ in range(4)]
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (_pair(a, tag) for a in arrays)
     out, vjp = jax.vjp(lambda q, k, v: jfat(q, k, v, 0, True), jq, jk, jv)

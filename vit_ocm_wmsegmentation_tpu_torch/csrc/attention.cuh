@@ -1,5 +1,5 @@
 // Shared contract of the attention forward kernels (attention_qkv.cu, f32
-// on the CUDA cores; attention_qkv_mma.cu, bf16 on the tensor cores): where
+// on the CUDA cores; attention_qkv_wgmma.cu, bf16 on wgmma): where
 // head hh of batch element b reads its q, k, v rows and writes its output
 // rows, in one of two layouts, fixed at compile time:
 //   * FOLDED = false: the fused qkv projection (B, N, 3*nh*D) of the

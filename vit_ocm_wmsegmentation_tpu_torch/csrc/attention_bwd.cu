@@ -21,7 +21,7 @@
 // blocks and 4 x (d/16) gradient blocks a thread; 99 KB (d = 64) or 166 KB
 // (d = 128) of shared memory for the dk/dv kernel. Bound, as the forward: f32 FMA
 // issue and shared-memory loads on the CUDA cores (no TF32). bf16 storage
-// takes attention_bwd_mma.cu.
+// takes attention_bwd_wgmma.cu.
 //
 // Numerics: as the TPU kernel, whose rounding of e and ds to the storage
 // type is the identity in f32; dk and dv accumulate over all q in f32 and
@@ -63,12 +63,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 
 // stats of every (batch*head, row), one warp a row: [lse as the kernels use
 // it, non-finite values as 0 (nan_to_num in _flash_bwd_impl) | D = rowsum(do
-// * o) in f32], each (BH, N) -> stats (BH, 2, N). Computed once here
+// * o) in f32], each (BH, N) -> stats (BH, 2, pitch). Computed once here
 // instead of in every CTA that reads the row.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 attn_bwd_stats_kernel(const float* __restrict__ lse, const T* __restrict__ dout,
-                      const T* __restrict__ o, float* __restrict__ stats, int BH, int N) {
+                      const T* __restrict__ o, float* __restrict__ stats, int BH, int N,
+                      int pitch) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long long)BH * N) return;
@@ -79,30 +80,30 @@ attn_bwd_stats_kernel(const float* __restrict__ lse, const T* __restrict__ dout,
   if (lane == 0) {
     const long long bh = row / N, r = row % N;
     const float l = lse[row];
-    stats[bh * 2 * N + r] = isfinite(l) ? l : 0.f;
-    stats[bh * 2 * N + N + r] = s;
+    stats[bh * 2 * pitch + r] = isfinite(l) ? l : 0.f;
+    stats[bh * 2 * pitch + pitch + r] = s;
   }
 }
 
 template <typename T, int D>
 static int launch_attn_bwd_stats(const float* lse, const void* dout, const void* o, float* stats,
-                                 int BH, int N, cudaStream_t stream) {
+                                 int BH, int N, int pitch, cudaStream_t stream) {
   const long long rows = (long long)BH * N;
   attn_bwd_stats_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      lse, static_cast<const T*>(dout), static_cast<const T*>(o), stats, BH, N);
+      lse, static_cast<const T*>(dout), static_cast<const T*>(o), stats, BH, N, pitch);
   return (int)cudaGetLastError();
 }
 
 int attn_row_stats(int dtype, int d, const float* row, const void* dout, const void* o,
-                   float* stats, int BH, int N, cudaStream_t s) {
+                   float* stats, int BH, int N, int pitch, cudaStream_t s) {
   if (dtype == kF32 && d == 64)
-    return launch_attn_bwd_stats<float, 64>(row, dout, o, stats, BH, N, s);
+    return launch_attn_bwd_stats<float, 64>(row, dout, o, stats, BH, N, pitch, s);
   if (dtype == kF32 && d == 128)
-    return launch_attn_bwd_stats<float, 128>(row, dout, o, stats, BH, N, s);
+    return launch_attn_bwd_stats<float, 128>(row, dout, o, stats, BH, N, pitch, s);
   if (dtype == kBF16 && d == 64)
-    return launch_attn_bwd_stats<__nv_bfloat16, 64>(row, dout, o, stats, BH, N, s);
+    return launch_attn_bwd_stats<__nv_bfloat16, 64>(row, dout, o, stats, BH, N, pitch, s);
   if (dtype == kBF16 && d == 128)
-    return launch_attn_bwd_stats<__nv_bfloat16, 128>(row, dout, o, stats, BH, N, s);
+    return launch_attn_bwd_stats<__nv_bfloat16, 128>(row, dout, o, stats, BH, N, pitch, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -335,26 +336,31 @@ static int launch_attn_bwd(const void* qs, const void* k, const void* v, const f
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels of attention_bwd_mma.cu
+// bf16 storage takes the wgmma kernels of attention_bwd_wgmma.cu, which read
+// the stats through TMA: rows `pitch` floats apart, pitch a multiple of 4
 template <int D>
-int launch_attn_bwd_mma(const void* qs, const void* k, const void* v, const float* stats,
-                        const void* dout, void* dq, void* dk, void* dv, int BH, int N,
-                        cudaStream_t stream);
+int launch_attn_bwd_wgmma(const void* qs, const void* k, const void* v, const float* stats,
+                          int pitch, const void* dout, void* dq, void* dk, void* dv, int BH,
+                          int N, cudaStream_t stream);
 
 template <int D>
 static int launch_any_bwd(int dtype, const void* qs, const void* k, const void* v, const void* o,
                           const float* lse, const void* dout, void* dq, void* dk, void* dv,
                           float* stats, int BH, int N, cudaStream_t s) {
-  const int rc = attn_row_stats(dtype, D, lse, dout, o, stats, BH, N, s);
+  const int pitch = dtype == kF32 ? N : (N + 3) / 4 * 4;
+  const int rc = attn_row_stats(dtype, D, lse, dout, o, stats, BH, N, pitch, s);
   if (rc != 0) return rc;
   if (dtype == kF32) return launch_attn_bwd<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
-  return launch_attn_bwd_mma<D>(qs, k, v, stats, dout, dq, dk, dv, BH, N, s);
+  if (dtype == kBF16)
+    return launch_attn_bwd_wgmma<D>(qs, k, v, stats, pitch, dout, dq, dk, dv, BH, N, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace vitocm
 
 // qs, k, v, o, dout, dq, dk, dv (BH, N, d) contiguous in the storage type;
-// lse (BH, N) f32; stats an f32 workspace of 2 * BH * N values. d in
+// lse (BH, N) f32; stats an f32 workspace of 2 * BH * round_up(N, 4) values
+// (the f32 route uses the first 2 * BH * N of them). d in
 // {64, 128}. Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int vitocm_flash_bwd(int dtype, const void* qs, const void* k, const void* v,
                                 const void* o, const void* lse, const void* dout, void* dq,

@@ -18,8 +18,7 @@
 // register blocks; 66.8 KB of shared memory at d = 64, 116 KB at d = 128.
 // The products run on the CUDA cores in f32, never through TF32, so the
 // kernel is bound by shared-memory loads and FMA issue, not by HBM. bf16
-// storage takes the tensor-core kernels of attention_qkv_mma.cu (folded) and
-// attention_qkv_wgmma.cu (flat).
+// storage, both layouts, takes the wgmma kernel of attention_qkv_wgmma.cu.
 //
 // Numerics, kept from the TPU kernels: scores, P and accumulators in f32
 // (the TPU kernels' rounding of P to the storage type is the identity in
@@ -191,12 +190,12 @@ static int launch_attention(const void* q, const void* k, const void* v, void* o
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels: attention_qkv_mma.cu on the
-// folded (training) layout, attention_qkv_wgmma.cu on the flat one (its own
-// entry point, vitocm_attention_qkv_wgmma)
+// bf16 storage takes the wgmma kernel of attention_qkv_wgmma.cu: the folded
+// (training) layout through here, the flat one through its own entry point,
+// vitocm_attention_qkv_wgmma
 template <int D, bool FOLDED>
-int launch_attention_mma(const void* q, const void* k, const void* v, void* out, float* lse,
-                         int B, int N, int n, int nh, cudaStream_t stream);
+int launch_attention_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int B, int N, int n, int nh, cudaStream_t stream);
 
 template <bool FOLDED>
 static int launch_any(int dtype, int d, const void* q, const void* k, const void* v, void* out,
@@ -208,9 +207,9 @@ static int launch_any(int dtype, int d, const void* q, const void* k, const void
     return launch_attention<128, FOLDED>(q, k, v, out, lse, B, N, n, nh, s);
   if constexpr (FOLDED) {
     if (dtype == kBF16 && d == 64)
-      return launch_attention_mma<64, true>(q, k, v, out, lse, B, N, n, nh, s);
+      return launch_attention_wgmma<64, true>(q, k, v, out, lse, B, N, n, nh, s);
     if (dtype == kBF16 && d == 128)
-      return launch_attention_mma<128, true>(q, k, v, out, lse, B, N, n, nh, s);
+      return launch_attention_wgmma<128, true>(q, k, v, out, lse, B, N, n, nh, s);
   }
   return (int)cudaErrorInvalidValue;
 }

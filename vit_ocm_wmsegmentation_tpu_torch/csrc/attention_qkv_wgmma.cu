@@ -1,43 +1,51 @@
-// Inference attention straight from the fused qkv projection, bf16 storage,
-// on Hopper's warpgroup tensor cores: wgmma fed by TMA through an mbarrier
-// ring. Replaces vit_ocm_wmsegmentation_tpu/ops/flash_attention.py::
-// _attn_fwd_qkvflat_kernel (attention_qkv) for bf16; the flat layout of
-// attention.cuh: qkv (B, N, 3*nh*D), q section pre-scaled, out (B, N, nh*D),
-// keys at rows >= n masked. Head dims 64 (every DINO ViT) and 128.
+// Attention on Hopper's warpgroup tensor cores, bf16 storage: wgmma fed by
+// TMA through an mbarrier ring. One kernel, two layouts (attention.cuh),
+// chosen at compile time:
+//   * FOLDED = false, inference: straight from the fused qkv projection
+//     (B, N, 3*nh*D), q section pre-scaled, out (B, N, nh*D), keys at rows
+//     >= n masked. Replaces vit_ocm_wmsegmentation_tpu/ops/flash_attention.py
+//     ::_attn_fwd_qkvflat_kernel (attention_qkv).
+//   * FOLDED = true, training: q (pre-scaled), k, v and out (BH, N, D), and
+//     the f32 logsumexp lse (BH, N) = max + log(sum), written before the
+//     sum's clamp. Replaces ::_attn_fwd_kernel on its lse route
+//     (flash_attention, the forward of flash_attention_trainable).
+// Head dims 64 (every DINO ViT) and 128 (the MIM ViT).
 //
-// Numerics of attention_qkv_mma.cu and of the twin (ops/flash_attention.py::
-// _softmax_tiles): f32 scores, an online softmax over 64-key tiles shifted by
-// the running row max, expf, P rounded to bf16 before P.V, the denominator
-// summed from the rounded P and clamped at 1e-35. Only the order of the f32
-// sums inside each product differs. (exp as ex2.approx of x log2 e is
-// faster on an H100 but moved the seed-0 bf16 mask gate of chip_smoke.py
-// under its 0.99: not taken.)
+// Numerics of the twin (ops/flash_attention.py::_softmax_tiles): f32 scores,
+// an online softmax over 64-key tiles shifted by the running row max, expf,
+// P rounded to bf16 before P.V, the denominator summed from the rounded P
+// and clamped at 1e-35. Only the order of the f32 sums inside each product
+// differs. (exp as ex2.approx of x log2 e is faster on an H100 but moved the
+// seed-0 bf16 mask gate of chip_smoke.py under its 0.99: not taken.)
 //
 // What bounds it on the H100: at the mosaic's (49, 2305, 3*384), 400 GFLOP of
 // products (0.40 ms at 989 TFLOP/s) and 1.7 G exp (0.46 ms on the SFU's 16
-// a clock an SM); the bytes (0.35 GB) are far below either. The mma.sync
-// kernel it replaces copied K and V with all threads between two
+// a clock an SM); at the MIM step's folded (48, 2305, 128), 131 GFLOP (0.13
+// ms) and 0.26 G exp (0.07 ms). The bytes are far below either. The
+// mma.sync kernels this replaced copied K and V with all threads between two
 // __syncthreads (tensor cores idle) and re-read each head's K and V once per
-// 64 query rows. Here a CTA owns (batch, head, 128 query rows): two consumer
-// warpgroups of 64 rows each and one producer warp. The producer loads the
-// CTA's Q once and then keeps K and V tiles (64 keys x D) in flight with TMA
-// into a ring of stages (3 at D = 64, 2 at D = 128), each guarded by a
-// "full" mbarrier (its bytes arrived) and an "empty" one (all 8 consumer
-// warps done with it). TMA reads through a 3-D map over (B, N, 3*nh*D) with
-// 64 x 64 boxes and the 128-byte swizzle; rows past N read as 0, so the
-// ragged last tile needs no copy code. Per tile a consumer warpgroup
-// computes S = Q K^T with wgmma (both operands from shared memory,
-// K-major), runs the softmax on the S accumulators (a row's 64 scores in the
-// 4 lanes of a quad; P rounded and packed once, as the A operand and for the
-// row sums; a warp whose rows kept their max skips the rescale of O, a x 1),
-// and O += P V with P as the register A operand and V read MN-major from
-// shared memory. Two CTAs fit an SM at D = 64 (66 KB of shared memory, 96
-// registers a thread), so one warpgroup's softmax overlaps another's
-// products. What holds it back is the softmax's instruction count, not the
-// copies: on an H100, sharing each K/V tile between the CTAs of a cluster
-// by TMA multicast (fewer L2 reads) made the call slower, as did 4 stages,
-// 3 or 4 consumer warpgroups a CTA, and issuing the next tile's S before
-// this tile's softmax (one CTA an SM then).
+// 64 query rows. Here a CTA owns 128 query rows of one (batch, head) flat
+// or one batch*head folded: two consumer warpgroups of 64 rows each and one
+// producer warp. The producer loads the CTA's Q once and then keeps K and V
+// tiles (64 keys x D) in flight with TMA into a ring of stages (3 at D = 64,
+// 2 at D = 128), each guarded by a "full" mbarrier (its bytes arrived) and
+// an "empty" one (all 8 consumer warps done with it). TMA reads through 3-D
+// maps, over (B, N, 3*nh*D) or over each of the folded q, k, v, with 64 x 64
+// boxes and the 128-byte swizzle; rows past N read as 0, so the ragged last
+// tile needs no copy code. Per tile a consumer warpgroup computes S = Q K^T with wgmma
+// (both operands from shared memory, K-major), runs the softmax on the S
+// accumulators (a row's 64 scores in the 4 lanes of a quad; P rounded and
+// packed once, as the A operand and for the row sums; a warp whose rows kept
+// their max skips the rescale of O, a x 1), and O += P V with P as the
+// register A operand and V read MN-major from shared memory. Two CTAs fit an
+// SM at D = 64 (66 KB of shared memory, 96 registers a thread), so one
+// warpgroup's softmax overlaps another's products. What holds it back is the
+// softmax's instruction count, not the copies: on an H100, sharing each K/V
+// tile between the CTAs of a cluster by TMA multicast (fewer L2 reads) made
+// the flat call slower, as did 4 stages, 3 or 4 consumer warpgroups a CTA,
+// and issuing the next tile's S before this tile's softmax: at D = 64 it
+// leaves one CTA an SM, and at D = 128, one CTA an SM already, the folded
+// call ran slower with it too.
 
 #include <math.h>
 #include <stdint.h>
@@ -149,10 +157,15 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 64][32], const uint32_t 
   wgmma_commit();
 }
 
-template <int D>
+// q_map, k_map, v_map: the one qkv map three times (flat), or the maps of
+// the folded q, k, v (nh = 1); lse only with FOLDED
+template <int D, bool FOLDED>
 __global__ void __launch_bounds__(kWThreads, D == 64 ? 2 : 1)
-attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
-                       __nv_bfloat16* __restrict__ out, int N, int n, int nh) {
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int n,
+                       int nh) {
   using C = AttnWgmma<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* qs = align1024(smem_raw);
@@ -176,19 +189,21 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
 
   if (warp == 4 * kWG) {  // producer: one lane issues every copy
     if (lane == 0) {
-      const int qc = hh * D, kc = (nh + hh) * D, vc = (2 * nh + hh) * D;
+      // first column of this head's q, k, v in its map
+      const int qc = FOLDED ? 0 : hh * D, kc = FOLDED ? 0 : (nh + hh) * D,
+                vc = FOLDED ? 0 : (2 * nh + hh) * D;
       mbar_expect_tx(qbar, C::Q_BYTES);
       for (int c = 0; c < C::CH; ++c)
         for (int r = 0; r < kWQ; r += 64)
-          tma_load_3d(qs + c * kWQ * 128 + r * 128, &qkv_map, qbar, qc + 64 * c, q0 + r, b);
+          tma_load_3d(qs + c * kWQ * 128 + r * 128, &q_map, qbar, qc + 64 * c, q0 + r, b);
       for (int t = 0; t < tiles; ++t) {
         const int s = t % C::STAGES;
         mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], C::STAGE_BYTES);
         unsigned char* st = ring + s * C::STAGE_BYTES;
         for (int c = 0; c < C::CH; ++c) {
-          tma_load_3d(st + c * kWK * 128, &qkv_map, &full[s], kc + 64 * c, t * kWK, b);
-          tma_load_3d(st + C::KV_BYTES + c * kWK * 128, &qkv_map, &full[s], vc + 64 * c,
+          tma_load_3d(st + c * kWK * 128, &k_map, &full[s], kc + 64 * c, t * kWK, b);
+          tma_load_3d(st + C::KV_BYTES + c * kWK * 128, &v_map, &full[s], vc + 64 * c,
                       t * kWK, b);
         }
       }
@@ -244,9 +259,14 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  const int r0 = q0 + 64 * wg + 16 * wl + g, r1 = r0 + 8;
+  if (FOLDED && t4 == 0) {  // the training route keeps the logsumexp
+    float* lrow = lse + (long long)b * N;
+    if (r0 < N) lrow[r0] = m0 + logf(l0);
+    if (r1 < N) lrow[r1] = m1 + logf(l1);
+  }
   l0 = fmaxf(l0, 1e-35f);
   l1 = fmaxf(l1, 1e-35f);
-  const int r0 = q0 + 64 * wg + 16 * wl + g, r1 = r0 + 8;
   const long long os = (long long)nh * D;
   __nv_bfloat16* ob = out + (long long)b * N * os + hh * D;
 #pragma unroll
@@ -263,23 +283,34 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
     }
 }
 
-template <int D>
-static int launch_attention_wgmma(const void* qkv, void* out, int B, int N, int n, int nh,
-                                  cudaStream_t stream) {
+// flat: q is the fused qkv (B, N, 3*nh*D), k and v unused; folded: q, k, v
+// (B, N, D) with nh = 1, n = N
+template <int D, bool FOLDED>
+int launch_attention_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int B, int N, int n, int nh, cudaStream_t stream) {
   using C = AttnWgmma<D>;
-  const uint64_t cols = 3ull * nh * D;
+  const uint64_t cols = FOLDED ? D : 3ull * nh * D;
   const uint64_t dims[3] = {cols, (uint64_t)N, (uint64_t)B};
   const uint64_t strides[2] = {cols * 2, cols * 2 * N};
   const uint32_t box[3] = {64, kWK, 1};
-  CUtensorMap map;
-  if (!make_tmap_bf16(&map, qkv, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return (int)cudaErrorInvalidValue;
-  auto kern = attention_wgmma_kernel<D>;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, FOLDED ? k : q, FOLDED ? v : q};
+  for (int i = 0; i < 3; ++i)
+    if (!make_tmap_bf16(&maps[i], bases[i], 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  auto kern = attention_wgmma_kernel<D, FOLDED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   dim3 grid((N + kWQ - 1) / kWQ, nh, B);
-  kern<<<grid, kWThreads, C::SMEM, stream>>>(map, static_cast<__nv_bfloat16*>(out), N, n, nh);
+  kern<<<grid, kWThreads, C::SMEM, stream>>>(maps[0], maps[1], maps[2],
+                                             static_cast<__nv_bfloat16*>(out), lse, N, n, nh);
   return (int)cudaGetLastError();
 }
+
+// the training route's entry (attention_qkv.cu, vitocm_flash_fwd)
+template int launch_attention_wgmma<64, true>(const void*, const void*, const void*, void*,
+                                              float*, int, int, int, int, cudaStream_t);
+template int launch_attention_wgmma<128, true>(const void*, const void*, const void*, void*,
+                                               float*, int, int, int, int, cudaStream_t);
 
 }  // namespace vitocm
 
@@ -291,7 +322,10 @@ extern "C" int vitocm_attention_qkv_wgmma(const void* qkv, void* out, int B, int
   using namespace vitocm;
   if (n < 1 || n > N || B < 1 || nh < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_attention_wgmma<64>(qkv, out, B, N, n, nh, s);
-  if (head_dim == 128) return launch_attention_wgmma<128>(qkv, out, B, N, n, nh, s);
+  if (head_dim == 64)
+    return launch_attention_wgmma<64, false>(qkv, nullptr, nullptr, out, nullptr, B, N, n, nh, s);
+  if (head_dim == 128)
+    return launch_attention_wgmma<128, false>(qkv, nullptr, nullptr, out, nullptr, B, N, n, nh,
+                                              s);
   return (int)cudaErrorInvalidValue;
 }

@@ -476,7 +476,8 @@ extern "C" int vitocm_flash_bwd_savep(int dtype, const void* qs, const void* k, 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  int rc = attn_row_stats(dtype, head_dim, static_cast<const float*>(inv), dout, o, st, BH, N, s);
+  int rc =
+      attn_row_stats(dtype, head_dim, static_cast<const float*>(inv), dout, o, st, BH, N, N, s);
   if (rc != 0) return rc;
   if (dtype == kF32 && head_dim == 64)
     return launch_bwd_savep<64>(qs, k, v, P, st, dout, dq, dk, dv, BH, N, Np, s);

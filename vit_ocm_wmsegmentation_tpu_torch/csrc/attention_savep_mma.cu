@@ -10,14 +10,15 @@
 //             dk = ds^T qs, dq = bf16(bf16(ds k) * d^-0.5).
 //
 // Forward: a CTA owns 64 query rows, four warps of 16, Q as A fragments in
-// registers (attention_qkv_mma.cu's layout). Pass 1 stages each 64-key K
+// registers (mma.cuh's A fragment). Pass 1 stages each 64-key K
 // tile and keeps the row max of S = Q K^T (padded keys masked); pass 2
 // stages K and V, recomputes S, rounds P in registers, stores it to P (two
 // bf16 a lane per fragment row) and re-packs it as the A operand of P V.
 //
-// Backward: the lse route's split (attention_bwd_mma.cu) without the
-// s-recompute product and the exp. dk/dv kernel: 64 keys a CTA, query tiles of QT (64 at
-// d = 64, 32 at d = 128); per tile it stages Q, dO and the (QT, 64) P tile
+// Backward: two deterministic kernels, as the lse route's
+// (attention_bwd_wgmma.cu), without the s-recompute product and the exp.
+// dk/dv kernel: 64 keys a CTA, query tiles of QT (64 at d = 64, 32 at
+// d = 128); per tile it stages Q, dO and the (QT, 64) P tile
 // (16-byte loads along keys), computes dp^T = V dO^T, reads e from the P tile
 // at the fragment's (query, key) positions and multiplies by inv, then
 // dV += bf16(e)^T dO and dK += dS^T Q. dq kernel: 64 queries a CTA, key tiles

@@ -63,11 +63,12 @@ __device__ __forceinline__ void stage_row_stats(float* lse_s, float* dd_s, const
 enum DType { kF32 = 0, kBF16 = 1 };
 
 // the attention backward's row statistics (attention_bwd.cu): for every
-// (batch*head, row) of the folded (BH, N, d) dout and o, stats (BH, 2, N) =
-// [row, non-finite values as 0 | rowsum(dout * o) in f32]; row is the
-// logsumexp on the lse route and 1/denominator on the saved-P route
+// (batch*head, row) of the folded (BH, N, d) dout and o, stats (BH, 2,
+// pitch) = [row, non-finite values as 0 | rowsum(dout * o) in f32], each N
+// of a pitch (>= N) floats; row is the logsumexp on the lse route and
+// 1/denominator on the saved-P route
 int attn_row_stats(int dtype, int d, const float* row, const void* dout, const void* o,
-                   float* stats, int BH, int N, cudaStream_t s);
+                   float* stats, int BH, int N, int pitch, cudaStream_t s);
 
 // out[i] = sum over s < S of part[s * W + i], in order of s: the fixed-order
 // reduction of the weight-gradient partials (fused_mlp_bwd.cu)

@@ -34,7 +34,7 @@
 // folded q, k (BH, Nk, 64), v (BH, Nk, 64) (combo: the ones column built on
 // chip); qkvflat (B, Np, 3 h 64) with o written into all three sections
 // (kern_qkvflat :299-301). A CTA owns 64 query rows of one (batch, head),
-// four warps of 16 (attention_qkv_mma.cu's fragments). In bf16, kt's tile is
+// four warps of 16 (mma.cuh's fragments). In bf16, kt's tile is
 // staged as it lies and read with ldmatrix.trans; ldmatrix has no 8-bit
 // transpose, so the int8 route transposes kt and v while staging, v's keys
 // permuted within 32 so that the int32 accumulators of s re-pack into P's A

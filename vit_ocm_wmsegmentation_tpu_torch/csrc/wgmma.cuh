@@ -1,7 +1,8 @@
 // Hopper building blocks of the wgmma kernels (attention_qkv_wgmma.cu,
-// fused_mlp_wgmma.cu): warpgroup matrix products (wgmma), tensor-memory
-// copies (TMA) completing on shared-memory barriers (mbarrier), and the
-// shared-memory descriptors that tie the two together. sm_90a only.
+// attention_bwd_wgmma.cu, fused_mlp_wgmma.cu): warpgroup matrix products
+// (wgmma), tensor-memory copies (TMA) completing on shared-memory barriers
+// (mbarrier), and the shared-memory descriptors that tie the two together.
+// sm_90a only.
 //
 // Operand tiles live in shared memory as TMA writes them with the 128-byte
 // (or 64-byte) swizzle: rows of 128 (64) bytes, the 16-byte chunks of each
@@ -139,17 +140,23 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // --- host: tensor maps ------------------------------------------------------
-// A tiled map over a row-major bf16 array of `rank` dims (dims innermost
-// first, strides in bytes of dims 1..rank-1); rows past a dim read as 0.
+// A tiled map over a row-major array of `rank` dims (dims innermost first,
+// strides in bytes of dims 1..rank-1, multiples of 16); rows past a dim
+// read as 0.
+inline bool make_tmap(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  const uint32_t ones[5] = {1, 1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 inline bool make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                            const uint64_t* strides, const uint32_t* box,
                            CUtensorMapSwizzle swizzle) {
-  const uint32_t ones[5] = {1, 1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                                const_cast<void*>(base), dims, strides, box, ones,
-                                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                   swizzle);
 }
 
 // --- products (register lists spelled out) ------------------------------------

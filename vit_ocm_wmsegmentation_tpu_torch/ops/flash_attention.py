@@ -22,10 +22,14 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``:
 Each wrapper launches its kernel for CUDA tensors (f32 storage:
 ``csrc/attention_qkv.cu``, ``csrc/attention_bwd.cu`` and
 ``csrc/attention_savep.cu`` on the CUDA cores; bf16: :func:`attention_qkv`
-on ``csrc/attention_qkv_wgmma.cu`` (wgmma fed by TMA), the training kernels
-on the ``*_mma.cu`` files (mma.sync); design notes there) and takes its
-plain twin (``*_plain``) for CPU tensors; anything else raises.
-Each wrapper's ``launches`` counts kernel launches.
+and :func:`flash_attention` on ``csrc/attention_qkv_wgmma.cu``,
+:func:`flash_attention_bwd` on ``csrc/attention_bwd_wgmma.cu`` (wgmma fed
+by TMA), the saved-P kernels on ``csrc/attention_savep_mma.cu``
+(mma.sync); design notes there) and takes its plain twin (``*_plain``) for
+CPU tensors; anything else raises. :func:`attention_qkv_route`,
+:func:`flash_attention_route` and :func:`flash_attention_bwd_route` name
+the source a CUDA call launches. Each wrapper's ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -73,8 +77,8 @@ def attention_qkv_plain(qkv, num_heads: int, n: int):
     return o.permute(0, 2, 1, 3).reshape(b, rows, num_heads * d).to(qkv.dtype)
 
 
-def _check_dtype_device(name, t, want_dim):
-    if t.device.type != "cuda":
+def _check_dtype_device(name, t, want_dim, devices=("cuda",)):
+    if t.device.type not in devices:
         raise ValueError(f"{name}: no kernel for device {t.device}")
     if (t.dim() != want_dim or t.dtype not in build.DTYPE_CODES or not t.is_contiguous()
             or t.data_ptr() % 16):
@@ -85,10 +89,8 @@ def _check_dtype_device(name, t, want_dim):
 
 def attention_qkv_route(qkv, num_heads: int, n: int) -> str:
     """The kernel source a CUDA call with this qkv launches: bfloat16
-    "attention_qkv_wgmma.cu", float32 "attention_qkv.cu" (the training
-    layout's bf16 kernel, attention_qkv_mma.cu, is :func:`flash_attention`'s).
-    Raises on shapes, dtypes and layouts neither takes; the device is the
-    caller's check."""
+    "attention_qkv_wgmma.cu", float32 "attention_qkv.cu". Raises on shapes,
+    dtypes and layouts neither takes; the device is the caller's check."""
     if (qkv.dim() != 3 or qkv.dtype not in build.DTYPE_CODES or not qkv.is_contiguous()
             or qkv.data_ptr() % 16):
         raise ValueError(f"attention_qkv: want a contiguous, 16-byte aligned 3-D float32/"
@@ -161,9 +163,9 @@ def flash_attention_plain(q, k, v):
     return o.to(q.dtype), lse[..., 0]
 
 
-def _check_folded(name, *ts):
+def _check_folded(name, *ts, devices=("cuda",)):
     for t in ts:
-        _check_dtype_device(name, t, 3)
+        _check_dtype_device(name, t, 3, devices)
         if t.shape != ts[0].shape or t.dtype != ts[0].dtype or t.device != ts[0].device:
             raise ValueError(f"{name}: q, k, v, o, do must share shape, dtype and device; got "
                              f"{tuple(t.shape)} {t.dtype} against {tuple(ts[0].shape)} "
@@ -172,11 +174,42 @@ def _check_folded(name, *ts):
         raise ValueError(f"{name}: kernel needs head dim in {HEAD_DIMS}, got {ts[0].shape[-1]}")
 
 
+_FWD_SOURCES = {torch.float32: "attention_qkv.cu", torch.bfloat16: "attention_qkv_wgmma.cu"}
+_BWD_SOURCES = {torch.float32: "attention_bwd.cu", torch.bfloat16: "attention_bwd_wgmma.cu"}
+
+
+def flash_attention_route(q, *others) -> str:
+    """The kernel source a CUDA call of :func:`flash_attention` with this q
+    (and the k, v given after it) launches: bfloat16
+    "attention_qkv_wgmma.cu", float32 "attention_qkv.cu". Reads only shapes,
+    dtypes and layouts, so a CPU tensor stands for its CUDA copy; raises on
+    what no kernel takes and on devices other than the two."""
+    _check_folded("flash_attention", q, *others, devices=("cpu", "cuda"))
+    return _FWD_SOURCES[q.dtype]
+
+
+def flash_attention_bwd_route(q, *others) -> str:
+    """The kernel source a CUDA call of :func:`flash_attention_bwd` with this
+    q (and the k, v, o, do given after it) launches: bfloat16
+    "attention_bwd_wgmma.cu" (its dk/dv and dq kernels, after
+    attention_bwd.cu's row statistics), float32 "attention_bwd.cu". As
+    :func:`flash_attention_route`, a CPU tensor stands for its CUDA copy."""
+    _check_folded("flash_attention_bwd", q, *others, devices=("cpu", "cuda"))
+    return _BWD_SOURCES[q.dtype]
+
+
+def _stats_pitch(n: int) -> int:
+    """Floats between the rows of the backward's (B*h, 2, pitch) row
+    statistics: n rounded up to 4, so each row is 16-byte aligned for TMA."""
+    return -(-n // 4) * 4
+
+
 def flash_attention(q, k, v):
     """softmax(q k^T / sqrt(d)) v and its logsumexp for folded (B*h, N, d)
     q, k, v (q unscaled): returns (out (B*h, N, d) in q's dtype, lse (B*h, N)
     float32). CPU tensors take the plain twin; CUDA tensors launch the
-    kernel (d in HEAD_DIMS, contiguous float32/bfloat16)."""
+    kernel of :func:`flash_attention_route` (d in HEAD_DIMS, contiguous
+    float32/bfloat16)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     _check_folded("flash_attention", q, k, v)
@@ -217,7 +250,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) of :func:`flash_attention` from its saved out o and lse
     and the cotangent do, all folded (B*h, N, d) but lse (B*h, N) float32;
     dq is with respect to the unscaled q. CPU tensors take the plain twin;
-    CUDA tensors launch the kernels."""
+    CUDA tensors launch the kernels of :func:`flash_attention_bwd_route`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     _check_folded("flash_attention_bwd", q, k, v, o, do)
@@ -226,7 +259,8 @@ def flash_attention_bwd(q, k, v, o, lse, do):
         raise ValueError(f"flash_attention_bwd: want a contiguous float32 lse of shape {(bh, n)}")
     qs = _scale_q(q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((bh, 2, n), dtype=torch.float32, device=q.device)  # lse, rowsum(do o)
+    # lse, rowsum(do o)
+    stats = torch.empty((bh, 2, _stats_pitch(n)), dtype=torch.float32, device=q.device)
     rc = build.library().vitocm_flash_bwd(
         build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
