@@ -7,11 +7,14 @@ Builds the port's CUDA kernels from ``vit_ocm_wmsegmentation_tpu_torch/csrc``
 and then, failing on the first phase that fails:
 
 0. prints the card's name and power limit (nvidia-smi) and the build time,
-   ptxas' registers, spills and shared memory for the wgmma kernels
-   (``csrc/*_wgmma.cu``: inference and training attention forward, the
-   training attention's dk/dv and dq kernels, the inference MLP) and asserts
-   that they spill nothing and that their SASS holds warpgroup products
-   (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA);
+   ptxas' registers, spills and shared memory for the kernels of
+   SASS_CHECKS and asserts that they spill nothing and that their SASS holds
+   the opcodes of their design: the wgmma kernels (``csrc/*_wgmma.cu``:
+   inference and training attention forward, the training attention's dk/dv
+   and dq kernels, the inference MLP) warpgroup products (HGMMA) and TMA
+   loads (UTMALDG) and no mma.sync (HMMA); the f32 attention kernels
+   (forward at both head dims and both layouts, dk/dv, dq) FFMA and cp.async
+   (LDGSTS) and no tensor-core instruction (no TF32);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
@@ -181,11 +184,20 @@ STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 38
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
-# the Hopper kernels (csrc/*_wgmma.cu): their SASS must hold warpgroup
-# products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); the
-# attention kernel in both layouts (inference flat, training folded)
-WGMMA_KERNELS = ("attention_wgmma_kernel", "fused_mlp_wgmma_kernel", "attn_bwd_dkdv_wgmma_kernel",
-                 "attn_bwd_dq_wgmma_kernel")
+# phase 0: kernel (a part of its mangled name) -> (instances at least, SASS
+# opcodes it must hold, opcodes it must not). The wgmma kernels
+# (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
+# no mma.sync (HMMA); the f32 attention kernels (attention_qkv.cu, both head
+# dims and both layouts; attention_bwd.cu's dk/dv and dq) run exact f32 FFMA
+# fed by cp.async (LDGSTS) and no tensor-core instruction, so no TF32.
+_WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
+_FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
+SASS_CHECKS = {
+    "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": _WGMMA,
+    "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
+    "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
+    "attn_bwd_dq_f32_kernel": (2, *_FFMA),
+}
 
 
 def _modules():
@@ -438,18 +450,23 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
     return cases
 
 
-def check_wgmma_build():
-    """Phase 0's report on the wgmma kernels: ptxas' registers, spills and
-    shared memory, which must show no spill, and their SASS, which must hold
-    HGMMA and UTMALDG and no HMMA (cuobjdump of the built library)."""
+def check_kernel_builds():
+    """Phase 0's report on the kernels of SASS_CHECKS: ptxas' registers,
+    spills and shared memory, which must show no spill, and their SASS
+    (cuobjdump of the built library), which must hold the wanted opcodes and
+    none of the forbidden ones, in as many instances as listed."""
     from vit_ocm_wmsegmentation_tpu_torch import build
 
-    entry = None
+    def kernel_of(fn):
+        return next((k for k in SASS_CHECKS if k in fn), None)
+
+    entry, reported = None, set()
     for line in build.build_info["ptxas"].splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
         if m:
-            entry = m.group(1) if any(k in m.group(1) for k in WGMMA_KERNELS) else None
+            entry = m.group(1) if kernel_of(m.group(1)) else None
         elif entry and ("Used" in line or "spill" in line):
+            reported.add(entry)
             print(f"  ptxas {entry}: {line.strip().removeprefix('ptxas info    : ')}")
             if re.search(r"\b[1-9]\d* bytes spill", line):
                 raise AssertionError(f"{entry} spills: {line.strip()}")
@@ -460,20 +477,24 @@ def check_wgmma_build():
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            fn = name if any(k in name for k in WGMMA_KERNELS) else None
+            kern = kernel_of(name)
+            fn = name if kern else None
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+                _, want, forbid = SASS_CHECKS[kern]
+                counts[fn] = dict.fromkeys(want + forbid, 0)
         elif fn:
             for op in counts[fn]:
                 counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
-    for name in WGMMA_KERNELS:
+    for name, (instances, want, forbid) in SASS_CHECKS.items():
         found = {fn: c for fn, c in counts.items() if name in fn}
-        if not found:
-            raise AssertionError(f"{name}: not in the built library's SASS")
+        in_ptxas = {fn for fn in reported if name in fn}
+        if len(found) < instances or len(in_ptxas) < instances:
+            raise AssertionError(f"{name}: {len(found)} instances in the SASS and {len(in_ptxas)} "
+                                 f"in ptxas' report, want {instances}")
         for fn, c in found.items():
             print(f"  SASS {fn}: {c}")
-            if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
-                raise AssertionError(f"{fn}: want HGMMA and UTMALDG and no HMMA in its SASS, got {c}")
+            if not all(c[op] for op in want) or any(c[op] for op in forbid):
+                raise AssertionError(f"{fn}: want {want} and none of {forbid} in its SASS, got {c}")
 
 
 def _mlp_gemm_reference(tag, dtype, gen):
@@ -1420,7 +1441,7 @@ def main():
     for line in build.build_info["ptxas"].splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    check_wgmma_build()
+    check_kernel_builds()
 
     phases = time.perf_counter()
     t = [phases]

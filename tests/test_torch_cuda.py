@@ -39,16 +39,21 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,rows,n", [(2, 130, 130), (3, 200, 129), (1, 64, 1)])
-def test_attention_kernel_matches_plain(cuda, dtype, b, rows, n):
+@pytest.mark.parametrize("heads,d", [(6, 64), (2, 128)])
+@pytest.mark.parametrize("b,rows,n", [(2, 130, 130), (3, 200, 129), (1, 64, 1), (1, 127, 127),
+                                      (1, 128, 128), (2, 129, 31), (2, 129, 33), (1, 257, 63),
+                                      (1, 256, 65), (2, 255, 97)])
+def test_attention_kernel_matches_plain(cuda, dtype, b, rows, n, heads, d):
+    """Flat layout, both head dims; around the f32 kernel's tiles too (128
+    query rows a CTA; 64-key tiles at d = 64, 32-key tiles at d = 128)."""
     gen = torch.Generator(device=cuda).manual_seed(rows)
-    qkv = torch.randn(b, rows, 3 * 6 * 64, generator=gen, device=cuda)
-    qkv[..., : 6 * 64] *= 0.125
+    qkv = torch.randn(b, rows, 3 * heads * d, generator=gen, device=cuda)
+    qkv[..., : heads * d] *= d ** -0.5
     qkv = qkv.to(dtype)
     before = fa.attention_qkv.launches
-    got = fa.attention_qkv(qkv, 6, n)
+    got = fa.attention_qkv(qkv, heads, n)
     assert fa.attention_qkv.launches == before + 1
-    _close(got, fa.attention_qkv_plain(qkv, 6, n), dtype)
+    _close(got, fa.attention_qkv_plain(qkv, heads, n), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -115,11 +120,14 @@ def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
 
 
 def _digests(dev):
-    """SHA-256 of kernel outputs on numpy-seeded inputs: the bf16 MLP
-    training forwards (mma.sync), the f32 kernels, and the bf16 inference
-    attention and LN-out MLP (wgmma). The bf16 training attention's outputs
-    are drawn and computed (their inputs keep the draws of the others in
-    place) but not kept."""
+    """SHA-256 of kernel outputs on numpy-seeded inputs: the MLP training
+    forwards (f32 and bf16), the bf16 training attention (wgmma, dispatched
+    through attention_qkv.cu and attention_bwd.cu), the f32 LN-out MLP, the
+    bf16 inference attention and LN-out MLP (wgmma), and the saved-P
+    attention, forward and backward, f32 and bf16 (which shares the
+    backward's row statistics). The f32 training and inference attention are
+    drawn (their inputs keep the draws of the others in place) but neither
+    computed nor kept."""
     import hashlib
 
     rng = np.random.default_rng(6)
@@ -135,8 +143,8 @@ def _digests(dev):
 
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
-        o, lse = fa.flash_attention(q, k, v)
-        if tag == "f32":
+        if tag == "bf16":
+            o, lse = fa.flash_attention(q, k, v)
             keep(f"flash_attention[{tag}]", (o, lse))
             keep(f"flash_attention_bwd[{tag}]", fa.flash_attention_bwd(q, k, v, o, lse, do))
         d, h, rows = 384, 1536, 1100
@@ -146,8 +154,7 @@ def _digests(dev):
                t(d, h, dtype=dtype, std=h ** -0.5), t(d, dtype=torch.float32, std=0.1))
         keep(f"fused_mlp_block_h1[{tag}]", fm.fused_mlp_block_h1(x, *mlp))
         keep(f"fused_mlp_block_gp[{tag}]", fm.fused_mlp_block_gp(x, *mlp))
-    qkv = t(2, 130, 3 * 6 * 64, dtype=torch.float32)
-    keep("attention_qkv[f32]", (fa.attention_qkv(qkv, 6, 130),))
+    t(2, 130, 3 * 6 * 64, dtype=torch.float32)  # the f32 inference attention's draw
     keep("fused_mlp_block_lnout[f32]", fm.fused_mlp_block_lnout(
         x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
     qkv = t(2, 130, 3 * 6 * 64, std=0.5)
@@ -156,22 +163,36 @@ def _digests(dev):
     mlp = (mlp[0], mlp[1], t(h, d, std=d ** -0.5), mlp[3], t(d, h, std=h ** -0.5), mlp[5])
     keep("fused_mlp_block_lnout[bf16]", fm.fused_mlp_block_lnout(
         x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
+        o, p, inv = fa.flash_attention_savep(q, k, v)
+        keep(f"flash_attention_savep[{tag}]", (o, p, inv))
+        keep(f"flash_attention_bwd_savep[{tag}]", fa.flash_attention_bwd_savep(q, k, v, o, p, inv,
+                                                                                do))
     torch.cuda.synchronize()
     return out
 
 
 # _digests of builds from before (H100 80GB HBM3, torch 2.11.0+cu128, CUDA
-# 12.9): of the build before the bf16 inference kernels moved to the wgmma
-# sources, for the kernels that move left in place; of the build before the
-# wgmma attention kernel took the training layout too, for the wgmma
-# inference kernels, whose source that change shares. Each must give the
-# same bits.
+# 12.9), each of the last build before a change to the sources the kernel
+# is built or dispatched from: of the build before the bf16 inference
+# kernels moved to the wgmma sources, for the MLP training forwards and the
+# f32 LN-out MLP; of the build before the wgmma attention kernel took the
+# training layout too, for the wgmma inference kernels; of the build before
+# the f32 attention kernels were redesigned on register tiles and cp.async
+# (b4ae6e4), for the bf16 training attention, which dispatches through
+# their two sources, and the saved-P attention, which shares the backward's
+# row statistics. Each must give the same bits.
 RECORDED_DIGESTS = {
     "fused_mlp_block_h1[bf16]": "2533b057ee11d01f", "fused_mlp_block_gp[bf16]": "e708bb277ec8f537",
-    "flash_attention[f32]": "19ae2c9d2133c5ef", "flash_attention_bwd[f32]": "3f8d8ed972bf9737",
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
-    "attention_qkv[f32]": "a9fe9617829128fd", "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
-    "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564"}
+    "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
+    "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564",
+    "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
+    "flash_attention_savep[f32]": "44933d0b58da0410",
+    "flash_attention_bwd_savep[f32]": "48e138e2c6d5a832",
+    "flash_attention_savep[bf16]": "a5417dca59721aa5",
+    "flash_attention_bwd_savep[bf16]": "da7052d9948a5344"}
 
 
 def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
@@ -195,10 +216,15 @@ def _close_grad(got, want, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128),
                                     (2, 65, 128), (3, 127, 64), (2, 128, 128), (2, 192, 64),
-                                    (3, 257, 128), (2, 257, 64), (48, 2305, 128)])
+                                    (3, 257, 128), (2, 257, 64), (48, 2305, 128), (2, 31, 128),
+                                    (2, 32, 128), (2, 33, 128), (3, 63, 64), (2, 96, 128),
+                                    (2, 97, 64), (2, 255, 64), (2, 256, 128), (1, 385, 128)])
 def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
     """Around the tiles of the bf16 wgmma kernels (64 keys or queries a tile,
-    128 queries or keys a CTA) and at the MIM step's (48, 2305, 128)."""
+    128 queries or keys a CTA), of the f32 ones (forward and dq: 128 queries
+    a CTA, key tiles of 64 at d = 64 and 32 at d = 128; dk/dv: 64 keys a
+    CTA, query tiles of 64 at d = 64 and 32 at d = 128) and at the MIM
+    step's (48, 2305, 128)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
     before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
@@ -214,15 +240,19 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
         before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,n,d", [(3, 257, 128), (2, 129, 64), (48, 2305, 128)])
-def test_flash_attention_wgmma_kernels_are_deterministic(cuda, bh, n, d):
-    """The bf16 training attention's wgmma kernels, forward and backward (dk,
-    dv and dq each summed in a fixed order, no atomics): two calls on the
-    same inputs give the same bits."""
+def test_flash_attention_kernels_are_deterministic(cuda, dtype, bh, n, d):
+    """The training attention's kernels, forward and backward, f32 on the
+    CUDA cores and bf16 on wgmma (dk, dv and dq each summed in a fixed
+    order, no atomics): two calls on the same inputs give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(n + d + 5)
-    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).bfloat16() for _ in range(4))
-    assert fa.flash_attention_route(q, k, v) == "attention_qkv_wgmma.cu"
-    assert fa.flash_attention_bwd_route(q, k, v, q, do) == "attention_bwd_wgmma.cu"
+    q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    bf16 = dtype == torch.bfloat16
+    assert fa.flash_attention_route(q, k, v) == (
+        "attention_qkv_wgmma.cu" if bf16 else "attention_qkv.cu")
+    assert fa.flash_attention_bwd_route(q, k, v, q, do) == (
+        "attention_bwd_wgmma.cu" if bf16 else "attention_bwd.cu")
     out, lse = fa.flash_attention(q, k, v)
     assert _bit_equal((out, lse), fa.flash_attention(q, k, v))
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do)

@@ -63,18 +63,21 @@ def test_training_attention_routes_name_the_kernel(name, dtype, d):
     ("meta device", "no kernel for device meta"),
 ])
 @pytest.mark.parametrize("name", sorted(ATTN_ROUTES))
-def test_training_attention_routes_raise_on_what_no_kernel_takes(name, case, match):
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_training_attention_routes_raise_on_what_no_kernel_takes(dtype, name, case, match):
+    """Both dtypes: the f32 kernels, like the bf16 ones, stage their rows in
+    16-byte copies."""
     route = ATTN_ROUTES[name][0]
-    q, others = torch.zeros(2, 10, 64, dtype=BF16), ()
+    q, others = torch.zeros(2, 10, 64, dtype=dtype), ()
     if case == "head dim 96":
-        q = torch.zeros(2, 10, 96, dtype=BF16)
+        q = torch.zeros(2, 10, 96, dtype=dtype)
     elif case == "not contiguous":
-        q = torch.zeros(2, 64, 10, dtype=BF16).transpose(1, 2)
+        q = torch.zeros(2, 64, 10, dtype=dtype).transpose(1, 2)
     elif case == "misaligned":  # one element past a 16-byte boundary
-        q = torch.zeros(2 * 10 * 64 + 1, dtype=BF16)[1:].view(2, 10, 64)
+        q = torch.zeros(2 * 10 * 64 + 1, dtype=dtype)[1:].view(2, 10, 64)
         assert q.is_contiguous() and q.data_ptr() % 16
     elif case == "mixed dtypes":
-        others = (q, q.float())
+        others = (q, q.to(BF16 if dtype == F32 else F32))
     else:
         q = q.to("meta")
     with pytest.raises(ValueError, match=match):
@@ -99,17 +102,24 @@ def test_mlp_route_names_the_kernel(dtype, d, h, residual, want):
     ("n past the rows", "outside"),
     ("float16", "float32/bfloat16"),
     ("not contiguous", "contiguous"),
+    ("misaligned", "16-byte aligned"),
 ])
-def test_attention_route_raises_on_what_no_kernel_takes(case, match):
-    qkv, heads, n = _qkv(BF16), 2, 10
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_attention_route_raises_on_what_no_kernel_takes(dtype, case, match):
+    """Both dtypes: both kernels read qkv in 16-byte copies (cp.async for
+    f32, TMA for bf16), so a qkv whose start is not 16-byte aligned raises."""
+    qkv, heads, n = _qkv(dtype), 2, 10
     if case == "head dim 32":
-        qkv = _qkv(BF16, d=32)
+        qkv = _qkv(dtype, d=32)
     elif case == "n = 0":
         n = 0
     elif case == "n past the rows":
         n = 11
     elif case == "float16":
         qkv = qkv.half()
+    elif case == "misaligned":  # one element past a 16-byte boundary
+        qkv = torch.zeros(2 * 10 * 384 + 1, dtype=dtype)[1:].view(2, 10, 384)
+        assert qkv.is_contiguous() and qkv.data_ptr() % 16
     else:
         qkv = qkv.transpose(0, 1)
     with pytest.raises(ValueError, match=match):

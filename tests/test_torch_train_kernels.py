@@ -44,11 +44,12 @@ def _pair(a, tag):
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("n", [2, 64, 65, 128, 129, 130, 257])
+@pytest.mark.parametrize("n", [2, 31, 33, 63, 64, 65, 127, 128, 129, 130, 257])
 def test_attention_function_matches_jax_vjp(n, d, tag):
-    """At the edges of the kernels' 64-row tiles and 128-row CTAs (one key,
-    a tile exactly, one past it, a CTA exactly, one past it, 130, and one
-    past two CTAs)."""
+    """At the edges of the kernels' tiles: the 64-row tiles and 128-row CTAs
+    (one key, a tile exactly, one past it, a CTA exactly, one past it, 130,
+    and one past two CTAs), and the f32 kernels' 32-key tiles at d = 128
+    (one short of and one past 32 and 64) and 128-query CTAs (one short)."""
     b, h = (2, 2) if n == 130 else (1, 1)
     rng = np.random.default_rng(d if n == 130 else d + n)
     arrays = [rng.normal(0, 1, (b, h, n, d)).astype(np.float32) for _ in range(4)]

@@ -9,182 +9,183 @@
 //     the wrapper, plus the f32 logsumexp the backward recomputes P from.
 // Head dims 64 (every DINO ViT) and 128 (the MIM ViT).
 //
-// What bounds it on the H100: the TPU kernels keep whole (Np, Np) f32 score
-// matrices on chip (about 60 MB at the mosaic's Np = 2432), far past an SM's
-// 227 KB of shared memory. Here one CTA owns (batch, head, 64 query rows)
-// and loops over 64-key tiles with an online softmax (running max, running
-// sum), so the score matrix never exists beyond a 64 x 64 tile and nothing
-// but q, k, v, out and lse touches device memory. 256 threads, 4 x (d/16)
-// register blocks; 66.8 KB of shared memory at d = 64, 116 KB at d = 128.
-// The products run on the CUDA cores in f32, never through TF32, so the
-// kernel is bound by shared-memory loads and FMA issue, not by HBM. bf16
-// storage, both layouts, takes the wgmma kernel of attention_qkv_wgmma.cu.
+// The TPU kernels keep whole (Np, Np) f32 score matrices on chip (about 60
+// MB at the mosaic's Np = 2432), far past an SM's 227 KB of shared memory.
+// Here one CTA of 256 threads owns (batch, head, 128 query rows) and walks
+// the keys in tiles with an online softmax, so nothing but q, k, v, out and
+// lse touches device memory. The products run in exact f32 on the CUDA
+// cores (FFMA, no TF32, no tensor-core instruction): 4 N^2 d flops against
+// 67 TFLOP/s. What bounds it is the path from shared memory to registers:
+// an SM moves 32 floats a cycle there and issues 128 FFMA, so a micro-tile
+// of R x C outputs, which loads R + C floats for R * C FFMA, keeps the FFMA
+// pipes fed only from R * C / (R + C) = 4 on (8 x 8). The design:
+//   * register micro-tiles read as float4 (ffma_tiles.cuh), 16 row groups
+//     of 16 lanes: a thread holds the scores of 8 rows x TK keys and the
+//     output of the same 8 rows x d/16 columns; d = 64: 128-key tiles, 8 x 8
+//     scores and 8 x 4 outputs; d = 128: 64-key tiles, 8 x 4 scores and
+//     8 x 8 outputs (8 x 8 scores would need 128-key tiles, 344 KB);
+//   * K and V tiles come in 16-byte cp.async copies through a ring of three
+//     slots that holds K_t, V_t and K_t+1 in turn, so each copy has a whole
+//     phase (S or P.V) to land; the ragged last tile is zero-filled through
+//     the copy's source size;
+//   * the softmax stays in registers: the 16 lanes of a row are one warp's,
+//     so max and sum reduce with shuffles, and P is written to shared memory
+//     once, in the rows the P.V micro-tile reads as float4. Two barriers a
+//     key tile.
+// Shared memory: Q (128 x (d + 4)), three K/V slots, P (128 x (tile +
+// 16)): 208 KB at d = 64, 205 KB at d = 128. One CTA an SM, 8 warps; on
+// the H100 more warps with smaller micro-tiles (512 threads, or two CTAs of
+// 64 rows) ran slower, and so did two groups of 4 warps a phase apart (one
+// group's softmax beside the other's P.V). bf16 storage, both layouts, takes the wgmma kernel of
+// attention_qkv_wgmma.cu.
 //
 // Numerics, kept from the TPU kernels: scores, P and accumulators in f32
 // (the TPU kernels' rounding of P to the storage type is the identity in
-// f32); the denominator is the sum of P, clamped at 1e-35 for the division;
-// lse = max + log(sum). Deliberate difference: the TPU kernels shift exp by
-// the whole row's max (or by the Cauchy-Schwarz bound |q|*max|k|); this
-// kernel shifts by the running row max, as the online softmax must. It is
-// the same softmax. The keys' ragged last tile is masked here: the port's
-// token stream is not padded to a tile multiple.
+// f32); expf and logf; the denominator is the sum of P, clamped at 1e-35
+// for the division; lse = max + log(sum). Deliberate differences: the TPU
+// kernels shift exp by the whole row's max (or by the Cauchy-Schwarz bound
+// |q|*max|k|); this kernel shifts by the running row max, as the online
+// softmax must: it is the same softmax. The key tile is 128 at d = 64, not
+// the twin's KEY_TILE = 64: in f32 P is never rounded, so the tile changes
+// only the order of the sums, which the 1e-5 tolerance covers; the twin
+// keeps 64 because bf16 rounds P per tile and the wgmma kernel's tile is
+// 64. The keys' ragged last tile is masked here: the port's token stream is
+// not padded to a tile multiple.
 
 #include <math.h>
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "ffma_tiles.cuh"
 
 namespace vitocm {
 
-constexpr int kBQ = 64;  // query rows per CTA
-constexpr int kBK = 64;  // keys per tile
-constexpr int kNT = 256; // threads
-constexpr int kPS = kBK + 1;
+constexpr int kFT = 256;  // threads
+
+// query rows a CTA, keys a tile, row groups, lanes a row group
+template <int D>
+struct FwdTiles;
+template <>
+struct FwdTiles<64> {
+  static constexpr int BQ = 128, BK = 128, RG = 16, KG = 16;
+};
+template <>
+struct FwdTiles<128> {
+  static constexpr int BQ = 128, BK = 64, RG = 16, KG = 16;
+};
+constexpr int kFSlots = 3;  // the K/V ring: K_t, V_t, K_t+1 or V_t, K_t+1, V_t+1
 
 template <int D>
-constexpr size_t attn_smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS + 2 * kBQ);
+constexpr size_t attn_f32_smem_bytes() {
+  using T = FwdTiles<D>;
+  return sizeof(float) * ((T::BQ + kFSlots * T::BK) * (D + 4) + T::BQ * (T::BK + T::KG));
 }
 
 template <int D, bool FOLDED>
-__global__ void __launch_bounds__(kNT)
-attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-                 int N, int n, int nh) {
-  constexpr int PQ = D + 1;  // padded pitch: conflict-free column reads
-  constexpr int OJ = D / 16; // output columns per thread
-  extern __shared__ float sm[];
-  float* Qs = sm;                    // (BQ, PQ)
-  float* Ks = Qs + kBQ * PQ;         // (BK, PQ)
-  float* Vs = Ks + kBK * PQ;         // (BK, D)
-  float* Ss = Vs + kBK * D;          // (BQ, PS) scores, then P
-  float* alpha_s = Ss + kBQ * kPS;   // (BQ) per-row rescale of this tile
-  float* l_s = alpha_s + kBQ;        // (BQ) final denominators
+__global__ void __launch_bounds__(kFT, 1)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int N, int n, int nh) {
+  using T = FwdTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, RG = T::RG, KG = T::KG;
+  constexpr int TR = BQ / RG, TK = BK / KG, TC = D / KG;
+  constexpr int PQ = D + 4, PP = BK + KG;  // PP: a warp's P stores hit distinct banks
+  static_assert(RG * KG == kFT && TR * RG == BQ && TK * KG == BK && TC % 4 == 0 && 32 % KG == 0,
+                "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                      // (BQ, PQ)
+  float* ring = Qs + BQ * PQ;          // (slots, BK, PQ): K_0, V_0, K_1, V_1, ... in turn
+  float* Ps = ring + kFSlots * BK * PQ;  // (BQ, PP)
+  auto slot = [&](int i) { return ring + (i % kFSlots) * BK * PQ; };
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ, hh = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int kg = lane % KG, rg = (threadIdx.x >> 5) * (32 / KG) + lane / KG;
+  const int q0 = blockIdx.x * BQ, hh = blockIdx.y, b = blockIdx.z;
   const AttnRows<float, D, FOLDED> L(q, k, v, out, N, nh, b, hh);
+  const int tiles = (n + BK - 1) / BK;
 
-  for (int i = tid; i < kBQ * D; i += kNT) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    Qs[r * PQ + c] = row < N ? L.q[row * L.rs + c] : 0.f;
+  stage_rows<BQ, D, PQ, kFT>(Qs, L.q, q0, N, L.rs);
+  stage_rows<BK, D, PQ, kFT>(slot(0), L.k, 0, n, L.rs);
+  cp_async_commit();
+  stage_rows<BK, D, PQ, kFT>(slot(1), L.v, 0, n, L.rs);
+  cp_async_commit();
+
+  float o[TR][TC], m_run[TR], l_run[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) o[i][c] = 0.f;
   }
 
-  // S register blocks: rows tr + 16*i, cols tc + 16*j; O: cols tc + 16*j, j < D/16
-  const int tr = tid / 16, tc = tid % 16;
-  // softmax ownership: 4 consecutive lanes share row sr, cols sl + 4*c
-  const int sr = tid >> 2, sl = tid & 3;
-  float o[4][OJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<1>();
+    __syncthreads();  // K_t has landed; V_t-1 and P are consumed
+    if (t + 1 < tiles) stage_rows<BK, D, PQ, kFT>(slot(2 * t + 2), L.k, (t + 1) * BK, n, L.rs);
+    cp_async_commit();
 
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < kBK * D; i += kNT) {
-      const int r = i / D, c = i % D, row = k0 + r;
-      const bool ok = row < n;
-      Ks[r * PQ + c] = ok ? L.k[row * L.rs + c] : 0.f;
-      Vs[r * D + c] = ok ? L.v[row * L.rs + c] : 0.f;
-    }
-    __syncthreads();
+    float s[TR][TK];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
+    tile_dot<TR, TK, RG, KG, D, PQ, PQ>(s, Qs, slot(2 * t), rg, kg);
 
-    float s[4][4];
+    // online softmax of each row over this tile (every tile holds a valid key)
+    const int k0 = t * BK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TR; ++i) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < D; ++kk) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * PQ + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * PQ + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tc + 16 * j;
-        Ss[(tr + 16 * i) * kPS + col] = (k0 + col < n) ? s[i][j] : -INFINITY;
+      for (int j = 0; j < TK; ++j) {
+        if (k0 + kg + KG * j >= n) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
       }
-    __syncthreads();
-
-    // online softmax of row sr over this tile (every tile holds a valid key)
-    float* srow = Ss + sr * kPS;
-    float mx = -INFINITY;
+      const float m_new = fmaxf(m_run[i], group_max<KG>(mx));
+      float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kBK / 4; ++c) mx = fmaxf(mx, srow[sl + 4 * c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    float sum = 0.f;
+      for (int j = 0; j < TK; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+        Ps[(rg + RG * i) * PP + kg + KG * j] = s[i][j];
+      }
+      const float alpha = expf(m_run[i] - m_new);  // 0 on the first tile
+      l_run[i] = l_run[i] * alpha + group_sum<KG>(sum);
+      m_run[i] = m_new;
 #pragma unroll
-    for (int c = 0; c < kBK / 4; ++c) {
-      const float p = expf(srow[sl + 4 * c] - m_new);
-      srow[sl + 4 * c] = p;
-      sum += p;
+      for (int c = 0; c < TC; ++c) o[i][c] *= alpha;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = expf(m_run - m_new);  // 0 on the first tile
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    if (sl == 0) alpha_s[sr] = alpha;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = alpha_s[tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) o[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ss[(tr + 16 * i) * kPS + kk];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) vv[j] = Vs[kk * D + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
+    cp_async_wait<1>();
+    __syncthreads();  // V_t has landed; P is written; K_t is consumed
+    if (t + 1 < tiles) stage_rows<BK, D, PQ, kFT>(slot(2 * t + 3), L.v, (t + 1) * BK, n, L.rs);
+    cp_async_commit();
+    tile_pv<TR, TC, RG, KG, BK, PP, PQ>(o, Ps, slot(2 * t + 1), rg, kg);
   }
 
-  if (sl == 0) {
-    l_s[sr] = fmaxf(l_run, 1e-35f);
-    if (FOLDED && q0 + sr < N)  // only the training route keeps the logsumexp
-      lse[((long long)b * nh + hh) * N + q0 + sr] = m_run + logf(l_run);
-  }
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr + 16 * i, row = q0 + r;
+  for (int i = 0; i < TR; ++i) {
+    const int row = q0 + rg + RG * i;
     if (row >= N) continue;
-    const float l = l_s[r];
-    float* orow = L.out + row * L.os;
+    const float l = fmaxf(l_run[i], 1e-35f);
+    float* orow = L.out + row * L.os + 4 * kg;
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) orow[tc + 16 * j] = o[i][j] / l;
+    for (int g = 0; g < TC / 4; ++g)
+      st4(orow + 4 * KG * g, o[i][4 * g] / l, o[i][4 * g + 1] / l, o[i][4 * g + 2] / l,
+          o[i][4 * g + 3] / l);
+    if (FOLDED && kg == 0)  // only the training route keeps the logsumexp
+      lse[((long long)b * nh + hh) * N + row] = m_run[i] + logf(l_run[i]);
   }
 }
 
 template <int D, bool FOLDED>
 static int launch_attention(const void* q, const void* k, const void* v, void* out, float* lse,
                             int B, int N, int n, int nh, cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes<D>();
-  auto kern = attention_kernel<D, FOLDED>;
+  const size_t smem = attn_f32_smem_bytes<D>();
+  auto kern = attention_f32_kernel<D, FOLDED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((N + kBQ - 1) / kBQ, nh, B);
-  kern<<<grid, kNT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+  dim3 grid((N + FwdTiles<D>::BQ - 1) / FwdTiles<D>::BQ, nh, B);
+  kern<<<grid, kFT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                     static_cast<const float*>(v), static_cast<float*>(out), lse,
                                     N, n, nh);
   return (int)cudaGetLastError();

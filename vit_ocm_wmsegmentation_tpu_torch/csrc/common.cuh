@@ -1,7 +1,7 @@
-// Shared helpers of the port's Hopper kernels: the bf16 rounding step and
-// warp reductions. The bf16 kernels store in __nv_bfloat16 and compute in
-// float; round_bf16 is the "cast to the storage type" step the JAX kernels
-// take at fixed points (P before P.V).
+// Shared helpers of the port's Hopper kernels: the bf16 rounding step, warp
+// reductions, cp.async copies and named barriers. The bf16 kernels store in
+// __nv_bfloat16 and compute in float; round_bf16 is the "cast to the storage
+// type" step the JAX kernels take at fixed points (P before P.V).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +57,26 @@ __device__ __forceinline__ void stage_row_stats(float* lse_s, float* dd_s, const
     lse_s[r] = ok ? stats[r0 + r] : 0.f;
     dd_s[r] = ok ? stats[N + r0 + r] : 0.f;
   }
+}
+
+// 16 bytes (16-byte aligned at both ends) global -> shared, asynchronously;
+// src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// barrier `id` (1..15) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // dtype codes of the C interface

@@ -20,8 +20,9 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/flash_attention.py``:
   recomputing exp (replaces ``_attn_bwd_savep_kernel``).
 
 Each wrapper launches its kernel for CUDA tensors (f32 storage:
-``csrc/attention_qkv.cu``, ``csrc/attention_bwd.cu`` and
-``csrc/attention_savep.cu`` on the CUDA cores; bf16: :func:`attention_qkv`
+``csrc/attention_qkv.cu`` and ``csrc/attention_bwd.cu``, register-tiled
+FFMA behind a cp.async ring, and ``csrc/attention_savep.cu``, on the CUDA
+cores; bf16: :func:`attention_qkv`
 and :func:`flash_attention` on ``csrc/attention_qkv_wgmma.cu``,
 :func:`flash_attention_bwd` on ``csrc/attention_bwd_wgmma.cu`` (wgmma fed
 by TMA), the saved-P kernels on ``csrc/attention_savep_mma.cu``
@@ -41,7 +42,9 @@ from .. import build
 from . import quant as qz
 
 HEAD_DIMS = (64, 128)  # the kernels' head dims (every DINO ViT; the MIM ViT)
-KEY_TILE = 64  # keys per online-softmax step, in the kernels (kBK) and their twins
+# keys per online-softmax step of the twins and the bf16 kernels; the f32 kernels
+# take 128 (d = 64) or 64, which in f32 changes only the order of the sums
+KEY_TILE = 64
 _DENOM_TINY = 1e-35
 
 
@@ -200,7 +203,8 @@ def flash_attention_bwd_route(q, *others) -> str:
 
 def _stats_pitch(n: int) -> int:
     """Floats between the rows of the backward's (B*h, 2, pitch) row
-    statistics: n rounded up to 4, so each row is 16-byte aligned for TMA."""
+    statistics: n rounded up to 4, so each row is 16-byte aligned for the
+    kernels' copies (cp.async in f32, TMA in bf16)."""
     return -(-n // 4) * 4
 
 
