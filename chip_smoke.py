@@ -11,10 +11,11 @@ and then, failing on the first phase that fails:
    SASS_CHECKS and asserts that they spill nothing and that their SASS holds
    the opcodes of their design: the wgmma kernels (``csrc/*_wgmma.cu``:
    inference and training attention forward, the training attention's dk/dv
-   and dq kernels, the inference MLP) warpgroup products (HGMMA) and TMA
-   loads (UTMALDG) and no mma.sync (HMMA); the f32 attention kernels
-   (forward at both head dims and both layouts, dk/dv, dq) FFMA and cp.async
-   (LDGSTS) and no tensor-core instruction (no TF32);
+   and dq kernels on both backward routes, the inference MLP) warpgroup
+   products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); the f32
+   attention kernels (forward at both head dims and both layouts, dk/dv and
+   dq on both backward routes) FFMA and cp.async (LDGSTS) and no tensor-core
+   instruction (no TF32);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
@@ -26,7 +27,8 @@ and then, failing on the first phase that fails:
    values (counts exactly equal to the twin's); the opt-in training routes'
    kernels (saved-P attention forward and backward, the MLP block's gp
    forward and backward, LN -> qkv forward and backward) at the MIM step's
-   shapes, the gp forward's out bit-equal to the h1 forward's; the tools/
+   shapes, the saved-P backward bit-equal across two calls, the gp
+   forward's out bit-equal to the h1 forward's; the tools/
    probes' kernels: the tiled matmul at 2048^3 in bf16 and int8 (int8
    stores bit-equal, wrapped), int8_dot at the mosaic's four projection
    shapes (112945 rows; bit-equal), probe attention in int8 (each output
@@ -141,7 +143,7 @@ KERNELS = {
     "flash_attention_savep": ("fa", {"f32": "attention_savep.cu", "bf16": "attention_savep_mma.cu"},
                               FA + ":74"),
     "flash_attention_bwd_savep": ("fa", {"f32": "attention_savep.cu",
-                                         "bf16": "attention_savep_mma.cu"}, FA + ":211"),
+                                         "bf16": "attention_savep_bwd_wgmma.cu"}, FA + ":211"),
     "fused_mlp_block_gp": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"}, FM + ":123"),
     "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
                          FM + ":243"),
@@ -188,15 +190,18 @@ BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 # opcodes it must hold, opcodes it must not). The wgmma kernels
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
 # no mma.sync (HMMA); the f32 attention kernels (attention_qkv.cu, both head
-# dims and both layouts; attention_bwd.cu's dk/dv and dq) run exact f32 FFMA
-# fed by cp.async (LDGSTS) and no tensor-core instruction, so no TF32.
+# dims and both layouts; the dk/dv and dq kernels of attention_bwd.cu and
+# attention_savep.cu) run exact f32 FFMA fed by cp.async (LDGSTS) and no
+# tensor-core instruction, so no TF32.
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
 SASS_CHECKS = {
     "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": _WGMMA,
     "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
+    "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,
     "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
-    "attn_bwd_dq_f32_kernel": (2, *_FFMA),
+    "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
+    "attn_bwd_savep_dq_kernel": (2, *_FFMA),
 }
 
 
@@ -400,10 +405,17 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
         lambda: fa.flash_attention_savep(q, k, v), lambda: fa.flash_attention_savep_plain(q, k, v),
         check_savep, lambda: F.scaled_dot_product_attention(*sdpa_in),
         4 * bh * n * n * hd, 4 * bh * n * hd * isz + p_bytes + bh * n * 4)
+    def check_bwd_savep(g, w):
+        err = _compare("flash_attention_bwd_savep", tag, g, w, GRAD_TOL[tag])
+        again = fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do)
+        if not all(torch.equal(a, b) for a, b in zip(g, again)):
+            raise AssertionError("flash_attention_bwd_savep: two calls give different bits")
+        print(f"  flash_attention_bwd_savep[{tag}]: dq, dk, dv bit-equal across two calls")
+        return err
+
     cases["flash_attention_bwd_savep"] = (
         lambda: fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do),
-        lambda: fa.flash_attention_bwd_savep_plain(q, k, v, out, p, inv, do),
-        lambda g, w: _compare("flash_attention_bwd_savep", tag, g, w, GRAD_TOL[tag]),
+        lambda: fa.flash_attention_bwd_savep_plain(q, k, v, out, p, inv, do), check_bwd_savep,
         lambda: torch.autograd.grad(sdpa_out, sdpa_in, do.unflatten(0, (MIM_BATCH, 3)),
                                     retain_graph=True),
         8 * bh * n * n * hd, 8 * bh * n * hd * isz + p_bytes + bh * n * 4)

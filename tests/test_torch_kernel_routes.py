@@ -3,7 +3,8 @@
 The wrappers choose their kernel by route, explicitly (no fallback):
 bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
 csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
-(csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu);
+(csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu,
+and csrc/attention_savep_bwd_wgmma.cu on the saved-P route);
 the bfloat16 MLP training forward takes the mma.sync kernel, float32 the
 CUDA-core ones. The route functions read only shapes, dtypes and layouts, so
 these tests run without a card; on the CPU the wrappers take their plain
@@ -41,7 +42,10 @@ def test_attention_route_names_the_kernel(dtype, d, want):
 ATTN_ROUTES = {"flash_attention": (fa.flash_attention_route, "attention_qkv.cu",
                                    "attention_qkv_wgmma.cu"),
                "flash_attention_bwd": (fa.flash_attention_bwd_route, "attention_bwd.cu",
-                                       "attention_bwd_wgmma.cu")}
+                                       "attention_bwd_wgmma.cu"),
+               "flash_attention_bwd_savep": (fa.flash_attention_bwd_savep_route,
+                                             "attention_savep.cu",
+                                             "attention_savep_bwd_wgmma.cu")}
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -48,10 +48,12 @@ def _attention_arrays(d, tag, n=130):
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_savep_function_matches_jax_vjp(d, tag):
+@pytest.mark.parametrize("n", [63, 65, 127, 129, 130])
+def test_savep_function_matches_jax_vjp(n, d, tag):
     """flash_attention_trainable(save_p=True) against the JAX custom VJP on
-    its saved-P route, at a ragged N = 130."""
-    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _attention_arrays(d, tag)
+    its saved-P route, at N on both sides of the backward kernels' tiles
+    (64 queries or keys a tile, 64 or 128 a CTA) and at a ragged N = 130."""
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _attention_arrays(d, tag, n)
     out, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_trainable(q, k, v, 0, True, True),
                        jq, jk, jv)
     want = (out, *vjp(jdo))

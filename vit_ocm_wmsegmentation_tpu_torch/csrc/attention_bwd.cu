@@ -142,19 +142,6 @@ constexpr size_t bwd_dq_f32_smem_bytes() {
   return sizeof(float) * ((2 * T::BQ + 2 * kBStages * T::BK) * (D + 4) + T::BQ * (T::BK + T::KGS));
 }
 
-// lse and D of query rows q0 .. q0 + BQ - 1 (stats rows `pitch` floats apart,
-// pitch a multiple of 4) into lse_s, dd_s in 16-byte copies; chunks from N
-// on are zeros, the rest of the last chunk is the rows' padding
-template <int BQ>
-__device__ __forceinline__ void stage_stats(float* lse_s, float* dd_s, const float* st, int q0,
-                                            int N, int pitch) {
-  for (int i = threadIdx.x; i < BQ / 2; i += kBT) {
-    const int c = (i % (BQ / 4)) * 4, ok = q0 + c < N ? 16 : 0;
-    const float* src = st + (i < BQ / 4 ? 0 : pitch) + (ok ? q0 + c : 0);
-    cp_async16((i < BQ / 4 ? lse_s : dd_s) + c, src, ok);
-  }
-}
-
 // One CTA a (batch*head, 64 keys). The first half of the threads computes
 // S^T = K Q^T and e, the second dP^T = V dO^T and ds = e (dP - D); then
 // the first accumulates dV += e^T dO and the second dK += ds^T Q.
@@ -193,7 +180,7 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ qs, const float* __restrict__
   stage_rows<BKV, D, PQ, kBT>(Vs, v, k0, N, D);
   stage_rows<BQ, D, PQ, kBT>(Qs, qs, 0, N, D);
   stage_rows<BQ, D, PQ, kBT>(dOs, dout, 0, N, D);
-  stage_stats<BQ>(lse_s, dd_s, stats, 0, N, pitch);
+  stage_stats<BQ, kBT>(lse_s, dd_s, stats, 0, N, pitch);
   cp_async_commit();
 
   // first half dv, second half dk: keys rgg + RGG*i, float4 column groups 4*kgg + 4*KGG*g
@@ -210,7 +197,7 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ qs, const float* __restrict__
       const int nx = (t + 1) % kBStages, q1 = (t + 1) * BQ;
       stage_rows<BQ, D, PQ, kBT>(Qs + nx * BQ * PQ, qs, q1, N, D);
       stage_rows<BQ, D, PQ, kBT>(dOs + nx * BQ * PQ, dout, q1, N, D);
-      stage_stats<BQ>(lse_s + nx * BQ, dd_s + nx * BQ, stats, q1, N, pitch);
+      stage_stats<BQ, kBT>(lse_s + nx * BQ, dd_s + nx * BQ, stats, q1, N, pitch);
     }
     cp_async_commit();
     const int st = t % kBStages, q0 = t * BQ;

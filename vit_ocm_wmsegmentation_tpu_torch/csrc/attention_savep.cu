@@ -23,20 +23,42 @@
 // f32 products take on the CUDA cores, so the FMA issue bounds it.
 //
 // Backward. The lse route's deterministic split with no atomics
-// (attention_bwd.cu): the row statistics once (inv and D = rowsum(do * o)),
-// one CTA per 64 keys owning dk/dv rows, one CTA per 64 queries owning dq
-// rows. What changes:
-// the s-recompute product and the exp are gone; each CTA stages the P tile
-// it needs (coalesced along keys) and forms e = P * inv with one row
-// broadcast multiply. The dk/dv kernel no longer needs K, the dq kernel no
-// longer needs Q. e, ds = e (do v^T - D), dv = e^T do, dk = ds^T qs,
-// dq = ds k * d^-0.5. Each kernel reads all of P once: 1.02 GB twice a layer
-// in f32, under the products' FMA time here; the bf16 kernels of
-// attention_savep_mma.cu are where P's bytes bound the backward.
+// (attention_bwd.cu): the row statistics once (inv and D = rowsum(do * o),
+// rows padded to 4 floats), one CTA per 64 keys owning dk/dv rows, one CTA
+// per 128 queries owning dq rows. The s-recompute product and the exp are
+// gone: each CTA stages the P tile it needs and forms e = P * inv. The dk/dv
+// kernel needs no K, the dq kernel no Q. e, ds = e (do v^T - D), dv = e^T
+// do, dk = ds^T qs, dq = ds k * d^-0.5; 10 N^2 d flops and, per kernel, one
+// read of P (1.05 GB a layer at the MIM shape, 0.31 ms of HBM time against
+// 4.9 ms of FFMA at the peak). Exact f32 on the CUDA cores (FFMA, no TF32,
+// no tensor-core instruction) from ffma_tiles.cuh, as the lse route's
+// backward is, and bound as it is by shared memory to registers (32 floats
+// a cycle an SM against 128 FFMA): every product takes the largest
+// micro-tile the registers and shared memory allow, fed by a two-stage
+// 16-byte cp.async ring that carries the P tiles too (every P row is 16-byte
+// aligned: Np is a multiple of 64).
+//   * dk/dv: V of the CTA's 64 keys resident (pitch d + 4); 64-query tiles
+//     of Q, dO, P (64 x 64) and the inv and D rows through the ring. With S
+//     gone, all 256 threads share the one score product, dP^T = V dO^T, in
+//     4 x 4 micro-tiles; each thread reads P at its own (query, key)
+//     positions, writes e = P * inv over it and ds = e (dP - D) into a
+//     buffer beside it, both query-major, so that the gradient products
+//     read them k-major (tile_tn): the first half dV += e^T dO, the second
+//     dK += ds^T Q, 8 x d/16 a thread (8 x 8 at d = 128). 217 KB (d = 128)
+//     or 137 KB (d = 64) of shared memory; two barriers a tile;
+//   * dq: dO of 128 queries resident, K, V and the (128 x BK) P tile through
+//     the ring (BK = 64 at d = 64, 32 at d = 128); all threads compute dP =
+//     dO V^T (8 x 4 or 4 x 4 micro-tiles) and write ds in place of P, then
+//     accumulate dq += ds K, 8 x d/16 a thread. 170 KB or 168 KB; two
+//     barriers a tile.
+// Padded queries and keys hold P = 0; the statistics past N are masked
+// (their rows' padding is not 0). bf16 storage takes
+// attention_savep_bwd_wgmma.cu.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "ffma_tiles.cuh"
 
 namespace vitocm {
 
@@ -49,34 +71,12 @@ constexpr size_t savep_fwd_smem_bytes() {
   return sizeof(float) * (kPB * (D + 1) * 2 + kPB * D + kPB * kPS);
 }
 
-template <int D>
-constexpr size_t savep_dkdv_smem_bytes() {
-  return sizeof(float) * (3 * kPB * (D + 1) + 2 * kPB * kPS + 2 * kPB);
-}
-
-template <int D>
-constexpr size_t savep_dq_smem_bytes() {
-  return sizeof(float) * (3 * kPB * (D + 1) + kPB * kPS + 2 * kPB);
-}
-
 // rows r0.. of one (N, D) slice into shared memory (pitch P), zeros past N
 template <int D, int P>
 __device__ __forceinline__ void savep_rows(float* dst, const float* src, int r0, int N) {
   for (int i = threadIdx.x; i < kPB * D; i += kPT) {
     const int r = i / D, c = i % D;
     dst[r * P + c] = r0 + r < N ? src[(long long)(r0 + r) * D + c] : 0.f;
-  }
-}
-
-// the (64 queries, 64 keys) tile of P at (q0, k0) into shared memory, zeros
-// for queries past N; TRANS stores it key-major (dst[key * kPS + query])
-template <bool TRANS>
-__device__ __forceinline__ void savep_p_tile(float* dst, const float* P, int q0, int k0, int N,
-                                             int Np) {
-  for (int i = threadIdx.x; i < kPB * kPB; i += kPT) {
-    const int qq = i / kPB, key = i % kPB;
-    const float val = q0 + qq < N ? P[(long long)(q0 + qq) * Np + k0 + key] : 0.f;
-    dst[TRANS ? key * kPS + qq : qq * kPS + key] = val;
   }
 }
 
@@ -208,193 +208,238 @@ attn_fwd_savep_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- backward ---------------------------------------------------------------
+constexpr int kSpT = 256;  // threads of both backward kernels
+constexpr int kSpStages = 2;
+
+// dk/dv: BKV keys a CTA, BQ queries a tile. dP^T over all the threads in
+// 4 x 4 micro-tiles (RGS key groups x KGS query lanes); per half, the
+// gradient micro-tiles: TRG keys (float4 groups) x TCG columns
 template <int D>
-__global__ void __launch_bounds__(kPT)
+struct SavepKvTiles {
+  static constexpr int BKV = 64, BQ = 64, RGS = 16, KGS = 16, TRG = 8, TCG = D == 128 ? 8 : 4;
+  static constexpr int RGG = BKV / TRG, KGG = D / TCG;
+};
+
+template <int D>
+constexpr size_t savep_dkdv_smem_bytes() {
+  using T = SavepKvTiles<D>;
+  return sizeof(float) * ((T::BKV + 2 * kSpStages * T::BQ) * (D + 4) +
+                          (kSpStages + 1) * T::BQ * (T::BKV + 4) + 2 * kSpStages * T::BQ);
+}
+
+// dq: BQ queries a CTA, BK keys a tile. dP over all the threads in TRS x TKS
+// micro-tiles (RGS query groups x KGS key lanes); dq over all the threads,
+// 8 x D/16 a thread (RGG x KGG)
+template <int D>
+struct SavepDqTiles {
+  static constexpr int BQ = 128, BK = D == 64 ? 64 : 32, TRS = D == 64 ? 8 : 4, TKS = 4;
+  static constexpr int RGS = BQ / TRS, KGS = BK / TKS, RGG = 16, KGG = 16;
+};
+
+template <int D>
+constexpr size_t savep_dq_smem_bytes() {
+  using T = SavepDqTiles<D>;
+  return sizeof(float) * ((T::BQ + 2 * kSpStages * T::BK) * (D + 4) +
+                          kSpStages * T::BQ * (T::BK + 4));
+}
+
+// One CTA a (batch*head, 64 keys). All threads compute dP^T = V dO^T, read
+// P at their (query, key) positions of the staged tile, and write e = P *
+// inv over it and ds = e (dP - D) beside it, both query-major; then the
+// first half accumulates dV += e^T dO and the second dK += ds^T Q.
+template <int D>
+__global__ void __launch_bounds__(kSpT, 1)
 attn_bwd_savep_dkdv_kernel(const float* __restrict__ qs, const float* __restrict__ v,
                            const float* __restrict__ P, const float* __restrict__ stats,
                            const float* __restrict__ dout, float* __restrict__ dk,
-                           float* __restrict__ dv, int N, int Np) {
-  constexpr int PQ = D + 1, OJ = D / 16;
-  extern __shared__ float sm[];
-  float* Vs = sm;               // (PB keys, PQ)
-  float* Qs = Vs + kPB * PQ;    // (PB queries, PQ)
-  float* dOs = Qs + kPB * PQ;
-  float* Es = dOs + kPB * PQ;   // (PB keys, PS): P, then e = P * inv
-  float* dSs = Es + kPB * kPS;  // (PB keys, PS): ds
-  float* inv_s = dSs + kPB * kPS;
-  float* dd_s = inv_s + kPB;
+                           float* __restrict__ dv, int N, int Np, int pitch) {
+  using T = SavepKvTiles<D>;
+  constexpr int BKV = T::BKV, BQ = T::BQ, RGS = T::RGS, KGS = T::KGS, TRG = T::TRG, TCG = T::TCG;
+  constexpr int RGG = T::RGG, KGG = T::KGG, TRS = BKV / RGS, TKS = BQ / KGS;
+  constexpr int PQ = D + 4, PP = BKV + 4;
+  static_assert(RGS * KGS == kSpT && RGG * KGG == kSpT / 2 && TRS * RGS == BKV &&
+                TKS * KGS == BQ && 4 * RGG * (TRG / 4) == BKV && 4 * KGG * (TCG / 4) == D,
+                "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* Vs = sm;                           // (BKV keys, PQ)
+  float* Qs = Vs + BKV * PQ;                // (stages, BQ queries, PQ)
+  float* dOs = Qs + kSpStages * BQ * PQ;
+  float* Ps = dOs + kSpStages * BQ * PQ;    // (stages, BQ queries, PP): P, then e in place
+  float* dSs = Ps + kSpStages * BQ * PP;    // (BQ queries, PP): ds
+  float* inv_s = dSs + BQ * PP;             // (stages, BQ)
+  float* dd_s = inv_s + kSpStages * BQ;
 
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int k0 = blockIdx.x * kPB;
+  const int tid = threadIdx.x, half = tid >> 7, ht = tid & 127;
+  const int rgs = tid / KGS, kgs = tid % KGS, rgg = ht / KGG, kgg = ht % KGG;
+  const int k0 = blockIdx.x * BKV;
   const long long off = (long long)blockIdx.y * N * D;
   qs += off; v += off; dout += off; dk += off; dv += off;
-  P += (long long)blockIdx.y * N * Np;
-  stats += (long long)blockIdx.y * 2 * N;
+  P += (long long)blockIdx.y * N * Np + k0;  // this CTA's key columns
+  stats += (long long)blockIdx.y * 2 * pitch;
+  const int tiles = (N + BQ - 1) / BQ;
 
-  savep_rows<D, PQ>(Vs, v, k0, N);
-  float gk[4][OJ], gv[4][OJ];  // keys tr + 16i, columns tc + 16j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) gk[i][j] = gv[i][j] = 0.f;
+  auto stage_tile = [&](int slot, int q1) {
+    stage_rows<BQ, D, PQ, kSpT>(Qs + slot * BQ * PQ, qs, q1, N, D);
+    stage_rows<BQ, D, PQ, kSpT>(dOs + slot * BQ * PQ, dout, q1, N, D);
+    stage_rows<BQ, BKV, PP, kSpT>(Ps + slot * BQ * PP, P, q1, N, Np);
+    stage_stats<BQ, kSpT>(inv_s + slot * BQ, dd_s + slot * BQ, stats, q1, N, pitch);
+  };
+  stage_rows<BKV, D, PQ, kSpT>(Vs, v, k0, N, D);
+  stage_tile(0, 0);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < N; q0 += kPB) {
-    __syncthreads();  // the previous q tile is consumed
-    savep_rows<D, PQ>(Qs, qs, q0, N);
-    savep_rows<D, PQ>(dOs, dout, q0, N);
-    stage_row_stats(inv_s, dd_s, stats, q0, kPB, N);
-    savep_p_tile<true>(Es, P, q0, k0, N, Np);
-    __syncthreads();
+  // first half dv, second half dk: keys 4*rgg + 4*RGG*a + e, float4 column
+  // groups 4*kgg + 4*KGG*g
+  float g[TRG][TCG];
+#pragma unroll
+  for (int i = 0; i < TRG; ++i)
+#pragma unroll
+    for (int c = 0; c < TCG; ++c) g[i][c] = 0.f;
 
-    // dp^T for keys tr + 16i, queries tc + 16j
-    float dp[4][4];
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // q tile t has landed; tile t - 1, its e and ds are consumed
+    if (t + 1 < tiles) stage_tile((t + 1) % kSpStages, (t + 1) * BQ);
+    cp_async_commit();
+    const int st = t % kSpStages, q0 = t * BQ;
+    const float* Qt = Qs + st * BQ * PQ;
+    const float* dOt = dOs + st * BQ * PQ;
+    float* Et = Ps + st * BQ * PP;
+    const float* it = inv_s + st * BQ;
+    const float* dt = dd_s + st * BQ;
+
+    // dp^T for keys rgs + RGS*i, queries kgs + KGS*j
+    float a[TRS][TKS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TRS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float vv[4], ov[4];
+      for (int j = 0; j < TKS; ++j) a[i][j] = 0.f;
+    tile_dot<TRS, TKS, RGS, KGS, D, PQ, PQ>(a, Vs, dOt, rgs, kgs);
+    // queries past N: the statistics' padding is not 0, so mask them
 #pragma unroll
-      for (int i = 0; i < 4; ++i) vv[i] = Vs[(tr + 16 * i) * PQ + c];
+    for (int j = 0; j < TKS; ++j) {
+      const int qc = kgs + KGS * j;
+      const bool ok = q0 + qc < N;
+      const float iv = it[qc], dd = dt[qc];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ov[j] = dOs[(tc + 16 * j) * PQ + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+      for (int i = 0; i < TRS; ++i) {
+        const int at = qc * PP + rgs + RGS * i;
+        const float e = ok ? Et[at] * iv : 0.f;
+        Et[at] = e;
+        dSs[at] = ok ? e * (a[i][j] - dd) : 0.f;
+      }
     }
-    // padded keys and queries hold P = 0, so e = 0 there
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tc + 16 * j, key = tr + 16 * i;
-        const float e = Es[key * kPS + qc] * inv_s[qc];
-        Es[key * kPS + qc] = e;
-        dSs[key * kPS + qc] = e * (dp[i][j] - dd_s[qc]);
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < kPB; ++qq) {
-      float pv[4], sv[4], dov[OJ], qv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Es[(tr + 16 * i) * kPS + qq];
-        sv[i] = dSs[(tr + 16 * i) * kPS + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-        dov[j] = dOs[qq * PQ + tc + 16 * j];
-        qv[j] = Qs[qq * PQ + tc + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) {
-          gv[i][j] = fmaf(pv[i], dov[j], gv[i][j]);
-          gk[i][j] = fmaf(sv[i], qv[j], gk[i][j]);
-        }
-    }
+    __syncthreads();  // e and ds are written
+    tile_tn<TRG, TCG, RGG, KGG, BQ, PP, PQ>(g, half ? dSs : Et, half ? Qt : dOt, rgg, kgg);
   }
 
+  float* dst = half ? dk : dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + tr + 16 * i;
-    if (key >= N) continue;
+  for (int a = 0; a < TRG / 4; ++a)
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) {
-      dk[(long long)key * D + tc + 16 * j] = gk[i][j];
-      dv[(long long)key * D + tc + 16 * j] = gv[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 4 * rgg + 4 * RGG * a + e;
+      if (key >= N) continue;
+      const float* r = g[4 * a + e];
+#pragma unroll
+      for (int c = 0; c < TCG / 4; ++c)
+        st4(dst + (long long)key * D + 4 * kgg + 4 * KGG * c, r[4 * c], r[4 * c + 1],
+            r[4 * c + 2], r[4 * c + 3]);
     }
-  }
 }
 
+// One CTA a (batch*head, 128 queries). All threads compute dP = dO V^T and
+// write ds = P * inv * (dP - D) over the staged P tile; then all accumulate
+// dq += ds K.
 template <int D>
-__global__ void __launch_bounds__(kPT)
+__global__ void __launch_bounds__(kSpT, 1)
 attn_bwd_savep_dq_kernel(const float* __restrict__ k, const float* __restrict__ v,
                          const float* __restrict__ P, const float* __restrict__ stats,
                          const float* __restrict__ dout, float* __restrict__ dq, int N, int Np,
-                         float scale) {
-  constexpr int PQ = D + 1, OJ = D / 16;
-  extern __shared__ float sm[];
-  float* dOs = sm;              // (PB queries, PQ)
-  float* Ks = dOs + kPB * PQ;   // (PB keys, PQ)
-  float* Vs = Ks + kPB * PQ;
-  float* Es = Vs + kPB * PQ;    // (PB queries, PS): P, then ds
-  float* inv_s = Es + kPB * kPS;
-  float* dd_s = inv_s + kPB;
+                         int pitch, float scale) {
+  using T = SavepDqTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, TRS = T::TRS, TKS = T::TKS, RGS = T::RGS, KGS = T::KGS;
+  constexpr int RGG = T::RGG, KGG = T::KGG, TRG = BQ / RGG, TCG = D / KGG;
+  constexpr int PQ = D + 4, PP = BK + 4;
+  static_assert(RGS * KGS == kSpT && RGG * KGG == kSpT && TRG * RGG == BQ && TCG % 4 == 0,
+                "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* dOs = sm;                         // (BQ queries, PQ)
+  float* Ks = dOs + BQ * PQ;               // (stages, BK keys, PQ)
+  float* Vs = Ks + kSpStages * BK * PQ;
+  float* Ps = Vs + kSpStages * BK * PQ;    // (stages, BQ queries, PP): P, then ds in place
 
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int q0 = blockIdx.x * kPB;
+  const int tid = threadIdx.x;
+  const int rgs = tid / KGS, kgs = tid % KGS, rgg = tid / KGG, kgg = tid % KGG;
+  const int q0 = blockIdx.x * BQ;
   const long long off = (long long)blockIdx.y * N * D;
   k += off; v += off; dout += off; dq += off;
   P += (long long)blockIdx.y * N * Np;
-  stats += (long long)blockIdx.y * 2 * N;
+  stats += (long long)blockIdx.y * 2 * pitch;
+  const int tiles = (N + BK - 1) / BK;
 
-  savep_rows<D, PQ>(dOs, dout, q0, N);
-  stage_row_stats(inv_s, dd_s, stats, q0, kPB, N);
-  float gq[4][OJ];  // queries tr + 16i, columns tc + 16j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) gq[i][j] = 0.f;
+  auto stage_tile = [&](int slot, int k1) {
+    stage_rows<BK, D, PQ, kSpT>(Ks + slot * BK * PQ, k, k1, N, D);
+    stage_rows<BK, D, PQ, kSpT>(Vs + slot * BK * PQ, v, k1, N, D);
+    stage_rows<BQ, BK, PP, kSpT>(Ps + slot * BQ * PP, P + k1, q0, N, Np);
+  };
+  stage_rows<BQ, D, PQ, kSpT>(dOs, dout, q0, N, D);
+  stage_tile(0, 0);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < N; k0 += kPB) {
-    __syncthreads();  // the previous key tile is consumed
-    savep_rows<D, PQ>(Ks, k, k0, N);
-    savep_rows<D, PQ>(Vs, v, k0, N);
-    savep_p_tile<false>(Es, P, q0, k0, N, Np);
-    __syncthreads();
+  // inv and D of queries rgs + RGS*i (0 past N, where P is 0 too)
+  float ri[TRS], rd[TRS];
+#pragma unroll
+  for (int i = 0; i < TRS; ++i) {
+    const int row = q0 + rgs + RGS * i;
+    ri[i] = row < N ? stats[row] : 0.f;
+    rd[i] = row < N ? stats[pitch + row] : 0.f;
+  }
+  float gq[TRG][TCG];  // queries rgg + RGG*i, float4 column groups 4*kgg + 4*KGG*c
+#pragma unroll
+  for (int i = 0; i < TRG; ++i)
+#pragma unroll
+    for (int c = 0; c < TCG; ++c) gq[i][c] = 0.f;
 
-    // dp for queries tr + 16i, keys tc + 16j
-    float dp[4][4];
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // key tile t has landed; tile t - 1 and its ds are consumed
+    if (t + 1 < tiles) stage_tile((t + 1) % kSpStages, (t + 1) * BK);
+    cp_async_commit();
+    const int st = t % kSpStages;
+    const float* Kt = Ks + st * BK * PQ;
+    const float* Vt = Vs + st * BK * PQ;
+    float* Et = Ps + st * BQ * PP;
+
+    // dp for queries rgs + RGS*i, keys kgs + KGS*j
+    float a[TRS][TKS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TRS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float ov[4], vv[4];
+      for (int j = 0; j < TKS; ++j) a[i][j] = 0.f;
+    tile_dot<TRS, TKS, RGS, KGS, D, PQ, PQ>(a, dOs, Vt, rgs, kgs);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ov[i] = dOs[(tr + 16 * i) * PQ + c];
+    for (int i = 0; i < TRS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[(tc + 16 * j) * PQ + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qr = tr + 16 * i, kc = tc + 16 * j;
-        Es[qr * kPS + kc] = Es[qr * kPS + kc] * inv_s[qr] * (dp[i][j] - dd_s[qr]);
+      for (int j = 0; j < TKS; ++j) {
+        const int at = (rgs + RGS * i) * PP + kgs + KGS * j;
+        const float e = Et[at] * ri[i];
+        Et[at] = e * (a[i][j] - rd[i]);
       }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kPB; ++kk) {
-      float sv[4], kv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = Es[(tr + 16 * i) * kPS + kk];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) kv[j] = Ks[kk * PQ + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) gq[i][j] = fmaf(sv[i], kv[j], gq[i][j]);
-    }
+    __syncthreads();  // ds is written
+    tile_pv<TRG, TCG, RGG, KGG, BK, PP, PQ>(gq, Et, Kt, rgg, kgg);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr + 16 * i;
+  for (int i = 0; i < TRG; ++i) {
+    const int row = q0 + rgg + RGG * i;
     if (row >= N) continue;
+    float* d = dq + (long long)row * D + 4 * kgg;
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) dq[(long long)row * D + tc + 16 * j] = gq[i][j] * scale;
+    for (int c = 0; c < TCG / 4; ++c)
+      st4(d + 4 * KGG * c, gq[i][4 * c] * scale, gq[i][4 * c + 1] * scale,
+          gq[i][4 * c + 2] * scale, gq[i][4 * c + 3] * scale);
   }
 }
 
@@ -412,33 +457,36 @@ static int launch_fwd_savep(const void* qs, const void* k, const void* v, void* 
 
 template <int D>
 static int launch_bwd_savep(const void* qs, const void* k, const void* v, const void* P,
-                            const float* stats, const void* dout, void* dq, void* dk, void* dv,
-                            int BH, int N, int Np, cudaStream_t stream) {
+                            const float* stats, int pitch, const void* dout, void* dq, void* dk,
+                            void* dv, int BH, int N, int Np, cudaStream_t stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid((N + kPB - 1) / kPB, BH);
   const size_t s1 = savep_dkdv_smem_bytes<D>(), s2 = savep_dq_smem_bytes<D>();
   cudaFuncSetAttribute(attn_bwd_savep_dkdv_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   cudaFuncSetAttribute(attn_bwd_savep_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s2);
-  attn_bwd_savep_dkdv_kernel<D><<<grid, kPT, s1, stream>>>(
+  const dim3 g1((N + SavepKvTiles<D>::BKV - 1) / SavepKvTiles<D>::BKV, BH);
+  attn_bwd_savep_dkdv_kernel<D><<<g1, kSpT, s1, stream>>>(
       f(qs), f(v), f(P), stats, f(dout), static_cast<float*>(dk), static_cast<float*>(dv), N,
-      Np);
+      Np, pitch);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  attn_bwd_savep_dq_kernel<D><<<grid, kPT, s2, stream>>>(
-      f(k), f(v), f(P), stats, f(dout), static_cast<float*>(dq), N, Np, 1.f / sqrtf((float)D));
+  const dim3 g2((N + SavepDqTiles<D>::BQ - 1) / SavepDqTiles<D>::BQ, BH);
+  attn_bwd_savep_dq_kernel<D><<<g2, kSpT, s2, stream>>>(
+      f(k), f(v), f(P), stats, f(dout), static_cast<float*>(dq), N, Np, pitch,
+      1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels of attention_savep_mma.cu
+// bf16 storage takes the tensor-core forward of attention_savep_mma.cu and
+// the wgmma backward of attention_savep_bwd_wgmma.cu (stats read through TMA)
 template <int D>
 int launch_fwd_savep_mma(const void* qs, const void* k, const void* v, void* out, void* P,
                          float* inv, int BH, int N, int Np, cudaStream_t stream);
 template <int D>
-int launch_bwd_savep_mma(const void* qs, const void* k, const void* v, const void* P,
-                         const float* stats, const void* dout, void* dq, void* dk, void* dv,
-                         int BH, int N, int Np, cudaStream_t stream);
+int launch_bwd_savep_wgmma(const void* qs, const void* k, const void* v, const void* P,
+                           const float* stats, int pitch, const void* dout, void* dq, void* dk,
+                           void* dv, int BH, int N, int Np, cudaStream_t stream);
 
 }  // namespace vitocm
 
@@ -465,8 +513,8 @@ extern "C" int vitocm_flash_fwd_savep(int dtype, const void* qs, const void* k, 
 
 // qs, k, v, o, dout, dq, dk, dv (BH, N, d) contiguous in the storage type;
 // P (BH, N, Np) and inv (BH, N) as the forward wrote them; stats an f32
-// workspace of 2 * BH * N values. Returns cudaGetLastError() after the
-// launches (0 on success).
+// workspace of 2 * BH * round_up(N, 4) values. Returns cudaGetLastError()
+// after the launches (0 on success).
 extern "C" int vitocm_flash_bwd_savep(int dtype, const void* qs, const void* k, const void* v,
                                       const void* o, const void* P, const void* inv,
                                       const void* dout, void* dq, void* dk, void* dv, void* stats,
@@ -476,14 +524,15 @@ extern "C" int vitocm_flash_bwd_savep(int dtype, const void* qs, const void* k, 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  int rc =
-      attn_row_stats(dtype, head_dim, static_cast<const float*>(inv), dout, o, st, BH, N, N, s);
+  const int pitch = (N + 3) / 4 * 4;  // 16-byte rows for cp.async and TMA
+  int rc = attn_row_stats(dtype, head_dim, static_cast<const float*>(inv), dout, o, st, BH, N,
+                          pitch, s);
   if (rc != 0) return rc;
   if (dtype == kF32 && head_dim == 64)
-    return launch_bwd_savep<64>(qs, k, v, P, st, dout, dq, dk, dv, BH, N, Np, s);
+    return launch_bwd_savep<64>(qs, k, v, P, st, pitch, dout, dq, dk, dv, BH, N, Np, s);
   if (dtype == kF32 && head_dim == 128)
-    return launch_bwd_savep<128>(qs, k, v, P, st, dout, dq, dk, dv, BH, N, Np, s);
+    return launch_bwd_savep<128>(qs, k, v, P, st, pitch, dout, dq, dk, dv, BH, N, Np, s);
   if (head_dim == 64)
-    return launch_bwd_savep_mma<64>(qs, k, v, P, st, dout, dq, dk, dv, BH, N, Np, s);
-  return launch_bwd_savep_mma<128>(qs, k, v, P, st, dout, dq, dk, dv, BH, N, Np, s);
+    return launch_bwd_savep_wgmma<64>(qs, k, v, P, st, pitch, dout, dq, dk, dv, BH, N, Np, s);
+  return launch_bwd_savep_wgmma<128>(qs, k, v, P, st, pitch, dout, dq, dk, dv, BH, N, Np, s);
 }

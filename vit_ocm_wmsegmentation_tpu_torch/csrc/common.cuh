@@ -47,18 +47,6 @@ __device__ __forceinline__ void warp_ln_stats(const float (&v)[D / 32], float ep
   rstd = 1.f / sqrtf(warp_sum(q) / D + eps);
 }
 
-// the attention backward's per-row statistics of rows r0 .. r0+rows-1 into
-// shared memory, 0 past N: stats holds [lse with non-finite values as 0 (N) |
-// D = rowsum(do * o) (N)] of one (batch, head), from attn_bwd_stats_kernel
-__device__ __forceinline__ void stage_row_stats(float* lse_s, float* dd_s, const float* stats,
-                                                int r0, int rows, int N) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const bool ok = r0 + r < N;
-    lse_s[r] = ok ? stats[r0 + r] : 0.f;
-    dd_s[r] = ok ? stats[N + r0 + r] : 0.f;
-  }
-}
-
 // 16 bytes (16-byte aligned at both ends) global -> shared, asynchronously;
 // src_bytes = 0 writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {

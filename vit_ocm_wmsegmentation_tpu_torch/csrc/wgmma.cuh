@@ -1,7 +1,8 @@
 // Hopper building blocks of the wgmma kernels (attention_qkv_wgmma.cu,
-// attention_bwd_wgmma.cu, fused_mlp_wgmma.cu): warpgroup matrix products
-// (wgmma), tensor-memory copies (TMA) completing on shared-memory barriers
-// (mbarrier), and the shared-memory descriptors that tie the two together.
+// attention_bwd_wgmma.cu, attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu):
+// warpgroup matrix products (wgmma), tensor-memory copies (TMA) completing on
+// shared-memory barriers (mbarrier), and the shared-memory descriptors that
+// tie the two together.
 // sm_90a only.
 //
 // Operand tiles live in shared memory as TMA writes them with the 128-byte
@@ -236,6 +237,35 @@ __device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96], const uint32
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// --- the attention backwards' two product shapes ----------------------------
+// acc (64 x 64) += A . B^T over D, issued (not committed): A's 64 rows at a
+// and B's 64 rows at b, both K-major, 64-column chunks a_chunk / b_chunk
+// bytes apart
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&acc)[32], const unsigned char* a, int a_chunk,
+                                          const unsigned char* b, int b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk >> 2, off = (kk & 3) * 32;
+    wgmma_ss_m64n64k16(acc, desc_k128(a + c * a_chunk + off), desc_k128(b + c * b_chunk + off));
+  }
+}
+
+// acc (64 x D) += A (64 x 64) . B (64 x D), issued (not committed): A in
+// registers, k-step kk (rows 16 kk .. 16 kk + 15 of B) in a[4 kk .. 4 kk + 3];
+// B MN-major at b, 64-column chunks b_chunk bytes apart
+template <int D>
+__device__ __forceinline__ void issue_ab(float (&acc)[D / 64][32], const uint32_t (&a)[16],
+                                         const unsigned char* b, int b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      wgmma_rs_m64n64k16<1>(acc[c], ak, desc_mn128(b + c * b_chunk + kk * 16 * 128, b_chunk));
+  }
 }
 
 }  // namespace vitocm

@@ -25,11 +25,13 @@ FFMA behind a cp.async ring, and ``csrc/attention_savep.cu``, on the CUDA
 cores; bf16: :func:`attention_qkv`
 and :func:`flash_attention` on ``csrc/attention_qkv_wgmma.cu``,
 :func:`flash_attention_bwd` on ``csrc/attention_bwd_wgmma.cu`` (wgmma fed
-by TMA), the saved-P kernels on ``csrc/attention_savep_mma.cu``
-(mma.sync); design notes there) and takes its plain twin (``*_plain``) for
-CPU tensors; anything else raises. :func:`attention_qkv_route`,
-:func:`flash_attention_route` and :func:`flash_attention_bwd_route` name
-the source a CUDA call launches. Each wrapper's ``launches`` counts kernel
+by TMA), the saved-P forward on ``csrc/attention_savep_mma.cu``
+(mma.sync) and its backward on ``csrc/attention_savep_bwd_wgmma.cu``
+(wgmma fed by TMA); design notes there) and takes its plain twin
+(``*_plain``) for CPU tensors; anything else raises.
+:func:`attention_qkv_route`, :func:`flash_attention_route`,
+:func:`flash_attention_bwd_route` and :func:`flash_attention_bwd_savep_route`
+name the source a CUDA call launches. Each wrapper's ``launches`` counts kernel
 launches.
 """
 
@@ -179,6 +181,8 @@ def _check_folded(name, *ts, devices=("cuda",)):
 
 _FWD_SOURCES = {torch.float32: "attention_qkv.cu", torch.bfloat16: "attention_qkv_wgmma.cu"}
 _BWD_SOURCES = {torch.float32: "attention_bwd.cu", torch.bfloat16: "attention_bwd_wgmma.cu"}
+_BWD_SAVEP_SOURCES = {torch.float32: "attention_savep.cu",
+                      torch.bfloat16: "attention_savep_bwd_wgmma.cu"}
 
 
 def flash_attention_route(q, *others) -> str:
@@ -199,6 +203,16 @@ def flash_attention_bwd_route(q, *others) -> str:
     :func:`flash_attention_route`, a CPU tensor stands for its CUDA copy."""
     _check_folded("flash_attention_bwd", q, *others, devices=("cpu", "cuda"))
     return _BWD_SOURCES[q.dtype]
+
+
+def flash_attention_bwd_savep_route(q, *others) -> str:
+    """The kernel source a CUDA call of :func:`flash_attention_bwd_savep`
+    with this q (and the k, v, o, do given after it) launches: bfloat16
+    "attention_savep_bwd_wgmma.cu" (its dk/dv and dq kernels, after
+    attention_bwd.cu's row statistics), float32 "attention_savep.cu". As
+    :func:`flash_attention_route`, a CPU tensor stands for its CUDA copy."""
+    _check_folded("flash_attention_bwd_savep", q, *others, devices=("cpu", "cuda"))
+    return _BWD_SAVEP_SOURCES[q.dtype]
 
 
 def _stats_pitch(n: int) -> int:
@@ -325,7 +339,8 @@ def flash_attention_bwd_savep(q, k, v, o, p, inv, do):
     """(dq, dk, dv) of the saved-P route from the forward's out o, P and inv
     and the cotangent do, all folded (B*h, N, d) but P and inv as
     :func:`flash_attention_savep` returns them. CPU tensors take the plain
-    twin; CUDA tensors launch the kernels."""
+    twin; CUDA tensors launch the kernels of
+    :func:`flash_attention_bwd_savep_route`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_savep_plain(q, k, v, o, p, inv, do)
     _check_folded("flash_attention_bwd_savep", q, k, v, o, do)
@@ -339,7 +354,8 @@ def flash_attention_bwd_savep(q, k, v, o, p, inv, do):
                          f"{(bh, n)}")
     qs = _scale_q(q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((bh, 2, n), dtype=torch.float32, device=q.device)  # inv, rowsum(do o)
+    # inv, rowsum(do o)
+    stats = torch.empty((bh, 2, _stats_pitch(n)), dtype=torch.float32, device=q.device)
     rc = build.library().vitocm_flash_bwd_savep(
         build.DTYPE_CODES[q.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         p.data_ptr(), inv.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
