@@ -14,14 +14,17 @@ and then, failing on the first phase that fails:
    and dq kernels on both backward routes, the inference MLP) warpgroup
    products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); the f32
    attention kernels (forward at both head dims and both layouts, dk/dv and
-   dq on both backward routes) FFMA and cp.async (LDGSTS) and no tensor-core
-   instruction (no TF32);
+   dq on both backward routes) and the f32 MLP kernels (the forward in every
+   instance the launcher builds, the backward's dx and weight kernels) FFMA
+   and cp.async (LDGSTS) and no tensor-core instruction (no TF32);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
    kernel, the twin and, where one PyTorch call computes the same function,
    that call (CUDA events, median of 10 after warm-up), and the MLP block's
-   two products alone as F.linear (a GEMM-only reference); the mosaic kernels
+   products alone through cuBLAS (a GEMM-only reference: fc1 and fc2 at the
+   mosaic's and the MIM step's rows, the backward's four products at the MIM
+   step's); the mosaic kernels
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
    the histogram on a 32768^2 uint8 image and on 2^24 + 67 pixels of two
    values (counts exactly equal to the twin's); the opt-in training routes'
@@ -191,7 +194,9 @@ BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
 # no mma.sync (HMMA); the f32 attention kernels (attention_qkv.cu, both head
 # dims and both layouts; the dk/dv and dq kernels of attention_bwd.cu and
-# attention_savep.cu) run exact f32 FFMA fed by cp.async (LDGSTS) and no
+# attention_savep.cu) and the f32 MLP kernels (fused_mlp.cu: 2 widths x 4
+# modes; fused_mlp_bwd.cu: the dx kernel, 2 widths x 2 routes, and the
+# weight kernel) run exact f32 FFMA fed by cp.async (LDGSTS) and no
 # tensor-core instruction, so no TF32.
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
@@ -201,7 +206,8 @@ SASS_CHECKS = {
     "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,
     "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
     "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
-    "attn_bwd_savep_dq_kernel": (2, *_FFMA),
+    "attn_bwd_savep_dq_kernel": (2, *_FFMA), "fused_mlp_kernel": (8, *_FFMA),
+    "mlp_bwd_dx_kernel": (4, *_FFMA), "mlp_bwd_w_kernel": (1, *_FFMA),
 }
 
 
@@ -510,20 +516,29 @@ def check_kernel_builds():
 
 
 def _mlp_gemm_reference(tag, dtype, gen):
-    """The MLP block's two products alone, F.linear at the mosaic's shapes:
-    a GEMM-only reference for the fused kernel (not the same function, so
-    not its library_ms)."""
+    """The MLP block's products alone through cuBLAS: F.linear fc1 and fc2 at
+    the mosaic's rows and at the MIM step's, then the backward's four
+    products at the MIM step's (dg = do W2, dxn = dh1 W1, dW1 = dh1^T xn,
+    dW2 = do^T g): a GEMM-only reference for the fused kernels (not the same
+    functions, so not their library_ms)."""
     import torch
     import torch.nn.functional as F
 
-    rows, dm, hid = TILES * TOKENS, 384, 1536
-    x = torch.randn(rows, dm, generator=gen, device="cuda").to(dtype)
-    g = torch.randn(rows, hid, generator=gen, device="cuda").to(dtype)
-    w1 = torch.randn(hid, dm, generator=gen, device="cuda").to(dtype)
-    w2 = torch.randn(dm, hid, generator=gen, device="cuda").to(dtype)
-    fc1, fc2 = cuda_ms(lambda: F.linear(x, w1)), cuda_ms(lambda: F.linear(g, w2))
-    print(f"  MLP GEMMs alone [{tag}], {rows} x {dm} x {hid}: F.linear fc1 {fc1:.3f} ms + fc2 "
-          f"{fc2:.3f} ms = {fc1 + fc2:.3f} ms (a reference, not the fused function)")
+    dm, hid = 384, 1536
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    w1, w2 = rnd(hid, dm), rnd(dm, hid)
+    for what, rows in (("mosaic", TILES * TOKENS), ("MIM step", MIM_BATCH * TOKENS)):
+        x, g = rnd(rows, dm), rnd(rows, hid)  # also do and dh1 of the backward's products
+        fc1, fc2 = cuda_ms(lambda: F.linear(x, w1)), cuda_ms(lambda: F.linear(g, w2))
+        print(f"  MLP GEMMs alone [{tag}], {what}, {rows} x {dm} x {hid}: F.linear fc1 "
+              f"{fc1:.3f} ms + fc2 {fc2:.3f} ms = {fc1 + fc2:.3f} ms (a reference, not the "
+              f"fused function)")
+    bwd = {"dg": lambda: x @ w2, "dxn": lambda: g @ w1, "dW1": lambda: g.T @ x,
+           "dW2": lambda: x.T @ g}
+    ms = {name: cuda_ms(fn) for name, fn in bwd.items()}
+    print(f"  MLP backward GEMMs alone [{tag}], MIM step, {rows} rows: "
+          + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
+          + f" = {sum(ms.values()):.3f} ms (a reference, not the fused function)")
 
 
 def phase_kernels():

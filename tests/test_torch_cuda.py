@@ -56,22 +56,42 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, rows, n, heads, d):
     _close(got, fa.attention_qkv_plain(qkv, heads, n), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d", [(70, 384), (33, 192), (1, 384)])
-def test_mlp_kernels_match_plain(cuda, dtype, rows, d):
-    gen = torch.Generator(device=cuda).manual_seed(rows + d)
-    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
-    h = 4 * d
-    x = r(rows, d).to(dtype)
+def _mlp_cases(dtype_rows_d):
+    """(dtype, rows, D, H): the given cases at H = 4 D, then float32 around
+    the f32 kernels' tiles (64 rows a CTA, 128 hidden units a chunk): rows 1,
+    63, 64, 65, 127, 129 and 1100 at D = 192 and 384, H = 768, 1536 and 832
+    (a multiple of 64, not of 128)."""
+    cases = [(dt, rows, d, 4 * d) for dt in DTYPES for rows, d in dtype_rows_d]
+    cases += [(torch.float32, rows, d, h) for d in (192, 384) for h in (768, 1536, 832)
+              for rows in (1, 63, 64, 65, 127, 129, 1100)]
+    return list(dict.fromkeys(cases))
+
+
+def _mlp_inputs(dev, seed, dtype, rows, d, h):
+    """x, do (rows, D), scale, bias (D), w1 (H, D), b1 (H), w2 (D, H), b2 (D)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=dev) * std + mean  # noqa: E731
+    x, do = r(rows, d).to(dtype), r(rows, d).to(dtype)
     w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
-    vecs = (r(d, std=0.1, mean=1.0), r(d, std=0.1))
-    args = (x, *vecs, w1, r(h, std=0.1), w2, r(d, std=0.1))
-    ln2 = (r(d, std=0.1, mean=1.0), r(d, std=0.1))
+    s, bb, b1, b2 = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(h, std=0.1), r(d, std=0.1)
+    return x, do, s, bb, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("dtype,rows,d,h", _mlp_cases([(70, 384), (33, 192), (1, 384)]))
+def test_mlp_kernels_match_plain(cuda, dtype, rows, d, h):
+    """The inference forwards (lnout and plain) against their twins, bit-equal
+    across two calls."""
+    x, _, s, bb, w1, b1, w2, b2 = _mlp_inputs(cuda, rows + d + h, dtype, rows, d, h)
+    args = (x, s, bb, w1, b1, w2, b2)
+    ln2 = (b2 + 1.0, bb)
     out, z = fm.fused_mlp_block_lnout(*args, *ln2)
     pout, pz = fm.fused_mlp_block_lnout_plain(*args, *ln2)
     _close(out, pout, dtype)
     _close(z, pz, dtype)
-    _close(fm.fused_mlp_block(*args), fm.fused_mlp_block_plain(*args), dtype)
+    assert _bit_equal((out, z), fm.fused_mlp_block_lnout(*args, *ln2))
+    out = fm.fused_mlp_block(*args)
+    _close(out, fm.fused_mlp_block_plain(*args), dtype)
+    assert _bit_equal((out,), (fm.fused_mlp_block(*args),))
 
 
 @pytest.mark.parametrize("b,heads,d", [(2, 6, 64), (3, 2, 128)])
@@ -258,22 +278,21 @@ def test_flash_attention_kernels_are_deterministic(cuda, dtype, bh, n, d):
     assert _bit_equal(grads, fa.flash_attention_bwd(q, k, v, out, lse, do))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d", [(70, 384), (130, 192), (1, 384), (1100, 384)])
-def test_mlp_training_kernels_match_plain(cuda, dtype, rows, d):
-    gen = torch.Generator(device=cuda).manual_seed(rows + d + 1)
-    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
-    h = 4 * d
-    x, do = r(rows, d).to(dtype), r(rows, d).to(dtype)
-    w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
-    s, bb, b1, b2 = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(h, std=0.1), r(d, std=0.1)
+@pytest.mark.parametrize("dtype,rows,d,h",
+                         _mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)]))
+def test_mlp_training_kernels_match_plain(cuda, dtype, rows, d, h):
+    """The save-h1 forward and its backward against their twins, each
+    bit-equal across two calls."""
+    x, do, s, bb, w1, b1, w2, b2 = _mlp_inputs(cuda, rows + d + h + 1, dtype, rows, d, h)
     out, h1 = fm.fused_mlp_block_h1(x, s, bb, w1, b1, w2, b2)
     pout, ph1 = fm.fused_mlp_block_plain(x, s, bb, w1, b1, w2, b2, want_h1=True)
     _close(out, pout, dtype)
     _close(h1, ph1, dtype)
-    for g, w in zip(fm.fused_mlp_bwd(x, do, h1, s, bb, w1, w2),
-                    fm.fused_mlp_bwd_plain(x, do, h1, s, bb, w1, w2)):
+    assert _bit_equal((out, h1), fm.fused_mlp_block_h1(x, s, bb, w1, b1, w2, b2))
+    grads = fm.fused_mlp_bwd(x, do, h1, s, bb, w1, w2)
+    for g, w in zip(grads, fm.fused_mlp_bwd_plain(x, do, h1, s, bb, w1, w2)):
         _close_grad(g, w, dtype)
+    assert _bit_equal(grads, fm.fused_mlp_bwd(x, do, h1, s, bb, w1, w2))
 
 
 def test_wrappers_reject_layouts_they_do_not_take(cuda):
@@ -388,27 +407,23 @@ def test_savep_attention_kernels_match_plain(cuda, dtype, bh, n, d):
         before[0] + 1, before[1] + 2)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d", [(70, 384), (130, 192), (1, 384), (1100, 384)])
-def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d):
+@pytest.mark.parametrize("dtype,rows,d,h",
+                         _mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)]))
+def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d, h):
     """The SAVE_GP forward against its twin, its out bit-equal to the h1
-    forward's; the gp backward against its twin."""
-    gen = torch.Generator(device=cuda).manual_seed(rows + d + 3)
-    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
-    h = 4 * d
-    x, do = r(rows, d).to(dtype), r(rows, d).to(dtype)
-    w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
-    s, bb, b1, b2 = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(h, std=0.1), r(d, std=0.1)
+    forward's; the gp backward against its twin, bit-equal across two calls."""
+    x, do, s, bb, w1, b1, w2, b2 = _mlp_inputs(cuda, rows + d + h + 3, dtype, rows, d, h)
     out, g, gp = fm.fused_mlp_block_gp(x, s, bb, w1, b1, w2, b2)
     pout, pg, pgp = fm.fused_mlp_block_gp_plain(x, s, bb, w1, b1, w2, b2)
     assert torch.equal(out, fm.fused_mlp_block_h1(x, s, bb, w1, b1, w2, b2)[0])
     for got, want in ((out, pout), (g, pg), (gp, pgp)):
         _close(got, want, dtype)
     before = fm.fused_mlp_bwd_gp.launches
-    for got, want in zip(fm.fused_mlp_bwd_gp(x, do, g, gp, s, bb, w1, w2),
-                         fm.fused_mlp_bwd_gp_plain(x, do, g, gp, s, bb, w1, w2)):
+    grads = fm.fused_mlp_bwd_gp(x, do, g, gp, s, bb, w1, w2)
+    for got, want in zip(grads, fm.fused_mlp_bwd_gp_plain(x, do, g, gp, s, bb, w1, w2)):
         _close_grad(got, want, dtype)
     assert fm.fused_mlp_bwd_gp.launches == before + 1
+    assert _bit_equal(grads, fm.fused_mlp_bwd_gp(x, do, g, gp, s, bb, w1, w2))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

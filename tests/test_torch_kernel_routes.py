@@ -95,9 +95,72 @@ def test_training_attention_routes_raise_on_what_no_kernel_takes(dtype, name, ca
     (BF16, 192, 768, "gp", "fused_mlp_mma.cu"),
     (F32, 384, 1536, None, "fused_mlp.cu"),
     (F32, 192, 768, "h1", "fused_mlp.cu"),
+    # f32: H a multiple of 64, not of the kernels' 128-unit chunk
+    (F32, 384, 832, None, "fused_mlp.cu"),
+    (F32, 192, 832, "gp", "fused_mlp.cu"),
+    (F32, 384, 64, "h1", "fused_mlp.cu"),
 ])
 def test_mlp_route_names_the_kernel(dtype, d, h, residual, want):
     assert fm.mlp_route(*_mlp(dtype, d, h), residual) == want
+
+
+@pytest.mark.parametrize("residual", [None, "h1", "gp"])
+@pytest.mark.parametrize("d,h,match", [(384, 48, "H % 64"), (384, 800, "H % 64"),
+                                       (384, 1568, "H % 64"), (256, 1024, "D in")])
+def test_f32_mlp_route_raises_on_what_no_kernel_takes(d, h, residual, match):
+    """The f32 kernels take H in multiples of 64 (a last chunk of 64 units
+    is masked) and D in {192, 384}, on every route."""
+    with pytest.raises(ValueError, match=match):
+        fm.mlp_route(*_mlp(F32, d, h), residual)
+
+
+def _bwd(dtype, d=384, h=1536, rows=5, gp=False):
+    x, w1, w2 = _mlp(dtype, d, h, rows)
+    hidden = torch.zeros(rows, h, dtype=dtype)
+    return x, x.clone(), hidden, w1, w2, (hidden.clone() if gp else None)
+
+
+@pytest.mark.parametrize("gp", [False, True])
+@pytest.mark.parametrize("dtype,d,h,want", [(F32, 384, 1536, "fused_mlp_bwd.cu"),
+                                            (F32, 192, 832, "fused_mlp_bwd.cu"),
+                                            (BF16, 384, 1536, "fused_mlp_bwd_mma.cu")])
+def test_mlp_bwd_route_names_the_kernel(dtype, d, h, want, gp):
+    assert fm.mlp_bwd_route(*_bwd(dtype, d, h, gp=gp)) == want
+
+
+@pytest.mark.parametrize("case,match", [
+    ("do rows", "do must be"), ("h1 width", "h1 must be"), ("g dtype", "g must be"),
+    ("gp misaligned", "gp must be"), ("H 800", "H % 64"), ("h1 not contiguous", "h1 must be"),
+])
+def test_mlp_bwd_route_raises_on_what_no_kernel_takes(case, match):
+    x, do, h1, w1, w2, gp = _bwd(F32, gp=case.startswith(("g ", "gp")))
+    if case == "do rows":
+        do = torch.zeros(4, 384)
+    elif case == "h1 width":
+        h1 = torch.zeros(5, 1535)
+    elif case == "g dtype":
+        h1 = h1.to(BF16)
+    elif case == "gp misaligned":  # one element past a 16-byte boundary
+        gp = torch.zeros(5 * 1536 + 1)[1:].view(5, 1536)
+    elif case == "H 800":
+        x, do, h1, w1, w2, gp = _bwd(F32, h=800)
+    else:
+        h1 = torch.zeros(1536, 5).T
+    with pytest.raises(ValueError, match=match):
+        fm.mlp_bwd_route(x, do, h1, w1, w2, gp)
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 36880])
+@pytest.mark.parametrize("dtype,gp,hidden", [(F32, False, 2), (F32, True, 1), (BF16, False, 0),
+                                             (BF16, True, 0)])
+def test_mlp_bwd_workspace_sizes(rows, dtype, gp, hidden):
+    """part: the split partials, then the f32 dx kernel's dh1 (R, H) and, on
+    the save-h1 route, g (R, H); ln_part: 2 D values a 64-row dx tile."""
+    d, h = 384, 1536
+    part, ln_part = fm.bwd_workspace(rows, d, h, dtype, gp)
+    assert part == fm.MLP_SPLITS * (2 * h * d + h + d) + hidden * rows * h
+    assert fm._BWD_MIN_TILE == 64
+    assert ln_part == -(-rows // 64) * 2 * d
 
 
 @pytest.mark.parametrize("case,match", [

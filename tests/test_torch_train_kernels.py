@@ -85,9 +85,13 @@ def _mlp_arrays(seed, r=70, d=64, hdim=256):
             "w2": f(hdim, d, std=hdim ** -0.5), "b2": f(d, std=0.1), "do": f(r, d)}
 
 
-@pytest.mark.parametrize("tag", ["f32", "bf16"])
-def test_mlp_function_matches_jax_vjp(tag):
-    a = _mlp_arrays(7)
+@pytest.mark.parametrize("tag,r,d", [
+    pytest.param("f32", 70, 64, id="f32"), pytest.param("bf16", 70, 64, id="bf16"),
+    *(pytest.param("f32", r, d, id=f"f32-{r}x{d}") for d in (192, 384) for r in (63, 65, 129))])
+def test_mlp_function_matches_jax_vjp(tag, r, d):
+    """At D = 64 in both dtypes, then in float32 at the CUDA kernels' widths
+    (H = 4 D) with row counts at the edges of their 64-row tiles."""
+    a = _mlp_arrays(7, r, d, 256 if d == 64 else 4 * d)
     names = ("x", "s", "b", "w1", "b1", "w2", "b2")
     jargs, targs = zip(*(_pair(a[k], tag) for k in names))
     # the port takes nn.Linear's (H, D) / (D, H) weights: transposes of the JAX ones

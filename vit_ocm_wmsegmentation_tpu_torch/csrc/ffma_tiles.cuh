@@ -1,6 +1,7 @@
 // Register-tiled f32 products on the CUDA cores, and the cp.async staging
 // that feeds them: the building blocks of the f32 attention kernels
-// (attention_qkv.cu, attention_bwd.cu, attention_savep.cu).
+// (attention_qkv.cu, attention_bwd.cu, attention_savep.cu) and of the f32
+// MLP kernels (fused_mlp.cu, fused_mlp_bwd.cu).
 //
 // A CTA of NT threads splits into RG row groups of KG lanes each (KG
 // divides 32, so the lanes of one row group sit in one warp and reduce a
@@ -31,16 +32,16 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d
 
 // rows r0 .. r0 + ROWS - 1 of a (rows, D) f32 slice, `stride` floats a row
 // (a multiple of 4, src 16-byte aligned), into dst with pitch P, in 16-byte
-// cp.async copies; rows >= limit are written as zeros (source size 0).
-// The caller commits the group.
+// cp.async copies; rows >= limit and columns >= cols (a multiple of 4) are
+// written as zeros (source size 0). The caller commits the group.
 template <int ROWS, int D, int P, int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0, int limit,
-                                           long long stride) {
+                                           long long stride, int cols = D) {
   constexpr int CH = D / 4;
 #pragma unroll 4
   for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = r0 + r < limit;
+    const bool ok = r0 + r < limit && c < cols;
     cp_async16(dst + r * P + c, src + (ok ? (long long)(r0 + r) * stride + c : 0), ok ? 16 : 0);
   }
 }

@@ -20,45 +20,76 @@
 // all biases come in as f32.
 //
 // What bounds it on the H100: the (rows, H) hidden activation is what the
-// fusion keeps out of HBM (at the mosaic shape 112945 x 1536, 347 MB in bf16
-// per layer, written and read back by an unfused block). A CTA owns 32 rows:
-// it normalizes them once into shared memory, then walks H in chunks of 32
-// hidden units: h1 = xn . W1[c]^T + b1, exact-erf GELU, and
-// y += g . W2[:, c]^T into a (32, D) f32 accumulator held
-// in registers (48 floats a thread at D = 384). Shared memory at D = 384:
-// xn, a W1 chunk and a W2 chunk of 32 x 385 floats each plus the g tile,
-// 152 KB, which is above the 48 KB default and set through
-// cudaFuncAttributeMaxDynamicSharedMemorySize; one CTA fits an SM. This
-// kernel serves f32 storage only: the products run on the CUDA cores in f32,
-// never through TF32, so it is bound by shared-memory loads and FMA issue;
-// the weight chunks are re-read from L2 by every CTA. bf16 storage takes the
-// tensor-core kernels of fused_mlp_wgmma.cu (inference) and fused_mlp_mma.cu
-// (the training forward).
+// fusion keeps out of HBM (at the mosaic shape 112945 x 1536, 694 MB in f32
+// per layer, written and read back by an unfused block). What is left is
+// 4 R D H flops of exact f32 products on the CUDA cores (FFMA, never TF32):
+// 266 GFLOP at the mosaic shape against 67 TFLOP/s. An SM issues 128 FFMA a
+// cycle but moves 32 floats a cycle from shared memory to registers, so a
+// micro-tile of TR x TK outputs, which loads TR + TK floats for TR * TK
+// FFMA, keeps the pipes fed only from TR * TK / (TR + TK) = 4. The design
+// (the f32 attention kernels' building blocks, ffma_tiles.cuh):
+//   * a CTA of 256 threads owns 64 rows: it normalizes them once into
+//     shared memory (xn, pitch D + 4) and walks H in chunks of 128 hidden
+//     units, so the weights are read from L2 once per 64 rows;
+//   * h1 for a chunk (64 x 128, depth D) is a register micro-tile of 4 rows
+//     x 8 units a thread (tile_dot, 16 row groups of 16 lanes, operands read
+//     as float4 along D); bias and exact-erf GELU follow in registers, g goes
+//     to a shared (64 x 128) tile (and h1, g, gp to device memory on the
+//     training routes); 4 x 8 loads 2.67 floats an FFMA where 8 x 8 would
+//     load 4, but 8 x 8 over 256-unit chunks spilled beside the 96-float y
+//     accumulator at 255 registers and ran slower on the H100;
+//   * y (64 x D) stays in registers for the whole walk, 8 rows x D/32
+//     columns a thread (8 x 12 at D = 384, one warp a row group), fed by
+//     tile_dot from the g tile and W2's rows, both read along the hidden
+//     units;
+//   * the weights arrive in slices through a two-slot ring of 16-byte
+//     cp.async copies, in their nn.Linear layouts: W1 rows (128 units x 64
+//     of D) for the h1 product, W2 rows (D x 16 units) for the y product;
+//     slice s + 1 is in flight while slice s is multiplied, one barrier a
+//     slice.
+// Shared memory at D = 384: xn 97 KB, the g tile 36 KB, two slots of 34 KB:
+// 201 KB, one CTA an SM. A chunk past H (H a multiple of 64, not of 128)
+// reads zero rows of W1 and walks only its valid W2 slices. bf16 storage
+// takes the tensor-core kernels of fused_mlp_wgmma.cu (inference) and
+// fused_mlp_mma.cu (the training forward).
 //
 // Numerics, kept from the TPU kernel: LN statistics in f32 (biased
 // variance); f32 products and accumulation (the TPU kernel's roundings of
 // xn, g and out to the storage type are the identity in f32); z computed
-// from the stored out. Deliberate difference: GELU uses erff, which is exact to
-// ~1 ulp, where the TPU kernel carries Eigen's rational erf (_erf_f32); the
-// two differ by about 1 ulp of f32.
+// from the stored out. Every sum runs over its inner index in order: h1 over
+// k = 0 .. D-1 from 0, then the bias; y over the hidden units 0 .. H-1 from
+// 0, then b2 and the residual; so the results do not depend on the tiling.
+// Deliberate difference: GELU uses erff, which is exact to ~1 ulp, where the
+// TPU kernel carries Eigen's rational erf (_erf_f32); the two differ by
+// about 1 ulp of f32.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "ffma_tiles.cuh"
 
 namespace vitocm {
 
-constexpr int kBR = 32;   // rows per CTA
-constexpr int kHC = 32;   // hidden units per chunk
-constexpr int kMT = 256;  // threads: 8 warps, warp w owns rows w + 8*i
+constexpr int kBR = 64;        // rows a CTA
+constexpr int kHC = 128;       // hidden units a chunk
+constexpr int kKS = 64;        // depth (of D) of a W1 slice
+constexpr int kJS = 16;        // hidden units of a W2 slice
+constexpr int kMT = 256;       // threads: 8 warps
+constexpr int kGP = kHC + 16;  // the g tile's pitch: a warp's two row groups store to distinct banks
+
+// floats of a ring slot: a W1 slice (HC x KS) or a W2 slice (D x JS)
+template <int D>
+__host__ __device__ constexpr int mlp_slot() {
+  return kHC * (kKS + 4) > D * (kJS + 4) ? kHC * (kKS + 4) : D * (kJS + 4);
+}
 
 template <int D>
 constexpr size_t mlp_smem_bytes() {
-  return sizeof(float) * (kBR * (D + 1) + 2 * kHC * (D + 1) + kBR * (kHC + 1));
+  return sizeof(float) * (kBR * (D + 4) + kBR * kGP + 2 * mlp_slot<D>());
 }
 
 template <int D, bool LNOUT, bool H1, bool GP>
-__global__ void __launch_bounds__(kMT)
+__global__ void __launch_bounds__(kMT, 1)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
                  const float* __restrict__ bn1, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
@@ -66,18 +97,42 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
                  const float* __restrict__ bn2, float* __restrict__ out,
                  float* __restrict__ z, float* __restrict__ h1, float* __restrict__ gp,
                  int R, int H, float eps) {
-  constexpr int CPT = D / 32;
-  constexpr int RPW = kBR / 8;  // rows per warp
-  constexpr int PD = D + 1;
-  constexpr int PG = kHC + 1;
-  extern __shared__ float sm[];
-  float* xn = sm;              // (BR, PD)
-  float* w1s = xn + kBR * PD;  // (HC, PD): w1s[j][k] = W1[h0 + j][k]
-  float* w2s = w1s + kHC * PD; // (HC, PD): w2s[j][c] = W2[c][h0 + j]
-  float* gs = w2s + kHC * PD;  // (BR, PG)
+  constexpr int CPT = D / 32;   // y columns a lane: lane + 32c
+  constexpr int RPW = kBR / 8;  // y rows a warp: warp + 8i
+  constexpr int PX = D + 4, SLOT = mlp_slot<D>(), NK = D / kKS;
+  static_assert(D % kKS == 0 && 64 % kJS == 0 && kBR == 64 && kHC == 128, "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* xn = sm;                // (BR, PX)
+  float* gs = xn + kBR * PX;     // (BR, GP): g of the chunk
+  float* ring = gs + kBR * kGP;  // 2 slots
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long r0 = (long long)blockIdx.x * kBR;
+  const int rg = tid >> 4, kg = tid & 15;  // the h1 tile: rows rg + 16i, units kg + 16j
+  const int r0 = blockIdx.x * kBR;
+  const int chunks = (H + kHC - 1) / kHC;
+  // slice p of chunk c: W1[h0 .. h0+HC, 64p ..] for p < NK, then W2[:, h0 + 16(p-NK) ..]
+  auto issue = [&](int c, int p, float* dst) {
+    const int h0 = c * kHC;
+    if (p < NK)
+      stage_rows<kHC, kKS, kKS + 4, kMT>(dst, w1 + (long long)h0 * D + p * kKS, 0, H - h0, D);
+    else
+      stage_rows<D, kJS, kJS + 4, kMT>(dst, w2 + h0 + (p - NK) * kJS, 0, D, H);
+  };
+  // wait for slice st (slice p of np of chunk ch), put the next one in flight
+  auto next = [&](int ch, int p, int np, int st) {
+    cp_async_wait<0>();
+    __syncthreads();  // slice st has landed; slice st-1 and (in a y phase) the g tile are done
+    float* dst = ring + ((st + 1) & 1) * SLOT;
+    if (p + 1 < np)
+      issue(ch, p + 1, dst);
+    else if (ch + 1 < chunks)
+      issue(ch + 1, 0, dst);
+    cp_async_commit();
+    return ring + (st & 1) * SLOT;
+  };
+
+  issue(0, 0, ring);
+  cp_async_commit();
 
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
@@ -91,64 +146,45 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s1,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = lane + 32 * c;
-      xn[r * PD + col] = (v[c] - mu) * rstd * s1[col] + bn1[col];
+      xn[r * PX + col] = (v[c] - mu) * rstd * s1[col] + bn1[col];
     }
   }
 
-  float acc[RPW][CPT];
+  float acc[RPW][CPT];  // y of rows warp + 8i, columns lane + 32c
 #pragma unroll
   for (int i = 0; i < RPW; ++i)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kHC) {
-    __syncthreads();  // xn written / the previous chunk consumed
-    for (int i = tid; i < kHC * D; i += kMT) {
-      const int j = i / D, k = i % D;
-      w1s[j * PD + k] = w1[(long long)(h0 + j) * D + k];
-    }
-    for (int i = tid; i < kHC * D; i += kMT) {
-      const int c = i / kHC, j = i % kHC;
-      w2s[j * PD + c] = w2[(long long)c * H + h0 + j];
-    }
-    __syncthreads();
-
-    {  // h1 for hidden unit h0 + lane, rows warp + 8*i
-      float h[RPW];
+  for (int ch = 0, st = 0; ch < chunks; ++ch) {
+    const int h0 = ch * kHC, nh = min(kHC, H - h0), np = NK + nh / kJS;
+    float s[4][8];  // h1 of rows rg + 16i, units kg + 16j of the chunk
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) h[i] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < D; ++k) {
-        const float wv = w1s[lane * PD + k];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) h[i] = fmaf(xn[(warp + 8 * i) * PD + k], wv, h[i]);
-      }
-      const float bj = b1[h0 + lane];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int p = 0; p < NK; ++p, ++st)
+      tile_dot<4, 8, 16, 16, kKS, PX, kKS + 4>(s, xn + p * kKS, next(ch, p, np, st), rg, kg);
+    // bias, GELU, the g tile; h1 (or g) and gp on the training routes
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float t = h[i] + bj;
+    for (int j = 0; j < 8; ++j) {
+      const int u = kg + 16 * j;
+      const bool on = u < nh;
+      const float bj = on ? b1[h0 + u] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + 16 * i;
+        const long long row = r0 + r;
+        const float t = s[i][j] + bj;
         float gv, gpv;
         gelu_pieces(t, gv, gpv);
-        gs[(warp + 8 * i) * PG + lane] = gv;
-        const long long row = r0 + warp + 8 * i;
-        if (H1 && row < R) h1[row * H + h0 + lane] = GP ? gv : t;
-        if (GP && row < R) gp[row * H + h0 + lane] = gpv;
+        gs[r * kGP + u] = gv;
+        if (H1 && on && row < R) h1[row * H + h0 + u] = GP ? gv : t;
+        if (GP && on && row < R) gp[row * H + h0 + u] = gpv;
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kHC; ++j) {
-      float wv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) wv[c] = w2s[j * PD + lane + 32 * c];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float g = gs[(warp + 8 * i) * PG + j];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(g, wv[c], acc[i][c]);
-      }
-    }
+    for (int p = NK; p < np; ++p, ++st)
+      tile_dot<RPW, CPT, 8, 32, kJS, kGP, kJS + 4>(acc, gs + (p - NK) * kJS, next(ch, p, np, st),
+                                                   warp, lane);
   }
 
 #pragma unroll

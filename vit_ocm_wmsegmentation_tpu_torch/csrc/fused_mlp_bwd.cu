@@ -10,304 +10,339 @@
 //   dx = do + LN-backward(dxn),  ds = sum dxn * xh,  dbb = sum dxn,
 //   dW1 = dh1^T xn,  db1 = sum dh1,  dW2 = do^T round(g),  db2 = sum do.
 // On the SAVE_GP route (gp not null; _mlp_bwd_kernel with gp_ref) h1 holds
-// the forward's rounded g and gp its rounded gelu'(h1): the kernels read
-// both and compute no erf and no exp; the weight kernel stages the g tile
-// it reads where the save-h1 route stages the g it computes, so its shared
-// memory stays as it is.
+// the forward's rounded g and gp its rounded gelu'(h1): the dx kernel reads
+// gp where it computes gelu'(h1), the weight kernel reads that g, and no
+// kernel computes an erf or an exp.
 // Weights in nn.Linear's layouts: w1 (H, D), w2 (D, H); dW1 comes back as
 // (H, D) and dW2 as (D, H), all parameter gradients in f32.
 //
 // What changes on Hopper: the TPU kernel carries the weight gradients
 // across a sequential grid axis over row chunks. Here the work splits into
 // deterministic kernels without atomics:
-//   1. dx: a CTA owns a row tile and walks H in chunks, dxn in registers,
-//      then the LN backward; it writes dx, its tile's partial ds, dbb, and
-//      xn = LN(x) (R, D) for the weight kernel, which would otherwise
-//      recompute the LayerNorm once for every hidden chunk;
-//   2. weights: a CTA owns (row split, hidden chunk): it walks its split's
-//      row tiles, reads xn, recomputes dg, dh1 and g for its chunk, and
-//      accumulates that chunk's dW1 rows, dW2 columns, db1 (and, for chunk
-//      0, db2) in registers; it writes one f32 partial per split;
+//   1. dx: a CTA owns a row tile and walks H in chunks: dg, dh1, and dxn in
+//      registers, then the LN backward; it writes dx, its tile's partial ds
+//      and dbb, xn = LN(x) (R, D), and the chunk's dh1 (and g on the save-h1
+//      route) (R, H) for the weight kernel;
+//   2. weights: two plain products over the rows, dW1 = dh1^T xn and
+//      dW2 = do^T g, a CTA a (128 x 128) output tile and a row split; db1
+//      and db2 are the column sums of dh1 and do on the first column tile;
+//      each split writes one f32 partial;
 //   3. reduce: partials summed over splits (and row tiles) in a fixed order.
-// The (rows, H) hidden tensors dg, dh1 and g never reach device memory;
-// the price is the dg product computed twice (10 R D H FLOPs, not 8). The
-// workspace holds splits x (2 H D + H + D) f32 values: 75 MB at 16 splits,
-// D = 384, H = 1536. f32 here: 32-row tiles and 32-unit chunks, 256 threads;
-// bound by FMA issue and shared-memory loads on the CUDA cores (no TF32).
+// 8 R D H flops of exact f32 FFMA on the CUDA cores (no TF32), 87 GFLOP at
+// the MIM step's 36880 x 384, H 1536. dh1 and g make a round trip through
+// device memory (2 x 227 MB at that shape, ~0.3 ms of HBM) where an earlier
+// design recomputed dg in the weight kernel (2 R D H more flops): with both
+// gradient products in one CTA, a (split, hidden chunk) CTA would hold
+// 2 x chunk x D accumulators, which leaves micro-tiles of 4 x 12 at most;
+// apart, each product takes 8 x 8 tiles and its CTAs fill the card.
+//
+// The kernels share the f32 forward's building blocks (ffma_tiles.cuh):
+//   * dx kernel (256 threads, 64 rows): do (64 x D) resident in shared
+//     memory (pitch D + 4); per chunk of 128 hidden units dg (64 x 128,
+//     depth D) in 4 x 8 register tiles (tile_pv: do rows as float4 along
+//     D, W2's rows as float4 along the units), dh1 = dg * gelu'(h1) into a
+//     shared tile, then dxn (64 x D) += dh1 W1c in 8 x 12 tiles (4 x 12 at
+//     D = 192) held for the whole walk; W2 slices (64 of D x 128 units) and
+//     W1 slices (16 units x D) stream through a two-slot cp.async ring,
+//     199 KB of shared memory at D = 384;
+//   * weight kernel (256 threads, two CTAs an SM): an (M x N) = (128 x 128)
+//     tile of A^T B for (R, M) A and (R, N) B, 8 x 8 a thread (tile_tn:
+//     one row of each operand a step, as float4s), the rows of its split
+//     in slices of 32 through a three-slot cp.async ring, 96 KB.
+// The workspace is part = splits x (2 H D + H + D) partials, then dh1
+// (R, H) and, on the save-h1 route, g (R, H), all f32.
 // bf16 storage takes the tensor-core kernels of fused_mlp_bwd_mma.cu.
 //
 // Numerics: LN statistics recomputed from x in f32 (biased variance);
-// every product in f32; erff where the TPU kernel carries a rational erf
-// (about 1 ulp apart).
+// every product in f32, each sum over its inner index in order; erff where
+// the TPU kernel carries a rational erf (about 1 ulp apart).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "ffma_tiles.cuh"
 
 namespace vitocm {
 
-constexpr int kWR = 32;   // rows per tile (f32)
-constexpr int kWH = 32;   // hidden units per chunk (f32)
-constexpr int kWT = 256;  // threads
+// dx kernel
+constexpr int kWR = 64;        // rows a tile
+constexpr int kWH = 128;       // hidden units a chunk
+constexpr int kWK = 64;        // rows of W2 (depth of dg) a slice
+constexpr int kWJ = 16;        // rows of W1 (hidden units) a slice
+constexpr int kWT = 256;       // threads
+constexpr int kWG = kWH + 16;  // the dh1 tile's pitch: a warp's two row groups store to distinct banks
+
+// the dxn tile: RG row groups of KG lanes, rows rg + RG*i, float4 column
+// groups 4*kg + 4*KG*g; TR x TC = 8 x 12 at D = 384, 4 x 12 at D = 192
+template <int D>
+struct DxTiles;
+template <>
+struct DxTiles<384> {
+  static constexpr int RG = 8, KG = 32;
+};
+template <>
+struct DxTiles<192> {
+  static constexpr int RG = 16, KG = 16;
+};
+
+// floats of a ring slot: a W2 slice (WK x WH) or a W1 slice (WJ x D)
+template <int D>
+__host__ __device__ constexpr int dx_slot() {
+  return kWK * (kWH + 4) > kWJ * (D + 4) ? kWK * (kWH + 4) : kWJ * (D + 4);
+}
 
 template <int D>
 constexpr size_t mlp_bwd_dx_smem_bytes() {
-  return sizeof(float) * (3 * kWR * (D + 1) + kWR * (kWH + 1));
+  return sizeof(float) * (kWR * (D + 4) + kWR * kWG + 2 * dx_slot<D>());
 }
 
-template <int D>
-constexpr size_t mlp_bwd_w_smem_bytes() {
-  return sizeof(float) * (3 * kWR * (D + 1) + 2 * kWR * (kWH + 1));
-}
+// weight kernel
+constexpr int kYM = 128, kYN = 128;  // output tile
+constexpr int kYK = 32;              // rows a slice
+constexpr int kYS = 3;               // ring slots
+constexpr int kYT = 256;             // threads
+constexpr size_t kYSmem = sizeof(float) * kYS * kYK * (kYM + kYN);
 
 template <int D, bool GP>
-__global__ void __launch_bounds__(kWT)
+__global__ void __launch_bounds__(kWT, 1)
 mlp_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ dout,
                   const float* __restrict__ h1, const float* __restrict__ gpp,
-                  const float* __restrict__ s1,
-                  const float* __restrict__ bn1, const float* __restrict__ w1,
-                  const float* __restrict__ w2, float* __restrict__ dx,
-                  float* __restrict__ xn_out, float* __restrict__ ln_part, int R, int H,
-                  float eps) {
-  constexpr int PD = D + 1, PG = kWH + 1, CPT = D / 32, RPW = kWR / 8;
-  extern __shared__ float sm[];
-  float* dos = sm;               // (WR, PD)
-  float* w1s = dos + kWR * PD;   // (WH, PD): w1s[j][c] = W1[h0 + j][c]
-  float* w2s = w1s + kWH * PD;   // (WH, PD): w2s[j][c] = W2[c][h0 + j]
-  float* dh1s = w2s + kWH * PD;  // (WR, PG)
+                  const float* __restrict__ s1, const float* __restrict__ bn1,
+                  const float* __restrict__ w1, const float* __restrict__ w2,
+                  float* __restrict__ dx, float* __restrict__ xn_out,
+                  float* __restrict__ dh1_out, float* __restrict__ g_out,
+                  float* __restrict__ ln_part, int R, int H, float eps) {
+  using T = DxTiles<D>;
+  constexpr int RG = T::RG, KG = T::KG, TR = kWR / RG, TC = D / KG;
+  constexpr int PX = D + 4, SLOT = dx_slot<D>(), NK = D / kWK;
+  static_assert(RG * KG == kWT && TC % 4 == 0 && D % kWK == 0 && 64 % kWJ == 0 &&
+                    kWR == 64 && kWH == 128 && RG * 2 * D <= 2 * SLOT,
+                "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* dos = sm;                 // (WR, PX)
+  float* dh1s = dos + kWR * PX;    // (WR, WG): dh1 of the chunk
+  float* ring = dh1s + kWR * kWG;  // 2 slots
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long r0 = (long long)blockIdx.x * kWR;
-  for (int i = tid; i < kWR * D; i += kWT) {
-    const int r = i / D, c = i % D;
-    dos[r * PD + c] = r0 + r < R ? dout[(r0 + r) * D + c] : 0.f;
+  const int tid = threadIdx.x;
+  const int rg = tid / KG, kg = tid % KG;  // the dxn tile
+  const int qg = tid >> 4, qk = tid & 15;  // the dg tile: rows qg + 16i, units 4qk + 64g + f
+  const int r0 = blockIdx.x * kWR;
+  const int chunks = (H + kWH - 1) / kWH;
+  // slice p of chunk c: W2[64p .., h0 .. h0+WH] for p < NK, then W1[h0 + 16(p-NK) .., :]
+  auto issue = [&](int c, int p, float* dst) {
+    const int h0 = c * kWH;
+    if (p < NK)
+      stage_rows<kWK, kWH, kWH + 4, kWT>(dst, w2 + h0, p * kWK, D, H, H - h0);
+    else
+      stage_rows<kWJ, D, PX, kWT>(dst, w1 + (long long)(h0 + (p - NK) * kWJ) * D, 0, kWJ, D);
+  };
+  // wait for slice st (slice p of np of chunk ch), put the next one in flight
+  auto next = [&](int ch, int p, int np, int st) {
+    cp_async_wait<0>();
+    __syncthreads();  // slice st (and do) has landed; slice st-1 and the dh1 tile are done
+    float* dst = ring + ((st + 1) & 1) * SLOT;
+    if (p + 1 < np)
+      issue(ch, p + 1, dst);
+    else if (ch + 1 < chunks)
+      issue(ch + 1, 0, dst);
+    cp_async_commit();
+    return ring + (st & 1) * SLOT;
+  };
+
+  stage_rows<kWR, D, PX, kWT>(dos, dout, r0, R, D);
+  issue(0, 0, ring);
+  cp_async_commit();
+
+  float acc[TR][TC];  // dxn
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
+  for (int ch = 0, st = 0; ch < chunks; ++ch) {
+    const int h0 = ch * kWH, nh = min(kWH, H - h0), np = NK + nh / kWJ;
+    float dg[4][8];  // rows qg + 16i, units 4qk + 64g + f of the chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dg[i][j] = 0.f;
+    for (int p = 0; p < NK; ++p, ++st)
+      tile_pv<4, 8, 16, 16, kWK, PX, kWH + 4>(dg, dos + p * kWK, next(ch, p, np, st), qg, qk);
+    // dh1 = dg * gelu'(h1) into the tile and, with g, to the workspace
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int u = 4 * qk + 64 * g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = qg + 16 * i;
+        const long long row = r0 + r, at = row * H + h0 + u;
+        const bool ok = u < nh && row < R;
+        float hv[4] = {0.f, 0.f, 0.f, 0.f}, pv[4] = {0.f, 0.f, 0.f, 0.f}, gv[4], d[4];
+        if (ok) ld4(hv, h1 + at);
+        if (GP && ok) ld4(pv, gpp + at);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          if (!GP) gelu_pieces(hv[f], gv[f], pv[f]);
+          d[f] = dg[i][4 * g + f] * pv[f];
+        }
+        st4(dh1s + r * kWG + u, d[0], d[1], d[2], d[3]);
+        if (ok) {
+          st4(dh1_out + at, d[0], d[1], d[2], d[3]);
+          if (!GP) st4(g_out + at, gv[0], gv[1], gv[2], gv[3]);
+        }
+      }
+    }
+    for (int p = NK; p < np; ++p, ++st)
+      tile_pv<TR, TC, RG, KG, kWJ, kWG, PX>(acc, dh1s + (p - NK) * kWJ, next(ch, p, np, st), rg,
+                                            kg);
   }
+  __syncthreads();  // the ring is free: it takes the column partials
 
-  float acc[RPW][CPT];  // dxn of rows warp + 8i, columns lane + 32c
+  // LN backward, a row group a row: dx = do + r (dxh - mean(dxh) - xh mean(dxh xh))
+  float psd[TC], psb[TC];  // this thread's column sums of dxn * xh and dxn
 #pragma unroll
-  for (int i = 0; i < RPW; ++i)
+  for (int c = 0; c < TC; ++c) psd[c] = psb[c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  for (int h0 = 0; h0 < H; h0 += kWH) {
-    __syncthreads();  // dos written / the previous chunk consumed
-    for (int i = tid; i < kWH * D; i += kWT) {
-      const int j = i / D, k = i % D;
-      w1s[j * PD + k] = w1[(long long)(h0 + j) * D + k];
-    }
-    for (int i = tid; i < kWH * D; i += kWT) {
-      const int c = i / kWH, j = i % kWH;
-      w2s[j * PD + c] = w2[(long long)c * H + h0 + j];
-    }
-    __syncthreads();
-
-    {  // dg for hidden unit h0 + lane, rows warp + 8i; dh1 = dg * gelu'(h1)
-      float h[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) h[i] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        const float wv = w2s[lane * PD + c];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) h[i] = fmaf(dos[(warp + 8 * i) * PD + c], wv, h[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const long long row = r0 + warp + 8 * i;
-        float gv, gp;
-        if (GP)
-          gp = row < R ? gpp[row * H + h0 + lane] : 0.f;
-        else
-          gelu_pieces(row < R ? h1[row * H + h0 + lane] : 0.f, gv, gp);
-        dh1s[(warp + 8 * i) * PG + lane] = h[i] * gp;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kWH; ++j) {
-      float wv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) wv[c] = w1s[j * PD + lane + 32 * c];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float d = dh1s[(warp + 8 * i) * PG + j];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(d, wv[c], acc[i][c]);
-      }
-    }
-  }
-  __syncthreads();  // w1s and w2s are free: they take dxn and dxn * xh
-
-  // LN backward, one warp per row: dx = do + r (dxh - mean(dxh) - xh mean(dxh xh))
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + 8 * i;
+  for (int i = 0; i < TR; ++i) {
+    const int r = rg + RG * i;
     const long long row = r0 + r;
-    float v[CPT];
+    float v[TC], sc[TC];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) v[c] = row < R ? x[row * D + lane + 32 * c] : 0.f;
-    float mu, rstd;
-    warp_ln_stats<D>(v, eps, mu, rstd);
+    for (int g = 0; g < TC / 4; ++g) {
+      const int col = 4 * kg + 4 * KG * g;
+      float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4];
+      if (row < R) ld4(a, x + row * D + col);
+      ld4(b, s1 + col);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        v[4 * g + f] = a[f];
+        sc[4 * g + f] = b[f];
+      }
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) sum += v[c];
+    const float mu = group_sum<KG>(sum) / D;
+    float q = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float t = v[c] - mu;
+      q += t * t;
+    }
+    const float rstd = 1.f / sqrtf(group_sum<KG>(q) / D + eps);
     float s_a = 0.f, s_b = 0.f;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = lane + 32 * c;
+    for (int c = 0; c < TC; ++c) {
       v[c] = (v[c] - mu) * rstd;  // xh
-      const float dxh = acc[i][c] * s1[col];
+      const float dxh = acc[i][c] * sc[c];
       s_a += dxh;
       s_b += dxh * v[c];
-      w1s[r * PD + col] = acc[i][c];
-      w2s[r * PD + col] = acc[i][c] * v[c];
+      psd[c] += acc[i][c] * v[c];
+      psb[c] += acc[i][c];
     }
-    const float m1 = warp_sum(s_a) / D, m2 = warp_sum(s_b) / D;
+    const float m1 = group_sum<KG>(s_a) / D, m2 = group_sum<KG>(s_b) / D;
     if (row < R) {
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = lane + 32 * c;
-        const float dxh = acc[i][c] * s1[col];
-        dx[row * D + col] = dos[r * PD + col] + rstd * (dxh - m1 - v[c] * m2);
-        xn_out[row * D + col] = v[c] * s1[col] + bn1[col];
+      for (int g = 0; g < TC / 4; ++g) {
+        const int col = 4 * kg + 4 * KG * g;
+        float o[4], xo[4], bb[4], dv[4];
+        ld4(dv, dos + r * PX + col);
+        ld4(bb, bn1 + col);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int c = 4 * g + f;
+          o[f] = dv[f] + rstd * (acc[i][c] * sc[c] - m1 - v[c] * m2);
+          xo[f] = v[c] * sc[c] + bb[f];
+        }
+        st4(dx + row * D + col, o[0], o[1], o[2], o[3]);
+        st4(xn_out + row * D + col, xo[0], xo[1], xo[2], xo[3]);
       }
     }
   }
+  float* red = ring;  // (RG, 2D): [dxn * xh | dxn] summed over a row group's rows
+#pragma unroll
+  for (int g = 0; g < TC / 4; ++g) {
+    const int col = 4 * kg + 4 * KG * g;
+    st4(red + rg * 2 * D + col, psd[4 * g], psd[4 * g + 1], psd[4 * g + 2], psd[4 * g + 3]);
+    st4(red + rg * 2 * D + D + col, psb[4 * g], psb[4 * g + 1], psb[4 * g + 2], psb[4 * g + 3]);
+  }
   __syncthreads();
-  for (int c = tid; c < D; c += kWT) {
-    float sd = 0.f, sb = 0.f;
-    for (int r = 0; r < kWR; ++r) {
-      sd += w2s[r * PD + c];
-      sb += w1s[r * PD + c];
-    }
-    ln_part[(long long)blockIdx.x * 2 * D + c] = sd;
-    ln_part[(long long)blockIdx.x * 2 * D + D + c] = sb;
+  for (int c = tid; c < 2 * D; c += kWT) {
+    float sum = 0.f;
+    for (int r = 0; r < RG; ++r) sum += red[r * 2 * D + c];
+    ln_part[(long long)blockIdx.x * 2 * D + c] = sum;
   }
 }
 
-template <int D, bool GP>
-__global__ void __launch_bounds__(kWT)
-mlp_bwd_w_kernel(const float* __restrict__ xn_in, const float* __restrict__ dout,
-                 const float* __restrict__ h1, const float* __restrict__ gpp,
-                 const float* __restrict__ w2,
-                 float* __restrict__ part, int R, int H, int rows_per_split) {
-  constexpr int PD = D + 1, PG = kWH + 1, CPT = D / 32, RPW = kWR / 8;
-  constexpr int NC2 = (D + kWT - 1) / kWT;
-  extern __shared__ float sm[];
-  float* xn = sm;                // (WR, PD)
-  float* dos = xn + kWR * PD;    // (WR, PD)
-  float* w2s = dos + kWR * PD;   // (WH, PD): w2s[j][c] = W2[c][h0 + j]
-  float* dh1s = w2s + kWH * PD;  // (WR, PG)
-  float* gs = dh1s + kWR * PG;   // (WR, PG)
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h0 = blockIdx.y * kWH;
-  const long long rs0 = (long long)blockIdx.x * rows_per_split;
-  const long long rs1 = min((long long)R, rs0 + rows_per_split);
+// The weight gradients of one row split: blockIdx.x names an output tile of
+// dW1 (H x D) = dh1^T xn (the first ceil(H/128) ceil(D/128) tiles) or of
+// dW2 (D x H) = do^T g, blockIdx.y the split; the first column tile of each
+// also sums its A's columns: db1 from dh1, db2 from do. Each sum runs over
+// the split's rows in order.
+__global__ void __launch_bounds__(kYT, 2)
+mlp_bwd_w_kernel(const float* __restrict__ xn, const float* __restrict__ dout,
+                 const float* __restrict__ dh1, const float* __restrict__ g,
+                 float* __restrict__ part, int R, int D, int H, int rows_per_split) {
+  const int t1 = (H + kYM - 1) / kYM * ((D + kYN - 1) / kYN);
+  const bool second = (int)blockIdx.x >= t1;
+  const int M = second ? D : H, N = second ? H : D;
+  const int tt = second ? blockIdx.x - t1 : blockIdx.x, tn = (N + kYN - 1) / kYN;
+  const int m0 = tt / tn * kYM, n0 = tt % tn * kYN;
+  const float* A = second ? dout : dh1;  // (R, M)
+  const float* B = second ? g : xn;      // (R, N)
   const long long W = 2LL * H * D + H + D;
-  part += blockIdx.x * W;
+  float* out = part + blockIdx.y * W + (second ? (long long)H * D : 0);  // (M, N)
+  float* db = part + blockIdx.y * W + 2LL * H * D + (second ? H : 0);    // (M)
+  const long long rs0 = (long long)blockIdx.y * rows_per_split;
+  const long long rs1 = min((long long)R, rs0 + rows_per_split);
+  const int nst = rs1 > rs0 ? (int)((rs1 - rs0 + kYK - 1) / kYK) : 0;
 
-  for (int i = tid; i < kWH * D; i += kWT) {
-    const int c = i / kWH, j = i % kWH;
-    w2s[j * PD + c] = w2[(long long)c * H + h0 + j];
-  }
-  float a1[RPW][CPT];  // dW1[h0 + warp + 8i][lane + 32c]
-  float a2[RPW][CPT];  // dW2[lane + 32c][h0 + warp + 8i]
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) a1[i][c] = a2[i][c] = 0.f;
-  float db1 = 0.f, db2[NC2];
-#pragma unroll
-  for (int k = 0; k < NC2; ++k) db2[k] = 0.f;
+  extern __shared__ __align__(16) float sm[];
+  auto slot = [&](int s) { return sm + (s % kYS) * kYK * (kYM + kYN); };  // A (YK, YM), B (YK, YN)
+  auto issue = [&](int s) {
+    const int k0 = (int)rs0 + s * kYK;
+    stage_rows<kYK, kYM, kYM, kYT>(slot(s), A + m0, k0, (int)rs1, M, M - m0);
+    stage_rows<kYK, kYN, kYN, kYT>(slot(s) + kYK * kYM, B + n0, k0, (int)rs1, N, N - n0);
+  };
 
-  for (long long t0 = rs0; t0 < rs1; t0 += kWR) {
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + 8 * i;
-      const long long row = t0 + r;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = lane + 32 * c;
-        xn[r * PD + col] = row < rs1 ? xn_in[row * D + col] : 0.f;
-        dos[r * PD + col] = row < rs1 ? dout[row * D + col] : 0.f;
-      }
-    }
-    __syncthreads();
+  if (nst > 0) issue(0);
+  cp_async_commit();
+  if (nst > 1) issue(1);
+  cp_async_commit();
 
-    {  // dg, g and dh1 for hidden unit h0 + lane, rows warp + 8i
-      float h[RPW];
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;
+  const bool sums = n0 == 0 && tid < kYM;  // this thread sums A's column m0 + tid
+  float acc[8][8];  // rows 4rg + 64a + e, columns 4kg + 64g + f
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) h[i] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        const float wv = w2s[lane * PD + c];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int i = 0; i < RPW; ++i) h[i] = fmaf(dos[(warp + 8 * i) * PD + c], wv, h[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const long long row = t0 + warp + 8 * i;
-        float gv, gp;
-        if (GP) {
-          gv = row < rs1 ? h1[row * H + h0 + lane] : 0.f;
-          gp = row < rs1 ? gpp[row * H + h0 + lane] : 0.f;
-        } else {
-          gelu_pieces(row < rs1 ? h1[row * H + h0 + lane] : 0.f, gv, gp);
-        }
-        gs[(warp + 8 * i) * PG + lane] = gv;
-        dh1s[(warp + 8 * i) * PG + lane] = h[i] * gp;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int r = 0; r < kWR; ++r) {
-      float xv[CPT], dv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        xv[c] = xn[r * PD + lane + 32 * c];
-        dv[c] = dos[r * PD + lane + 32 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float d = dh1s[r * PG + warp + 8 * i], gv = gs[r * PG + warp + 8 * i];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          a1[i][c] = fmaf(d, xv[c], a1[i][c]);
-          a2[i][c] = fmaf(dv[c], gv, a2[i][c]);
-        }
-      }
-    }
-    if (tid < kWH)
-      for (int r = 0; r < kWR; ++r) db1 += dh1s[r * PG + tid];
-    if (blockIdx.y == 0) {
-#pragma unroll
-      for (int k = 0; k < NC2; ++k) {
-        const int c = tid + kWT * k;
-        if (c < D)
-          for (int r = 0; r < kWR; ++r) db2[k] += dos[r * PD + c];
-      }
-    }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float dbs = 0.f;
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();  // slice s has landed; slice s-1 is done
+    if (s + 2 < nst) issue(s + 2);
+    cp_async_commit();
+    const float* a = slot(s);
+#pragma unroll 2  // two rows in flight: within 128 registers, two CTAs an SM
+    for (int k = 0; k < kYK; ++k)
+      tile_tn<8, 8, 16, 16, 1, kYM, kYN>(acc, a + k * kYM, a + kYK * kYM + k * kYN, rg, kg);
+    if (sums)
+      for (int k = 0; k < kYK; ++k) dbs += a[k * kYM + tid];
   }
 
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int j = h0 + warp + 8 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + 4 * rg + 64 * (i / 4) + i % 4;
+    if (m >= M) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = lane + 32 * c;
-      part[(long long)j * D + col] = a1[i][c];
-      part[(long long)H * D + (long long)col * H + j] = a2[i][c];
+    for (int gq = 0; gq < 2; ++gq) {
+      const int n = n0 + 4 * kg + 64 * gq;
+      if (n < N)
+        st4(out + (long long)m * N + n, acc[i][4 * gq], acc[i][4 * gq + 1], acc[i][4 * gq + 2],
+            acc[i][4 * gq + 3]);
     }
   }
-  if (tid < kWH) part[2LL * H * D + h0 + tid] = db1;
-  if (blockIdx.y == 0) {
-#pragma unroll
-    for (int k = 0; k < NC2; ++k) {
-      const int c = tid + kWT * k;
-      if (c < D) part[2LL * H * D + H + c] = db2[k];
-    }
-  }
+  if (sums && m0 + tid < M) db[m0 + tid] = dbs;
 }
 
 // out[i] = sum over s < S of part[s * W + i], in order of s
@@ -333,18 +368,22 @@ static int launch_mlp_bwd(const void* x, const void* dout, const void* h1, const
                           void* dx, void* xn, float* ln_part, float* part, int R, int H,
                           int splits, int rps, float eps, cudaStream_t stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const size_t s_dx = mlp_bwd_dx_smem_bytes<D>(), s_w = mlp_bwd_w_smem_bytes<D>();
+  const size_t s_dx = mlp_bwd_dx_smem_bytes<D>();
   cudaFuncSetAttribute(mlp_bwd_dx_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_dx);
-  cudaFuncSetAttribute(mlp_bwd_w_kernel<D, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)s_w);
+  cudaFuncSetAttribute(mlp_bwd_w_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kYSmem);
+  // the workspace after the partials: dh1 (R, H), then g (R, H) on the save-h1 route
+  float* dh1 = part + (long long)splits * (2LL * H * D + H + D);
+  float* g = GP ? nullptr : dh1 + (long long)R * H;
   mlp_bwd_dx_kernel<D, GP><<<(R + kWR - 1) / kWR, kWT, s_dx, stream>>>(
       f(x), f(dout), f(h1), f(gp), s1, bn1, f(w1), f(w2), static_cast<float*>(dx),
-      static_cast<float*>(xn), ln_part, R, H, eps);
+      static_cast<float*>(xn), dh1, g, ln_part, R, H, eps);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  mlp_bwd_w_kernel<D, GP><<<dim3(splits, H / kWH), kWT, s_w, stream>>>(
-      f(xn), f(dout), f(h1), f(gp), f(w2), part, R, H, rps);
+  const int tiles = 2 * ((H + kYM - 1) / kYM) * ((D + kYN - 1) / kYN);
+  mlp_bwd_w_kernel<<<dim3(tiles, splits), kYT, kYSmem, stream>>>(
+      f(xn), f(dout), dh1, GP ? f(h1) : g, part, R, D, H, rps);
   return (int)cudaGetLastError();
 }
 
@@ -382,8 +421,7 @@ static int launch_mlp_bwd_route(int dtype, const void* x, const void* dout, cons
                                       part, R, H, splits, rps, eps, s);
 }
 
-// rows of the dx kernel's tile for each storage type
-static int bwd_row_tile(int dtype) { return dtype == kF32 ? 32 : 64; }
+constexpr int kBwdTile = 64;  // rows of the dx kernel's tile, both storage types
 
 }  // namespace vitocm
 
@@ -391,11 +429,12 @@ static int bwd_row_tile(int dtype) { return dtype == kF32 ? 32 : 64; }
 // gp null (save-h1 route: h1 is the pre-GELU activation) or (R, H) in the
 // storage type (SAVE_GP route: h1 holds g = gelu(h1), gp gelu'(h1));
 // s1, bn1 (D) f32. Workspaces: xn (R, D) in the storage type (the dx
-// kernel writes LN(x) there for the weight kernel), part (splits, 2HD + H +
-// D) and ln_part (ceil(R / 32), 2D) in f32. grads (2HD + H + 3D) f32
-// receives [dW1 (H, D) | dW2 (D, H) | db1 (H) | db2 (D) | ds (D) | dbb (D)].
-// D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
-// launches (0 on success).
+// kernel writes LN(x) there for the weight kernel), part (splits x (2HD +
+// H + D), then for f32 storage R x H more on the SAVE_GP route and 2 R H
+// more on the save-h1 route) and ln_part (ceil(R / 64), 2D) in f32. grads
+// (2HD + H + 3D) f32 receives [dW1 (H, D) | dW2 (D, H) | db1 (H) | db2 (D) |
+// ds (D) | dbb (D)]. D in {192, 384}, H a multiple of 64. Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, const void* h1,
                                     const void* gp, const void* s1, const void* bn1, const void* w1,
                                     const void* w2, void* dx, void* xn, void* part, void* ln_part,
@@ -406,9 +445,8 @@ extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *fs1 = static_cast<const float*>(s1), *fbn1 = static_cast<const float*>(bn1);
   float *fpart = static_cast<float*>(part), *fln = static_cast<float*>(ln_part);
-  const int tile = bwd_row_tile(dtype);
   // rows per split: a whole number of tiles
-  const int rps = ((R + splits - 1) / splits + tile - 1) / tile * tile;
+  const int rps = ((R + splits - 1) / splits + kBwdTile - 1) / kBwdTile * kBwdTile;
   int rc = (int)cudaErrorInvalidValue;
   if (D == 384)
     rc = launch_mlp_bwd_route<384>(dtype, x, dout, h1, gp, fs1, fbn1, w1, w2, dx, xn, fln, fpart,
@@ -421,5 +459,5 @@ extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, 
   float* g = static_cast<float*>(grads);
   rc = reduce_splits(fpart, g, splits, W, s);
   if (rc != 0) return rc;
-  return reduce_splits(fln, g + W, (R + tile - 1) / tile, 2LL * D, s);
+  return reduce_splits(fln, g + W, (R + kBwdTile - 1) / kBwdTile, 2LL * D, s);
 }

@@ -22,7 +22,7 @@ Counterpart of the inference forward of
 
 They launch the kernels of ``csrc/`` for CUDA tensors and their plain twins
 for CPU tensors. Which kernel a CUDA call launches is fixed by its route
-(:func:`mlp_route`), never by a fallback: float32 takes ``fused_mlp.cu`` and
+(:func:`mlp_route`, :func:`mlp_bwd_route`), never by a fallback: float32 takes ``fused_mlp.cu`` and
 ``fused_mlp_bwd.cu`` (CUDA cores); bfloat16 inference (lnout and plain, no
 residuals) takes ``fused_mlp_wgmma.cu`` (wgmma fed by TMA), the bfloat16
 training forward (h1, gp) ``fused_mlp_mma.cu`` and its backward
@@ -50,7 +50,7 @@ _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
 MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (fused_mlp_bwd.cu)
-_BWD_MIN_TILE = 32  # rows of the f32 backward's dx tile; the bf16 one takes 64
+_BWD_MIN_TILE = 64  # rows of the backward's dx tile, both storage types
 
 
 def _gelu_prime(h):
@@ -118,6 +118,37 @@ def mlp_route(x, w1, w2, want=None):
                              f"{x.device}, got {t.dtype} on {t.device} "
                              f"contiguous={t.is_contiguous()}")
     return route
+
+
+def mlp_bwd_route(x, do, h1, w1, w2, gp=None):
+    """The kernel source a CUDA backward with these operands launches:
+    float32 "fused_mlp_bwd.cu", bfloat16 "fused_mlp_bwd_mma.cu". h1 is the
+    saved pre-GELU activation or, with gp (the SAVE_GP route), the saved g.
+    Raises on shapes, dtypes and layouts no kernel takes; the device is the
+    caller's check."""
+    mlp_route(x, w1, w2, "h1")  # the mma.sync kernels' chunk
+    r, d = x.shape
+    hdim = w1.shape[0]
+    hidden = (("h1", h1),) if gp is None else (("g", h1), ("gp", gp))
+    for name, t, shape in (("do", do, (r, d)), *((n, t, (r, hdim)) for n, t in hidden)):
+        if (tuple(t.shape) != shape or t.device != x.device or t.dtype != x.dtype
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"fused_mlp_bwd: {name} must be a contiguous, 16-byte aligned "
+                             f"{x.dtype} {shape} tensor on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return "fused_mlp_bwd.cu" if x.dtype == torch.float32 else "fused_mlp_bwd_mma.cu"
+
+
+def bwd_workspace(r, d, hdim, dtype, save_gp=False):
+    """f32 values of the backward's two workspaces for r rows: ``part``, the
+    MLP_SPLITS weight-gradient partials of (2 H D + H + D) values each, then
+    for float32 the dx kernel's dh1 (R, H) and, on the save-h1 route, g
+    (R, H), which the weight kernel reads; ``ln_part``, 2 D values for each
+    dx tile of _BWD_MIN_TILE rows."""
+    part = MLP_SPLITS * (2 * hdim * d + hdim + d)
+    if dtype == torch.float32:
+        part += (1 if save_gp else 2) * r * hdim
+    return part, -(-r // _BWD_MIN_TILE) * 2 * d
 
 
 def _check(x, w1, w2, want=None):
@@ -265,19 +296,16 @@ def fused_mlp_bwd_gp(x, do, g, gp, scale, bias, w1, w2, eps=1e-6):
 
 
 def _launch_bwd(x, do, h1, gp, scale, bias, w1, w2, eps):
-    r, d, hdim, _ = _check(x, w1, w2, "h1")  # the mma.sync kernels' chunk
-    hidden = (("h1", h1),) if gp is None else (("g", h1), ("gp", gp))
-    for name, t, shape in (("do", do, (r, d)), *((n, t, (r, hdim)) for n, t in hidden)):
-        if (tuple(t.shape) != shape or t.device != x.device or t.dtype != x.dtype
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"fused_mlp_bwd: {name} must be a contiguous, 16-byte aligned "
-                             f"{x.dtype} {shape} tensor on {x.device}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd: no kernel for device {x.device}")
+    mlp_bwd_route(x, do, h1, w1, w2, gp)
+    r, d = x.shape
+    hdim = w1.shape[0]
     s1, bn1 = _f32_vector("scale", scale, d, x.device), _f32_vector("bias", bias, d, x.device)
     width = 2 * hdim * d + hdim + d
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty(MLP_SPLITS * width, **f32)
-    ln_part = torch.empty(-(-r // _BWD_MIN_TILE) * 2 * d, **f32)
+    part, ln_part = (torch.empty(n, **f32)
+                     for n in bwd_workspace(r, d, hdim, x.dtype, gp is not None))
     grads = torch.empty(width + 2 * d, **f32)
     dx, xn = torch.empty_like(x), torch.empty_like(x)  # xn: LN(x), from the dx kernel
     rc = build.library().vitocm_fused_mlp_bwd(
