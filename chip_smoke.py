@@ -11,18 +11,22 @@ and then, failing on the first phase that fails:
    SASS_CHECKS and asserts that they spill nothing and that their SASS holds
    the opcodes of their design: the wgmma kernels (``csrc/*_wgmma.cu``:
    inference and training attention forward, the training attention's dk/dv
-   and dq kernels on both backward routes, the inference MLP) warpgroup
-   products (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA); the f32
-   attention kernels (forward at both head dims and both layouts, dk/dv and
-   dq on both backward routes) and the f32 MLP kernels (the forward in every
-   instance the launcher builds, the backward's dx and weight kernels) FFMA
+   and dq kernels on both backward routes, the MLP forward in every bf16
+   instance, inference and training, and the bf16 MLP backward's dx and
+   weight kernels) warpgroup products (HGMMA) and TMA loads (UTMALDG) and no
+   mma.sync (HMMA); the f32 attention kernels (forward at both head dims and
+   both layouts, dk/dv and dq on both backward routes) and the f32 MLP
+   kernels (the forward in every instance the launcher builds, the
+   backward's dx and weight kernels) FFMA
    and cp.async (LDGSTS) and no tensor-core instruction (no TF32);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
    kernel, the twin and, where one PyTorch call computes the same function,
-   that call (CUDA events, median of 10 after warm-up), and the MLP block's
-   products alone through cuBLAS (a GEMM-only reference: fc1 and fc2 at the
+   that call (CUDA events, median of 10 after warm-up; for the saved-P
+   forward the math attention, which returns O and P, with SDPA beside it as
+   a control that returns no P), and the MLP block's products alone through
+   cuBLAS (a GEMM-only reference: fc1 and fc2 at the
    mosaic's and the MIM step's rows, the backward's four products at the MIM
    step's); the mosaic kernels
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
@@ -138,17 +142,18 @@ KERNELS = {
                         FA + ":74"),
     "flash_attention_bwd": ("fa", {"f32": "attention_bwd.cu", "bf16": "attention_bwd_wgmma.cu"},
                             FA + ":297"),
-    "fused_mlp_block_h1": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"},
+    "fused_mlp_block_h1": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
                            FM + ":123"),
-    "fused_mlp_bwd": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
+    "fused_mlp_bwd": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_wgmma.cu"},
                       FM + ":243"),
     "histogram_u8_kernel": ("th", {"u8": "histogram_u8.cu"}, TH + ":71"),
     "flash_attention_savep": ("fa", {"f32": "attention_savep.cu", "bf16": "attention_savep_mma.cu"},
                               FA + ":74"),
     "flash_attention_bwd_savep": ("fa", {"f32": "attention_savep.cu",
                                          "bf16": "attention_savep_bwd_wgmma.cu"}, FA + ":211"),
-    "fused_mlp_block_gp": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_mma.cu"}, FM + ":123"),
-    "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_mma.cu"},
+    "fused_mlp_block_gp": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
+                           FM + ":123"),
+    "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_wgmma.cu"},
                          FM + ":243"),
     "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
     "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":44"),
@@ -189,10 +194,15 @@ STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 38
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
+# (wrapper, dtype tag) -> (what, call): a PyTorch call timed beside a kernel
+# as a control, not the same function (phase 1)
+CONTROLS = {}
 # phase 0: kernel (a part of its mangled name) -> (instances at least, SASS
 # opcodes it must hold, opcodes it must not). The wgmma kernels
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
-# no mma.sync (HMMA); the f32 attention kernels (attention_qkv.cu, both head
+# no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
+# plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
+# and its weight kernel in 2; the f32 attention kernels (attention_qkv.cu, both head
 # dims and both layouts; the dk/dv and dq kernels of attention_bwd.cu and
 # attention_savep.cu) and the f32 MLP kernels (fused_mlp.cu: 2 widths x 4
 # modes; fused_mlp_bwd.cu: the dx kernel, 2 widths x 2 routes, and the
@@ -201,7 +211,8 @@ BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
 SASS_CHECKS = {
-    "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": _WGMMA,
+    "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": (8, *_WGMMA[1:]),
+    "mlp_bwd_dx_wgmma_kernel": (4, *_WGMMA[1:]), "mlp_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]),
     "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
     "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,
     "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
@@ -407,10 +418,15 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
 
     sdpa_in = [t.unflatten(0, (MIM_BATCH, 3)).detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
+    heads = [t.unflatten(0, (MIM_BATCH, 3)) for t in (q, k, v)]
+    # the same function, O and P, in one call; SDPA (O alone) is a control
+    math_attention = torch.ops.aten._scaled_dot_product_attention_math
     cases["flash_attention_savep"] = (
         lambda: fa.flash_attention_savep(q, k, v), lambda: fa.flash_attention_savep_plain(q, k, v),
-        check_savep, lambda: F.scaled_dot_product_attention(*sdpa_in),
+        check_savep, lambda: math_attention(*heads, scale=hd ** -0.5),
         4 * bh * n * n * hd, 4 * bh * n * hd * isz + p_bytes + bh * n * 4)
+    CONTROLS[("flash_attention_savep", tag)] = (
+        "SDPA, a control (returns no P)", lambda: F.scaled_dot_product_attention(*heads))
     def check_bwd_savep(g, w):
         err = _compare("flash_attention_bwd_savep", tag, g, w, GRAD_TOL[tag])
         again = fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do)
@@ -559,6 +575,9 @@ def phase_kernels():
             lib_ms = cuda_ms(library) if library is not None else None
             bound_ms, bound_by = bound(flops, nbytes, tag)
             lib = f", library {lib_ms:.3f} ms" if lib_ms is not None else ""
+            if (name, tag) in CONTROLS:
+                what, control = CONTROLS[(name, tag)]
+                lib += f", {what} {cuda_ms(control):.3f} ms"
             print(f"  {name}[{tag}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
                   f"bound {bound_ms:.3f} ms ({bound_by})")
             results[(name, tag)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -67,6 +67,18 @@ def _mlp_cases(dtype_rows_d):
     return list(dict.fromkeys(cases))
 
 
+def _mlp_bf16_training_cases():
+    """(bfloat16, rows, D, H) around the training MLP's wgmma tiles (64-row
+    warpgroups in 128-row CTAs, the weight kernel's 64-row slices, 32-unit
+    chunks and 128-unit weight tiles), one tile past a wave of 132 (16897
+    rows: the forward splits it four ways on an H100) and at the MIM step's
+    36880 rows: both widths, H = 4 D and H a multiple of 32, not of 64 (800,
+    1568)."""
+    rows = (1, 63, 64, 65, 127, 128, 129, 257, 1100, 16897, 36880)
+    return [(torch.bfloat16, r, d, h) for d in (192, 384) for h in (4 * d, 800 if d == 192 else 1568)
+            for r in rows if r < 16897 or h == 4 * d]
+
+
 def _mlp_inputs(dev, seed, dtype, rows, d, h):
     """x, do (rows, D), scale, bias (D), w1 (H, D), b1 (H), w2 (D, H), b2 (D)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -140,14 +152,14 @@ def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
 
 
 def _digests(dev):
-    """SHA-256 of kernel outputs on numpy-seeded inputs: the MLP training
-    forwards (f32 and bf16), the bf16 training attention (wgmma, dispatched
-    through attention_qkv.cu and attention_bwd.cu), the f32 LN-out MLP, the
-    bf16 inference attention and LN-out MLP (wgmma), and the saved-P
-    attention, forward and backward, f32 and bf16 (which shares the
-    backward's row statistics). The f32 training and inference attention are
-    drawn (their inputs keep the draws of the others in place) but neither
-    computed nor kept."""
+    """SHA-256 of kernel outputs on numpy-seeded inputs: the f32 MLP training
+    forwards, the bf16 training attention (wgmma, dispatched through
+    attention_qkv.cu and attention_bwd.cu), the f32 LN-out MLP, the bf16
+    inference attention and LN-out MLP (wgmma), and the saved-P attention
+    forward, f32 and bf16 (which shares the backward's row statistics). The
+    f32 training and inference attention and the bf16 MLP training forwards
+    are drawn (their inputs keep the draws of the others in place) but
+    neither computed nor kept."""
     import hashlib
 
     rng = np.random.default_rng(6)
@@ -172,8 +184,9 @@ def _digests(dev):
         mlp = (t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1),
                t(h, d, dtype=dtype, std=d ** -0.5), t(h, dtype=torch.float32, std=0.1),
                t(d, h, dtype=dtype, std=h ** -0.5), t(d, dtype=torch.float32, std=0.1))
-        keep(f"fused_mlp_block_h1[{tag}]", fm.fused_mlp_block_h1(x, *mlp))
-        keep(f"fused_mlp_block_gp[{tag}]", fm.fused_mlp_block_gp(x, *mlp))
+        if tag == "f32":
+            keep(f"fused_mlp_block_h1[{tag}]", fm.fused_mlp_block_h1(x, *mlp))
+            keep(f"fused_mlp_block_gp[{tag}]", fm.fused_mlp_block_gp(x, *mlp))
     t(2, 130, 3 * 6 * 64, dtype=torch.float32)  # the f32 inference attention's draw
     keep("fused_mlp_block_lnout[f32]", fm.fused_mlp_block_lnout(
         x, *mlp, t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1)))
@@ -203,9 +216,14 @@ def _digests(dev):
 # the saved-P backward. Each must give the same bits. The saved-P
 # backward's entries were dropped when its kernels were redesigned (bf16
 # on wgmma, f32 on register tiles), which changed the order of its f32
-# sums on purpose; test_savep_attention_kernels_match_plain holds it.
+# sums on purpose; test_savep_attention_kernels_match_plain holds it. The
+# bf16 MLP training forwards' entries (h1, gp) were dropped when they moved
+# from mma.sync to the wgmma kernel of the inference forward, which changed
+# the order of their f32 sums on purpose; test_mlp_training_kernels_match_plain
+# and test_mlp_gp_kernels_match_plain hold them. fused_mlp_block_lnout[bf16]
+# reproducing shows that the inference instances of that edited source kept
+# their bits.
 RECORDED_DIGESTS = {
-    "fused_mlp_block_h1[bf16]": "2533b057ee11d01f", "fused_mlp_block_gp[bf16]": "e708bb277ec8f537",
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
     "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
     "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564",
@@ -279,7 +297,8 @@ def test_flash_attention_kernels_are_deterministic(cuda, dtype, bh, n, d):
 
 
 @pytest.mark.parametrize("dtype,rows,d,h",
-                         _mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)]))
+                         list(dict.fromkeys(_mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)])
+                                            + _mlp_bf16_training_cases())))
 def test_mlp_training_kernels_match_plain(cuda, dtype, rows, d, h):
     """The save-h1 forward and its backward against their twins, each
     bit-equal across two calls."""
@@ -408,7 +427,8 @@ def test_savep_attention_kernels_match_plain(cuda, dtype, bh, n, d):
 
 
 @pytest.mark.parametrize("dtype,rows,d,h",
-                         _mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)]))
+                         list(dict.fromkeys(_mlp_cases([(70, 384), (130, 192), (1, 384), (1100, 384)])
+                                            + _mlp_bf16_training_cases())))
 def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d, h):
     """The SAVE_GP forward against its twin, its out bit-equal to the h1
     forward's; the gp backward against its twin, bit-equal across two calls."""

@@ -91,8 +91,11 @@ def test_training_attention_routes_raise_on_what_no_kernel_takes(dtype, name, ca
 @pytest.mark.parametrize("dtype,d,h,residual,want", [
     (BF16, 384, 1536, None, "fused_mlp_wgmma.cu"),
     (BF16, 192, 800, None, "fused_mlp_wgmma.cu"),  # H a multiple of the wgmma chunk only
-    (BF16, 384, 1536, "h1", "fused_mlp_mma.cu"),
-    (BF16, 192, 768, "gp", "fused_mlp_mma.cu"),
+    (BF16, 384, 1536, "h1", "fused_mlp_wgmma.cu"),
+    (BF16, 192, 768, "gp", "fused_mlp_wgmma.cu"),
+    # the training routes too: H a multiple of the 32-unit chunk, not of 64
+    (BF16, 192, 800, "h1", "fused_mlp_wgmma.cu"),
+    (BF16, 384, 1568, "gp", "fused_mlp_wgmma.cu"),
     (F32, 384, 1536, None, "fused_mlp.cu"),
     (F32, 192, 768, "h1", "fused_mlp.cu"),
     # f32: H a multiple of 64, not of the kernels' 128-unit chunk
@@ -123,7 +126,8 @@ def _bwd(dtype, d=384, h=1536, rows=5, gp=False):
 @pytest.mark.parametrize("gp", [False, True])
 @pytest.mark.parametrize("dtype,d,h,want", [(F32, 384, 1536, "fused_mlp_bwd.cu"),
                                             (F32, 192, 832, "fused_mlp_bwd.cu"),
-                                            (BF16, 384, 1536, "fused_mlp_bwd_mma.cu")])
+                                            (BF16, 384, 1536, "fused_mlp_bwd_wgmma.cu"),
+                                            (BF16, 192, 800, "fused_mlp_bwd_wgmma.cu")])
 def test_mlp_bwd_route_names_the_kernel(dtype, d, h, want, gp):
     assert fm.mlp_bwd_route(*_bwd(dtype, d, h, gp=gp)) == want
 
@@ -131,6 +135,7 @@ def test_mlp_bwd_route_names_the_kernel(dtype, d, h, want, gp):
 @pytest.mark.parametrize("case,match", [
     ("do rows", "do must be"), ("h1 width", "h1 must be"), ("g dtype", "g must be"),
     ("gp misaligned", "gp must be"), ("H 800", "H % 64"), ("h1 not contiguous", "h1 must be"),
+    ("bf16 H 816", "H % 32"),
 ])
 def test_mlp_bwd_route_raises_on_what_no_kernel_takes(case, match):
     x, do, h1, w1, w2, gp = _bwd(F32, gp=case.startswith(("g ", "gp")))
@@ -144,23 +149,45 @@ def test_mlp_bwd_route_raises_on_what_no_kernel_takes(case, match):
         gp = torch.zeros(5 * 1536 + 1)[1:].view(5, 1536)
     elif case == "H 800":
         x, do, h1, w1, w2, gp = _bwd(F32, h=800)
+    elif case == "bf16 H 816":
+        x, do, h1, w1, w2, gp = _bwd(BF16, h=816)
     else:
         h1 = torch.zeros(1536, 5).T
     with pytest.raises(ValueError, match=match):
         fm.mlp_bwd_route(x, do, h1, w1, w2, gp)
 
 
-@pytest.mark.parametrize("rows", [1, 63, 64, 65, 36880])
-@pytest.mark.parametrize("dtype,gp,hidden", [(F32, False, 2), (F32, True, 1), (BF16, False, 0),
-                                             (BF16, True, 0)])
+@pytest.mark.parametrize("rows,sms,want", [
+    (1, 132, (1, 1)), (16896, 132, (132, 1)),  # one wave: nothing split
+    (16897, 132, (132, 4)),  # one tile past it, split 4 ways
+    (36880, 132, (264, 4)),  # the MIM step: 289 tiles, 25 past two waves
+    (33792, 132, (264, 1)),  # whole waves
+    (36880, 114, (289, 1)),  # 61 tiles past two waves of 114: 114 // 61 = 1, none split
+    (31744, 114, (228, 4)), (34304, 114, (228, 2)),  # 20 and 40 past two waves
+])
+def test_fwd_split_runs_the_last_wave_in_parts(rows, sms, want):
+    """The bf16 training forward's tail tiles: (split_from, parts)."""
+    assert fm.fwd_split(rows, sms) == want
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 127, 128, 129, 36880])
+@pytest.mark.parametrize("dtype,gp,hidden", [(F32, False, 2), (F32, True, 1), (BF16, False, 2),
+                                             (BF16, True, 1)])
 def test_mlp_bwd_workspace_sizes(rows, dtype, gp, hidden):
-    """part: the split partials, then the f32 dx kernel's dh1 (R, H) and, on
-    the save-h1 route, g (R, H); ln_part: 2 D values a 64-row dx tile."""
+    """part: the split partials, then the dx kernel's dh1 (R, H) and, on the
+    save-h1 route, g (R, H), in the storage dtype; ln_part a row a 64-row
+    tile. float32: partials of 2 H D + H + D values, rows of 2 D ([ds |
+    dbb]); bfloat16: partials of 2 H D + H (db2 moved to ln_part), dh1 and g
+    two to an f32 value, rows of 3 D ([db2 | ds | dbb])."""
     d, h = 384, 1536
     part, ln_part = fm.bwd_workspace(rows, d, h, dtype, gp)
-    assert part == fm.MLP_SPLITS * (2 * h * d + h + d) + hidden * rows * h
     assert fm._BWD_MIN_TILE == 64
-    assert ln_part == -(-rows // 64) * 2 * d
+    if dtype == F32:
+        assert part == fm.MLP_SPLITS * (2 * h * d + h + d) + hidden * rows * h
+        assert ln_part == -(-rows // 64) * 2 * d
+    else:
+        assert part == fm.MLP_SPLITS * (2 * h * d + h) + hidden * rows * h // 2
+        assert ln_part == -(-rows // 64) * 3 * d
 
 
 @pytest.mark.parametrize("case,match", [
@@ -197,6 +224,7 @@ def test_attention_route_raises_on_what_no_kernel_takes(dtype, case, match):
     ("D 256", "D in"),
     ("H 48", "H % 32"),
     ("training H 800", "H % 64"),
+    ("bf16 training H 816", "H % 32"),
     ("swapped weights", "w1"),
     ("mixed dtypes", "must be contiguous"),
     ("1-D x", r"\(R, D\)"),
@@ -208,9 +236,12 @@ def test_mlp_route_raises_on_what_no_kernel_takes(case, match):
         x, w1, w2 = _mlp(BF16, d=256, h=1024)
     elif case == "H 48":
         x, w1, w2 = _mlp(BF16, h=48)
-    elif case == "training H 800":
-        x, w1, w2 = _mlp(BF16, d=192, h=800)
+    elif case == "training H 800":  # f32: H a multiple of 64 on every route
+        x, w1, w2 = _mlp(F32, d=192, h=800)
         residual = "h1"
+    elif case == "bf16 training H 816":  # bf16: a multiple of the 32-unit chunk
+        x, w1, w2 = _mlp(BF16, d=192, h=816)
+        residual = "gp"
     elif case == "swapped weights":
         w1, w2 = w2, w1
     elif case == "mixed dtypes":

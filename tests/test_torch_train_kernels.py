@@ -87,10 +87,14 @@ def _mlp_arrays(seed, r=70, d=64, hdim=256):
 
 @pytest.mark.parametrize("tag,r,d", [
     pytest.param("f32", 70, 64, id="f32"), pytest.param("bf16", 70, 64, id="bf16"),
-    *(pytest.param("f32", r, d, id=f"f32-{r}x{d}") for d in (192, 384) for r in (63, 65, 129))])
+    *(pytest.param("f32", r, d, id=f"f32-{r}x{d}") for d in (192, 384) for r in (63, 65, 129)),
+    *(pytest.param("bf16", r, d, id=f"bf16-{r}x{d}") for d in (192, 384)
+      for r in (63, 65, 127, 129, 257))])
 def test_mlp_function_matches_jax_vjp(tag, r, d):
-    """At D = 64 in both dtypes, then in float32 at the CUDA kernels' widths
-    (H = 4 D) with row counts at the edges of their 64-row tiles."""
+    """At D = 64 in both dtypes, then at the CUDA kernels' widths (H = 4 D)
+    with row counts at the edges of their tiles: float32's 64-row tiles, and
+    bfloat16's 64-row warpgroups in 128-row CTAs (and the weight kernel's
+    64-row slices)."""
     a = _mlp_arrays(7, r, d, 256 if d == 64 else 4 * d)
     names = ("x", "s", "b", "w1", "b1", "w2", "b2")
     jargs, targs = zip(*(_pair(a[k], tag) for k in names))

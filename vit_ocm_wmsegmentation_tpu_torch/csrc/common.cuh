@@ -29,6 +29,22 @@ __device__ __forceinline__ void gelu_pieces(float h, float& g, float& gp) {
   gp = phi + h * (expf(-0.5f * h * h) * 0.39894228040143268f);
 }
 
+// the same for the bf16 training kernels, which round g and gp (or dg * gp)
+// to bf16: Phi by Abramowitz and Stegun 7.1.26 (|error| < 1.5e-7 on erf),
+// whose exponential is phi's, 1 - erf(|h| / sqrt 2) = q(t) exp(-h^2 / 2),
+// and exp by ex2.approx: one exponential and one reciprocal where erff and
+// expf take some forty instructions
+__device__ __forceinline__ void gelu_pieces_bf16(float h, float& g, float& gp) {
+  const float t = __fdividef(1.f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(h), 1.f));
+  const float e = __expf(-0.5f * h * h);
+  const float q =
+      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
+                                                    t * (-1.453152027f + t * 1.061405429f)))) * e;
+  const float phi = h >= 0.f ? 1.f - 0.5f * q : 0.5f * q;
+  g = h * phi;
+  gp = phi + h * (e * 0.39894228040143268f);
+}
+
 // LayerNorm of one row held as v[c] = row[lane + 32*c] across a warp
 template <int D>
 __device__ __forceinline__ void warp_ln_stats(const float (&v)[D / 32], float eps, float& mu,

@@ -16,7 +16,7 @@
 //
 // Weight layouts are PyTorch's nn.Linear ones, as the port's ViT holds them:
 // w1 = fc1.weight (H, D), w2 = fc2.weight (D, H), both contiguous in the
-// storage type (f32 here, bf16 in fused_mlp_mma.cu). LayerNorm scales and
+// storage type (f32 here, bf16 in fused_mlp_wgmma.cu). LayerNorm scales and
 // all biases come in as f32.
 //
 // What bounds it on the H100: the (rows, H) hidden activation is what the
@@ -50,8 +50,7 @@
 // Shared memory at D = 384: xn 97 KB, the g tile 36 KB, two slots of 34 KB:
 // 201 KB, one CTA an SM. A chunk past H (H a multiple of 64, not of 128)
 // reads zero rows of W1 and walks only its valid W2 slices. bf16 storage
-// takes the tensor-core kernels of fused_mlp_wgmma.cu (inference) and
-// fused_mlp_mma.cu (the training forward).
+// takes the wgmma kernel of fused_mlp_wgmma.cu, inference and training.
 //
 // Numerics, kept from the TPU kernel: LN statistics in f32 (biased
 // variance); f32 products and accumulation (the TPU kernel's roundings of
@@ -235,67 +234,42 @@ static int launch_mlp(const void* x, const float* s1, const float* bn1, const vo
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels: fused_mlp_mma.cu for the
-// training forward (h1 not null), fused_mlp_wgmma.cu for inference (its own
-// entry point, vitocm_fused_mlp_wgmma)
 template <int D>
-int launch_mlp_mma(const void* x, const float* s1, const float* bn1, const void* w1,
-                   const float* b1, const void* w2, const float* b2, void* out, void* h1,
-                   void* gp, int R, int H, float eps, cudaStream_t stream);
-
-template <int D, bool LNOUT>
-static int launch_any(int dtype, const void* x, const float* s1, const float* bn1,
-                      const void* w1, const float* b1, const void* w2, const float* b2,
-                      const float* s2, const float* bn2, void* out, void* z, void* h1, void* gp,
-                      int R, int H, float eps, cudaStream_t stream) {
-  if (dtype == kF32)
-    return launch_mlp<D, LNOUT>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H, eps,
-                                stream);
-  if constexpr (!LNOUT) {
-    if (dtype == kBF16 && h1 != nullptr)
-      return launch_mlp_mma<D>(x, s1, bn1, w1, b1, w2, b2, out, h1, gp, R, H, eps, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D>
-static int dispatch_lnout(int dtype, int lnout, const void* x, const float* s1,
-                          const float* bn1, const void* w1, const float* b1, const void* w2,
-                          const float* b2, const float* s2, const float* bn2, void* out,
-                          void* z, void* h1, void* gp, int R, int H, float eps,
-                          cudaStream_t stream) {
+static int dispatch_lnout(int lnout, const void* x, const float* s1, const float* bn1,
+                          const void* w1, const float* b1, const void* w2, const float* b2,
+                          const float* s2, const float* bn2, void* out, void* z, void* h1,
+                          void* gp, int R, int H, float eps, cudaStream_t stream) {
   if (lnout)
-    return launch_any<D, true>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
-                               eps, stream);
-  return launch_any<D, false>(dtype, x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H,
-                              eps, stream);
+    return launch_mlp<D, true>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H, eps,
+                               stream);
+  return launch_mlp<D, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1, gp, R, H, eps,
+                              stream);
 }
 
 }  // namespace vitocm
 
-// x, out, z (R, D); h1, gp (R, H); w1 (H, D); w2 (D, H) in the storage
-// type; s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0 ignores s2, bn2
-// and z; h1 may be null, and must be with lnout = 1; gp not null (it needs
-// h1) takes the SAVE_GP route: g = gelu(h1) into h1, gelu'(h1) into gp.
-// bf16 only with h1 (the training forward); bf16 inference takes
-// vitocm_fused_mlp_wgmma. D in {192, 384}, H a multiple of 64. Returns cudaGetLastError() after the
-// launch (0 on success).
+// x, out, z (R, D); h1, gp (R, H); w1 (H, D); w2 (D, H) in f32; s1, bn1, s2,
+// bn2, b2 (D) and b1 (H) in f32. lnout = 0 ignores s2, bn2 and z; h1 may be
+// null, and must be with lnout = 1; gp not null (it needs h1) takes the
+// SAVE_GP route: g = gelu(h1) into h1, gelu'(h1) into gp. float32 only
+// (dtype 0); bf16 storage takes vitocm_fused_mlp_wgmma. D in {192, 384}, H a
+// multiple of 64. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int vitocm_fused_mlp(int dtype, int lnout, const void* x, const void* s1,
                                 const void* bn1, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* s2, const void* bn2, void* out,
                                 void* z, void* h1, void* gp, int R, int D, int H, float eps,
                                 void* stream) {
   using namespace vitocm;
-  if (R < 1 || H < 64 || H % 64 != 0 || (lnout && (z == nullptr || h1 != nullptr)) ||
-      (gp != nullptr && h1 == nullptr))
+  if (dtype != kF32 || R < 1 || H < 64 || H % 64 != 0 ||
+      (lnout && (z == nullptr || h1 != nullptr)) || (gp != nullptr && h1 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (D == 384)
-    return dispatch_lnout<384>(dtype, lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2),
-                               f(bn2), out, z, h1, gp, R, H, eps, s);
+    return dispatch_lnout<384>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2), out,
+                               z, h1, gp, R, H, eps, s);
   if (D == 192)
-    return dispatch_lnout<192>(dtype, lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2),
-                               f(bn2), out, z, h1, gp, R, H, eps, s);
+    return dispatch_lnout<192>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2), out,
+                               z, h1, gp, R, H, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,7 @@
 //     in slices of 32 through a three-slot cp.async ring, 96 KB.
 // The workspace is part = splits x (2 H D + H + D) partials, then dh1
 // (R, H) and, on the save-h1 route, g (R, H), all f32.
-// bf16 storage takes the tensor-core kernels of fused_mlp_bwd_mma.cu.
+// bf16 storage takes the wgmma kernels of fused_mlp_bwd_wgmma.cu.
 //
 // Numerics: LN statistics recomputed from x in f32 (biased variance);
 // every product in f32, each sum over its inner index in order; erff where
@@ -362,6 +362,31 @@ int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_
   return (int)cudaGetLastError();
 }
 
+// out[i] = sum over s < S of part[s * W + i] for a tall part (S >> W): a
+// block sums 32 columns, each of its 8 warps a fixed range of rows in order,
+// then the 8 warp sums in order
+__global__ void reduce_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int S,
+                                   int W) {
+  __shared__ float sums[8][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, col = blockIdx.x * 32 + lane;
+  const int per = (S + 7) / 8, s0 = warp * per, s1 = min(S, s0 + per);
+  float acc = 0.f;
+  if (col < W)
+    for (int s = s0; s < s1; ++s) acc += part[(long long)s * W + col];
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && col < W) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += sums[w][lane];
+    out[col] = t;
+  }
+}
+
+static int reduce_rows(const float* part, float* out, int S, int W, cudaStream_t stream) {
+  reduce_rows_kernel<<<(W + 31) / 32, 256, 0, stream>>>(part, out, S, W);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool GP>
 static int launch_mlp_bwd(const void* x, const void* dout, const void* h1, const void* gp,
                           const float* s1, const float* bn1, const void* w1, const void* w2,
@@ -387,41 +412,44 @@ static int launch_mlp_bwd(const void* x, const void* dout, const void* h1, const
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels of fused_mlp_bwd_mma.cu
+// bf16 storage takes the wgmma kernels of fused_mlp_bwd_wgmma.cu
 template <int D, bool GP>
-int launch_mlp_bwd_mma(const void* x, const void* dout, const void* h1, const void* gp,
-                       const float* s1, const float* bn1, const void* w1, const void* w2,
-                       void* dx, void* xn, float* ln_part, float* part, int R, int H, int splits,
-                       int rps, float eps, cudaStream_t stream);
+int launch_mlp_bwd_wgmma(const void* x, const void* dout, const void* h1, const void* gp,
+                         const float* s1, const float* bn1, const void* w1, const void* w2,
+                         void* dx, void* xn, float* ln_part, float* part, int R, int H,
+                         int max_splits, float eps, int* splits, cudaStream_t stream);
 
+constexpr int kBwdTile = 64;  // rows of a dx tile's ln_part row, both storage types
+
+// the launches of one storage type and route; *used: the split partials written
 template <int D, bool GP>
 static int launch_any_mlp_bwd(int dtype, const void* x, const void* dout, const void* h1,
                               const void* gp, const float* s1, const float* bn1, const void* w1,
                               const void* w2, void* dx, void* xn, float* ln_part, float* part,
-                              int R, int H, int splits, int rps, float eps, cudaStream_t s) {
-  if (dtype == kF32)
-    return launch_mlp_bwd<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part, R, H,
-                                 splits, rps, eps, s);
+                              int R, int H, int splits, float eps, int* used, cudaStream_t s) {
   if (dtype == kBF16)
-    return launch_mlp_bwd_mma<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part, R,
-                                     H, splits, rps, eps, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_mlp_bwd_wgmma<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part,
+                                       R, H, splits, eps, used, s);
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  // rows per split: a whole number of tiles
+  const int rps = ((R + splits - 1) / splits + kBwdTile - 1) / kBwdTile * kBwdTile;
+  *used = splits;
+  return launch_mlp_bwd<D, GP>(x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part, part, R, H,
+                               splits, rps, eps, s);
 }
 
 template <int D>
 static int launch_mlp_bwd_route(int dtype, const void* x, const void* dout, const void* h1,
                                 const void* gp, const float* s1, const float* bn1,
                                 const void* w1, const void* w2, void* dx, void* xn,
-                                float* ln_part, float* part, int R, int H, int splits, int rps,
-                                float eps, cudaStream_t s) {
+                                float* ln_part, float* part, int R, int H, int splits, float eps,
+                                int* used, cudaStream_t s) {
   if (gp != nullptr)
     return launch_any_mlp_bwd<D, true>(dtype, x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part,
-                                       part, R, H, splits, rps, eps, s);
+                                       part, R, H, splits, eps, used, s);
   return launch_any_mlp_bwd<D, false>(dtype, x, dout, h1, gp, s1, bn1, w1, w2, dx, xn, ln_part,
-                                      part, R, H, splits, rps, eps, s);
+                                      part, R, H, splits, eps, used, s);
 }
-
-constexpr int kBwdTile = 64;  // rows of the dx kernel's tile, both storage types
 
 }  // namespace vitocm
 
@@ -429,11 +457,14 @@ constexpr int kBwdTile = 64;  // rows of the dx kernel's tile, both storage type
 // gp null (save-h1 route: h1 is the pre-GELU activation) or (R, H) in the
 // storage type (SAVE_GP route: h1 holds g = gelu(h1), gp gelu'(h1));
 // s1, bn1 (D) f32. Workspaces: xn (R, D) in the storage type (the dx
-// kernel writes LN(x) there for the weight kernel), part (splits x (2HD +
-// H + D), then for f32 storage R x H more on the SAVE_GP route and 2 R H
-// more on the save-h1 route) and ln_part (ceil(R / 64), 2D) in f32. grads
-// (2HD + H + 3D) f32 receives [dW1 (H, D) | dW2 (D, H) | db1 (H) | db2 (D) |
-// ds (D) | dbb (D)]. D in {192, 384}, H a multiple of 64. Returns
+// kernel writes LN(x) there for the weight kernel); part, for f32 storage
+// splits x (2HD + H + D) f32 partials, then R x H f32 more on the SAVE_GP
+// route and 2 R H on the save-h1 route, for bf16 splits x (2HD + H) f32
+// partials, then R x H bf16 more on the SAVE_GP route and 2 R H on the
+// save-h1 route; ln_part (ceil(R / 64), 2D) f32 for f32 storage, (ceil(R /
+// 64), 3D) for bf16 (which sums db2 there). grads (2HD + H + 3D) f32
+// receives [dW1 (H, D) | dW2 (D, H) | db1 (H) | db2 (D) | ds (D) | dbb (D)].
+// D in {192, 384}; H a multiple of 64 for f32, of 32 for bf16. Returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, const void* h1,
                                     const void* gp, const void* s1, const void* bn1, const void* w1,
@@ -441,23 +472,27 @@ extern "C" int vitocm_fused_mlp_bwd(int dtype, const void* x, const void* dout, 
                                     void* grads, int R, int D, int H, int splits, float eps,
                                     void* stream) {
   using namespace vitocm;
-  if (R < 1 || H < 64 || H % 64 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int hmul = dtype == kBF16 ? 32 : 64;
+  if (R < 1 || H < hmul || H % hmul != 0 || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *fs1 = static_cast<const float*>(s1), *fbn1 = static_cast<const float*>(bn1);
   float *fpart = static_cast<float*>(part), *fln = static_cast<float*>(ln_part);
-  // rows per split: a whole number of tiles
-  const int rps = ((R + splits - 1) / splits + kBwdTile - 1) / kBwdTile * kBwdTile;
-  int rc = (int)cudaErrorInvalidValue;
+  int rc = (int)cudaErrorInvalidValue, used = 0;
   if (D == 384)
     rc = launch_mlp_bwd_route<384>(dtype, x, dout, h1, gp, fs1, fbn1, w1, w2, dx, xn, fln, fpart,
-                                   R, H, splits, rps, eps, s);
+                                   R, H, splits, eps, &used, s);
   else if (D == 192)
     rc = launch_mlp_bwd_route<192>(dtype, x, dout, h1, gp, fs1, fbn1, w1, w2, dx, xn, fln, fpart,
-                                   R, H, splits, rps, eps, s);
+                                   R, H, splits, eps, &used, s);
   if (rc != 0) return rc;
-  const long long W = 2LL * H * D + H + D;
+  // the split partials hold [dW1 | dW2 | db1] and, for f32, db2; ln_part the
+  // rest of the tail: [ds | dbb], and for bf16 db2 before them
+  const bool bf16 = dtype == kBF16;
+  const long long W = 2LL * H * D + H + (bf16 ? 0 : D);
   float* g = static_cast<float*>(grads);
-  rc = reduce_splits(fpart, g, splits, W, s);
+  rc = reduce_splits(fpart, g, used, W, s);
   if (rc != 0) return rc;
-  return reduce_splits(fln, g + W, (R + kBwdTile - 1) / kBwdTile, 2LL * D, s);
+  const int tiles = (R + kBwdTile - 1) / kBwdTile;
+  if (bf16) return reduce_rows(fln, g + W, tiles, 3 * D, s);
+  return reduce_splits(fln, g + W, tiles, 2LL * D, s);
 }

@@ -1,22 +1,29 @@
-// Fused pre-norm MLP block, inference forward, bf16 storage, on Hopper's
-// warpgroup tensor cores: wgmma fed by TMA through an mbarrier ring.
+// Fused pre-norm MLP block, forward, bf16 storage, on Hopper's warpgroup
+// tensor cores: wgmma fed by TMA through an mbarrier ring.
 //   out = x + W2 . gelu(W1 . LN(x; s1, bn1) + b1) + b2
 //   z   = LN(out; s2, bn2)                      (LNOUT only)
 // Replaces vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py::_mlp_fwd_lnout_kernel
-// (LNOUT) and ::_mlp_fwd_kernel with no residual outputs, for bf16; the
-// training forward (h1 and gp residuals) stays on fused_mlp_mma.cu. Weights
-// in nn.Linear's layout: w1 (H, D), w2 (D, H), bf16; LN scales and biases
-// f32. D in {192, 384}, H a multiple of 32.
+// (LNOUT) and ::_mlp_fwd_kernel, for bf16: with no residual outputs
+// (inference), and on its training routes: want="h1" (H1: the pre-GELU h1
+// rounded to bf16, GELU reading the unrounded value) and want="gp" (H1 and
+// GP: the rounded g = gelu(h1) in h1's place, the very bf16 values the y
+// product multiplies, so out is bit-equal to the h1 route's, and gelu'(h1)
+// rounded). Weights in nn.Linear's layout: w1 (H, D), w2 (D, H), bf16; LN
+// scales and biases f32. D in {192, 384}, H a multiple of 32.
 //
-// Rounding points of fused_mlp_mma.cu and of the twin (ops/fused_mlp.py::
-// _mlp_plain): xn rounded to bf16, h1 in f32 and GELU by erff, g rounded to
-// bf16, f32 accumulation, out = round(x + (acc + b2)), z = LN of the rounded
-// out. Only the order of the f32 sums inside each product differs.
+// Rounding points of the twin (ops/fused_mlp.py::_mlp_plain): xn rounded to
+// bf16, h1 in f32 and GELU by erff, g rounded to bf16, f32 accumulation, out
+// = round(x + (acc + b2)), z = LN of the rounded out. Only the order of the
+// f32 sums inside each product differs, and on the training routes GELU's
+// Phi and exp (common.cuh::gelu_pieces_bf16: within 1.5e-7 of erf, shared by
+// both routes so that their outs stay bit-equal).
 //
 // What bounds it on the H100: at the mosaic's 112945 x 384, H 1536, 267
-// GFLOP (0.27 ms at 989 TFLOP/s) against 0.26 GB of HBM traffic. The
-// mma.sync kernel it replaces copied each weight chunk with all threads
-// between two __syncthreads (tensor cores idle), once per 64 rows. Here a
+// GFLOP (0.27 ms at 989 TFLOP/s) against 0.26 GB of HBM traffic; at the MIM
+// step's 36880 rows 87 GFLOP (0.088 ms), and the training routes write 113
+// MB (h1) or 227 MB (g, gp) more. The mma.sync kernels this replaced copied
+// each weight chunk with all threads between two __syncthreads (tensor cores
+// idle), once per 64 rows. Here a
 // CTA owns 128 rows (two consumer warpgroups of 64) and a producer keeps the
 // weights in flight with TMA while the tensor cores work: chunks of 32
 // hidden units, W1's rows (128-byte swizzle, 24 KB at D = 384) and W2's
@@ -32,7 +39,16 @@
 // to 240 with setmaxnreg, out of the 144 a thread the producer warpgroup
 // gives back by dropping to 24 (a CTA's warps trade only the registers the
 // CTA was launched with, so the producer is a whole warpgroup, of which one
-// lane issues the copies). Shared memory 193 KB at D = 384: one CTA an SM.
+// lane issues the copies). On the training routes each warp stages its (16 x
+// 32) h1 or g tile, and gp, in 2 KB of its own shared memory (64-byte rows,
+// swizzled so that the accumulator-layout pairs hit 32 banks), then writes
+// 16 bytes a lane while the y product runs. Shared memory 193 KB at D = 384,
+// 209 KB on the training routes: one CTA an SM. At the MIM step's 36880 rows
+// the 289 tiles are 2.19 waves of 132 CTAs, so a third of the kernel's time
+// ran 25 CTAs; on the training routes each tile past the last whole wave
+// (ops/fused_mlp.py::fwd_split) runs as up to 4 CTAs, each over a share of
+// the chunks, which write their y in f32 for mlp_split_combine_kernel to sum
+// in order. The inference instances keep one CTA a tile.
 // The epilogue stages the rounded out in the warpgroup's xn space, then one
 // warp per row writes out and, with LNOUT, z. Within a warpgroup the h
 // product, the GELU and the y product run one after another; the two
@@ -50,27 +66,23 @@
 
 namespace vitocm {
 
-constexpr int kFR = 128;        // rows per CTA: two consumer warpgroups
+constexpr int kFR = 128;        // rows per CTA (sw128_offset's 128): two consumer warpgroups
 constexpr int kFC = 32;         // hidden units per chunk
 constexpr int kFThreads = 384;  // two consumer warpgroups + the producer warpgroup
 constexpr int kFS1 = 2, kFS2 = 2;  // stages of the W1 and of the W2 ring
+constexpr int kFStage = 2048;   // a warp's staging on the training routes: h1 or g, then gp
 
-template <int D>
+template <int D, bool H1>
 struct MlpWgmma {
   static constexpr int CH = D / 64;                    // 64-column chunks of xn and W1
   static constexpr int HALVES = D / 192;               // n = 192 products of y
   static constexpr int XN_BYTES = CH * kFR * 128;      // chunk c: 128 rows at c * kFR * 128
   static constexpr int W1_BYTES = CH * kFC * 128;      // chunk c: 32 rows at c * kFC * 128
   static constexpr int W2_BYTES = D * kFC * 2;         // D rows of 64 bytes
-  static constexpr size_t SMEM =
-      1024 + XN_BYTES + kFS1 * W1_BYTES + kFS2 * W2_BYTES + 8 * 2 * (kFS1 + kFS2);
+  static constexpr int ST_BYTES = H1 ? 8 * kFStage : 0;
+  static constexpr size_t SMEM = 1024 + XN_BYTES + kFS1 * W1_BYTES + kFS2 * W2_BYTES + ST_BYTES +
+                                 8 * 2 * (kFS1 + kFS2);
 };
-
-// byte offset of xn (r, col) in a warpgroup's swizzled xn tile: column
-// chunk col / 64 at chunk * kFR * 128, 128-byte rows, 16-byte groups XOR r % 8
-__device__ __forceinline__ int xn_offset(int r, int col) {
-  return (col >> 6) * kFR * 128 + r * 128 + ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
-}
 
 // h = xn . W1c^T of one chunk, issued (not waited for): 64 rows x 32 units
 template <int D>
@@ -78,29 +90,55 @@ __device__ __forceinline__ void issue_h(float (&h)[16], const unsigned char* xw,
                                         const unsigned char* w1s) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) h[i] = 0.f;
+  const uint64_t a = desc_k128(xw), b = desc_k128(w1s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {  // descriptors: a base plus byte offsets / 16
     const int j = kk >> 2, off = (kk & 3) * 32;
-    wgmma_ss_m64n32k16(h, desc_k128(xw + j * kFR * 128 + off), desc_k128(w1s + j * kFC * 128 + off));
+    wgmma_ss_m64n32k16(h, a + ((j * kFR * 128 + off) >> 4), b + ((j * kFC * 128 + off) >> 4));
   }
   wgmma_commit();
 }
 
+// 4 bytes at (r, col) of a warp's sw64 staging tile
+__device__ __forceinline__ void stage_pair(unsigned char* tile, int r, int col, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(tile + sw64_offset(r, col)) = v;
+}
+
 // g = round(gelu(h + b1)) of hidden units h0 .., packed as the A operand of
 // the two k-steps of y += g . W2c^T; h[4i + e]: row g + 8 (e >> 1), unit h0
-// + 8i + 2 t4 + (e & 1)
+// + 8i + 2 t4 + (e & 1). H1 stages round(h + b1) at st, GP instead g there
+// and round(gelu'(h + b1)) at st + 1024 (the warp's rows at g, g + 8).
+template <bool H1, bool GP>
 __device__ __forceinline__ void gelu_pack(float (&h)[16], const float* __restrict__ b1, int h0,
-                                          int t4, uint32_t (&ga)[2][4]) {
+                                          int g, int t4, uint32_t (&ga)[2][4], unsigned char* st) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int col = h0 + 8 * i + 2 * t4;
-    const float bj0 = b1[col], bj1 = b1[col + 1];
-    float gp;
-    gelu_pieces(h[4 * i] + bj0, h[4 * i], gp);
-    gelu_pieces(h[4 * i + 1] + bj1, h[4 * i + 1], gp);
-    gelu_pieces(h[4 * i + 2] + bj0, h[4 * i + 2], gp);
-    gelu_pieces(h[4 * i + 3] + bj1, h[4 * i + 3], gp);
+    const int col = 8 * i + 2 * t4;
+    const float bj0 = b1[h0 + col], bj1 = b1[h0 + col + 1];
+    const float u0 = h[4 * i] + bj0, u1 = h[4 * i + 1] + bj1;
+    const float u2 = h[4 * i + 2] + bj0, u3 = h[4 * i + 3] + bj1;
+    if (H1 && !GP) {
+      stage_pair(st, g, col, pack_bf16(u0, u1));
+      stage_pair(st, g + 8, col, pack_bf16(u2, u3));
+    }
+    float p0, p1, p2, p3;  // gelu'(h): only GP keeps it, rounded
+    if (H1) {  // the training routes: g (and gp) by the bf16 pieces
+      gelu_pieces_bf16(u0, h[4 * i], p0);
+      gelu_pieces_bf16(u1, h[4 * i + 1], p1);
+      gelu_pieces_bf16(u2, h[4 * i + 2], p2);
+      gelu_pieces_bf16(u3, h[4 * i + 3], p3);
+    } else {
+      gelu_pieces(u0, h[4 * i], p0);
+      gelu_pieces(u1, h[4 * i + 1], p1);
+      gelu_pieces(u2, h[4 * i + 2], p2);
+      gelu_pieces(u3, h[4 * i + 3], p3);
+    }
+    if (GP) {
+      stage_pair(st + 1024, g, col, pack_bf16(p0, p1));
+      stage_pair(st + 1024, g + 8, col, pack_bf16(p2, p3));
+      __syncwarp();  // one i at a time: interleaved, the four spilled beside y at 240 registers
+    }
   }
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
@@ -108,6 +146,12 @@ __device__ __forceinline__ void gelu_pack(float (&h)[16], const float* __restric
     ga[kk][1] = pack_bf16(h[8 * kk + 2], h[8 * kk + 3]);
     ga[kk][2] = pack_bf16(h[8 * kk + 4], h[8 * kk + 5]);
     ga[kk][3] = pack_bf16(h[8 * kk + 6], h[8 * kk + 7]);
+    if (GP) {  // the packed g pairs: rows g, g + 8 of units 16 kk + 2 t4 and 16 kk + 8 + 2 t4
+      stage_pair(st, g, 16 * kk + 2 * t4, ga[kk][0]);
+      stage_pair(st, g + 8, 16 * kk + 2 * t4, ga[kk][1]);
+      stage_pair(st, g, 16 * kk + 8 + 2 * t4, ga[kk][2]);
+      stage_pair(st, g + 8, 16 * kk + 8 + 2 * t4, ga[kk][3]);
+    }
   }
 }
 
@@ -115,16 +159,17 @@ __device__ __forceinline__ void gelu_pack(float (&h)[16], const float* __restric
 template <int D>
 __device__ __forceinline__ void issue_y(float (&y)[D / 192][96], const uint32_t (&ga)[2][4],
                                         const unsigned char* w2s) {
+  const uint64_t b = desc_k64(w2s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
     for (int hf = 0; hf < D / 192; ++hf)
-      wgmma_rs_m64n192k16<0>(y[hf], ga[kk], desc_k64(w2s + hf * 192 * kFC * 2 + kk * 32));
+      wgmma_rs_m64n192k16<0>(y[hf], ga[kk], b + ((hf * 192 * kFC * 2 + kk * 32) >> 4));
   wgmma_commit();
 }
 
-template <int D, bool LNOUT>
+template <int D, bool LNOUT, bool H1, bool GP>
 __global__ void __launch_bounds__(kFThreads, 1)
 fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                        const __grid_constant__ CUtensorMap w2_map,
@@ -132,20 +177,35 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                        const float* __restrict__ bn1, const float* __restrict__ b1,
                        const float* __restrict__ b2, const float* __restrict__ s2,
                        const float* __restrict__ bn2, __nv_bfloat16* __restrict__ out,
-                       __nv_bfloat16* __restrict__ z, int R, int H, float eps) {
-  using C = MlpWgmma<D>;
+                       __nv_bfloat16* __restrict__ z, __nv_bfloat16* __restrict__ h1,
+                       __nv_bfloat16* __restrict__ gp, float* __restrict__ ypart, int split_from,
+                       int parts, int R, int H, float eps) {
+  static_assert(!(LNOUT && H1) && (H1 || !GP), "the training routes save h1 (or g) and no z");
+  using C = MlpWgmma<D, H1>;
   constexpr int CPT = D / 32;  // LN: columns per lane
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* xs = align1024(smem_raw);
   unsigned char* ring1 = xs + C::XN_BYTES;          // W1 chunks
   unsigned char* ring2 = ring1 + kFS1 * C::W1_BYTES;  // W2 chunks
-  uint64_t* full1 = reinterpret_cast<uint64_t*>(ring2 + kFS2 * C::W2_BYTES);
+  unsigned char* stg = ring2 + kFS2 * C::W2_BYTES;    // per warp: h1 or g, then gp
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(stg + C::ST_BYTES);
   uint64_t* empty1 = full1 + kFS1;
   uint64_t* full2 = empty1 + kFS1;
   uint64_t* empty2 = full2 + kFS2;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int chunks = H / kFC;
+  // on the training routes the tiles from split_from on (those past the
+  // last whole wave of CTAs) each run as `parts` CTAs, each over a share of
+  // the chunks, that write their y to ypart for mlp_split_combine_kernel
+  int tile = blockIdx.x, c0 = 0, n = chunks, part = -1;
+  if (H1 && tile >= split_from) {
+    const int k = tile - split_from;
+    tile = split_from + k / parts;
+    part = k % parts;
+    c0 = part * chunks / parts;
+    n = (part + 1) * chunks / parts - c0;
+  }
   if (tid == 0) {
     for (int s = 0; s < kFS1; ++s) {
       mbar_init(&full1[s], 1);
@@ -162,14 +222,14 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
   if (warp >= 8) {  // producer warpgroup: one lane issues every copy
     setmaxnreg_dec<24>();
     if (warp == 8 && lane == 0) {
-      for (int c = 0; c < chunks; ++c) {
-        const int a = c % kFS1, b = c % kFS2;
-        mbar_wait(&empty1[a], ((c / kFS1) & 1) ^ 1);
+      for (int i = 0; i < n; ++i) {  // ring slots by i, weights by chunk c
+        const int a = i % kFS1, b = i % kFS2, c = c0 + i;
+        mbar_wait(&empty1[a], ((i / kFS1) & 1) ^ 1);
         mbar_expect_tx(&full1[a], C::W1_BYTES);
         for (int j = 0; j < C::CH; ++j)
           tma_load_2d(ring1 + a * C::W1_BYTES + j * kFC * 128, &w1_map, &full1[a], 64 * j,
                       c * kFC);
-        mbar_wait(&empty2[b], ((c / kFS2) & 1) ^ 1);
+        mbar_wait(&empty2[b], ((i / kFS2) & 1) ^ 1);
         mbar_expect_tx(&full2[b], C::W2_BYTES);
         for (int j = 0; j < C::HALVES; ++j)
           tma_load_2d(ring2 + b * C::W2_BYTES + j * 192 * kFC * 2, &w2_map, &full2[b], c * kFC,
@@ -182,7 +242,7 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
     // .. 16 wl + 15 and holds accumulator rows 16 wl + g (+ 8). A warpgroup
     // with no row below R only releases the chunks.
     const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
-    const long long rb = (long long)blockIdx.x * kFR + 64 * wg;
+    const long long rb = (long long)tile * kFR + 64 * wg;
     unsigned char* xw = xs + wg * 64 * 128;
     auto w1s = [&](int c) { return ring1 + (c % kFS1) * C::W1_BYTES; };
     auto w2s = [&](int c) { return ring2 + (c % kFS2) * C::W2_BYTES; };
@@ -195,11 +255,11 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
       if (lane == 0) mbar_arrive(&empty2[c % kFS2]);
     };
     if (rb >= R) {
-      for (int c = 0; c < chunks; ++c) {
-        await1(c);
-        release1(c);
-        await2(c);
-        release2(c);
+      for (int i = 0; i < n; ++i) {
+        await1(i);
+        release1(i);
+        await2(i);
+        release2(i);
       }
       return;
     }
@@ -217,7 +277,7 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int col = lane + 32 * c;
-        *reinterpret_cast<__nv_bfloat16*>(xw + xn_offset(r, col)) =
+        *reinterpret_cast<__nv_bfloat16*>(xw + sw128_offset(r, col)) =
             __float2bfloat16_rn((v[c] - mu) * rstd * s1[col] + bn1[col]);
       }
     }
@@ -230,20 +290,41 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
       for (int i = 0; i < 96; ++i) y[hf][i] = 0.f;
     uint32_t ga[2][4];
-    for (int c = 0; c < chunks; ++c) {
+    unsigned char* st = stg + warp * kFStage;
+    for (int i = 0; i < n; ++i) {
+      const int c = c0 + i;
       float h[16];
-      await1(c);
-      issue_h<D>(h, xw, w1s(c));
+      await1(i);
+      issue_h<D>(h, xw, w1s(i));
       wgmma_wait<0>();
       fence_regs(h);
-      release1(c);
-      gelu_pack(h, b1, c * kFC, t4, ga);
-      await2(c);
-      issue_y<D>(y, ga, w2s(c));
+      release1(i);
+      gelu_pack<H1, GP>(h, b1, c * kFC, g, t4, ga, st);
+      await2(i);
+      issue_y<D>(y, ga, w2s(i));
+      if (H1) {  // the staged tiles out while the y product runs
+        __syncwarp();
+        warp_tile_store(st, h1, rb + 16 * wl, R, H, c * kFC, lane);
+        if (GP) warp_tile_store(st + 1024, gp, rb + 16 * wl, R, H, c * kFC, lane);
+        __syncwarp();
+      }
       wgmma_wait<0>();
 #pragma unroll
       for (int hf = 0; hf < C::HALVES; ++hf) fence_regs(y[hf]);
-      release2(c);
+      release2(i);
+    }
+    if (H1 && part >= 0) {  // a share of a split tile: its y, f32, (128, D) a part
+      float* yp = ypart + ((long long)(tile - split_from) * parts + part) * kFR * D;
+#pragma unroll
+      for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+        for (int i = 0; i < 24; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<float2*>(yp + (64 * wg + 16 * wl + g + 8 * e) * D + 192 * hf +
+                                       8 * i + 2 * t4) =
+                make_float2(y[hf][4 * i + 2 * e], y[hf][4 * i + 2 * e + 1]);
+      return;
     }
 
     // out = round(x + (y + b2)) into this warpgroup's xn space (every
@@ -266,7 +347,7 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
             x0 = __low2float(xv);
             x1 = __high2float(xv);
           }
-          *reinterpret_cast<uint32_t*>(xw + xn_offset(r, col)) =
+          *reinterpret_cast<uint32_t*>(xw + sw128_offset(r, col)) =
               pack_bf16(x0 + (y[hf][4 * i + 2 * e] + bc0), x1 + (y[hf][4 * i + 2 * e + 1] + bc1));
         }
       }
@@ -280,7 +361,7 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int col = lane + 32 * c;
-        const __nv_bfloat16 v = *reinterpret_cast<const __nv_bfloat16*>(xw + xn_offset(r, col));
+        const __nv_bfloat16 v = *reinterpret_cast<const __nv_bfloat16*>(xw + sw128_offset(r, col));
         out[row * D + col] = v;
         o[c] = __bfloat162float(v);
       }
@@ -297,12 +378,39 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
   }
 }
 
-template <int D, bool LNOUT>
+// out = round(x + ((y_0 + .. + y_{parts-1}) + b2)) for the rows of the split
+// tiles, row0 .. R - 1, the parts' y summed in order
+__global__ void mlp_split_combine_kernel(const __nv_bfloat16* __restrict__ x,
+                                         const float* __restrict__ ypart,
+                                         const float* __restrict__ b2,
+                                         __nv_bfloat16* __restrict__ out, long long row0, int R,
+                                         int D, int parts) {
+  const long long pairs = (R - row0) * (D / 2);
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < pairs;
+       p += (long long)gridDim.x * blockDim.x) {
+    const long long r = p / (D / 2);
+    const int col = (int)(p % (D / 2)) * 2;
+    const float* yp = ypart + ((r / kFR) * parts * kFR + r % kFR) * D + col;
+    float y0 = 0.f, y1 = 0.f;
+    for (int s = 0; s < parts; ++s) {
+      const float2 v = *reinterpret_cast<const float2*>(yp + (long long)s * kFR * D);
+      y0 += v.x;
+      y1 += v.y;
+    }
+    const long long at = (row0 + r) * D + col;
+    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + at);
+    *reinterpret_cast<uint32_t*>(out + at) =
+        pack_bf16(__low2float(xv) + (y0 + b2[col]), __high2float(xv) + (y1 + b2[col + 1]));
+  }
+}
+
+template <int D, bool LNOUT, bool H1, bool GP>
 static int launch_mlp_wgmma(const void* x, const float* s1, const float* bn1, const void* w1,
                             const float* b1, const void* w2, const float* b2, const float* s2,
-                            const float* bn2, void* out, void* z, int R, int H, float eps,
+                            const float* bn2, void* out, void* z, void* h1, void* gp,
+                            float* ypart, int split_from, int parts, int R, int H, float eps,
                             cudaStream_t stream) {
-  using C = MlpWgmma<D>;
+  using C = MlpWgmma<D, H1>;
   CUtensorMap m1, m2;
   const uint64_t d1[2] = {(uint64_t)D, (uint64_t)H}, st1[1] = {(uint64_t)D * 2};
   const uint32_t box1[2] = {64, kFC};
@@ -311,45 +419,78 @@ static int launch_mlp_wgmma(const void* x, const float* s1, const float* bn1, co
   if (!make_tmap_bf16(&m1, w1, 2, d1, st1, box1, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_tmap_bf16(&m2, w2, 2, d2, st2, box2, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
-  auto kern = fused_mlp_wgmma_kernel<D, LNOUT>;
+  auto kern = fused_mlp_wgmma_kernel<D, LNOUT, H1, GP>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   using B = __nv_bfloat16;
-  kern<<<(R + kFR - 1) / kFR, kFThreads, C::SMEM, stream>>>(
+  const int tiles = (R + kFR - 1) / kFR;
+  kern<<<split_from + (tiles - split_from) * parts, kFThreads, C::SMEM, stream>>>(
       m1, m2, static_cast<const B*>(x), s1, bn1, b1, b2, s2, bn2, static_cast<B*>(out),
-      static_cast<B*>(z), R, H, eps);
+      static_cast<B*>(z), static_cast<B*>(h1), static_cast<B*>(gp), ypart, split_from, parts, R,
+      H, eps);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0 || split_from == tiles) return rc;
+  const long long pairs = (R - (long long)split_from * kFR) * (D / 2);
+  mlp_split_combine_kernel<<<(int)min((pairs + 255) / 256, 4096LL), 256, 0, stream>>>(
+      static_cast<const B*>(x), ypart, b2, static_cast<B*>(out), (long long)split_from * kFR, R,
+      D, parts);
   return (int)cudaGetLastError();
 }
 
+// the residual stores are template flags: the inference instances (LN-out
+// and plain) carry none of them, the training ones (h1, and gp) no z
 template <int D>
 static int dispatch_mlp_wgmma(int lnout, const void* x, const float* s1, const float* bn1,
                               const void* w1, const float* b1, const void* w2, const float* b2,
-                              const float* s2, const float* bn2, void* out, void* z, int R, int H,
+                              const float* s2, const float* bn2, void* out, void* z, void* h1,
+                              void* gp, float* ypart, int split_from, int parts, int R, int H,
                               float eps, cudaStream_t s) {
+  const int tiles = (R + kFR - 1) / kFR;  // the inference forward splits no tile
   if (lnout)
-    return launch_mlp_wgmma<D, true>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, R, H, eps, s);
-  return launch_mlp_wgmma<D, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, R, H, eps, s);
+    return launch_mlp_wgmma<D, true, false, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
+                                                   nullptr, nullptr, nullptr, tiles, 1, R, H, eps,
+                                                   s);
+  if (h1 == nullptr)
+    return launch_mlp_wgmma<D, false, false, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
+                                                    nullptr, nullptr, nullptr, tiles, 1, R, H,
+                                                    eps, s);
+  if (gp == nullptr)
+    return launch_mlp_wgmma<D, false, true, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
+                                                   h1, nullptr, ypart, split_from, parts, R, H,
+                                                   eps, s);
+  return launch_mlp_wgmma<D, false, true, true>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1,
+                                                gp, ypart, split_from, parts, R, H, eps, s);
 }
 
 }  // namespace vitocm
 
-// Inference forward, bf16: x, out, z (R, D); w1 (H, D); w2 (D, H), all
+// Forward, bf16: x, out, z (R, D); h1, gp (R, H); w1 (H, D); w2 (D, H), all
 // 16-byte aligned; s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0
-// ignores s2, bn2 and z. D in {192, 384}, H a multiple of 32. Returns
-// cudaGetLastError() after the launch (0 on success).
+// ignores s2, bn2 and z. h1 may be null, and must be with lnout = 1; gp not
+// null (it needs h1) takes the SAVE_GP route: g = gelu(h1) into h1, gelu'(h1)
+// into gp. With h1, the 128-row tiles from split_from on run as `parts` CTAs
+// each (parts 1: none split), their y in ypart, (ceil(R / 128) - split_from)
+// x parts x 128 x D f32; without h1 no tile is split. D in {192, 384}, H a
+// multiple of 32. Returns cudaGetLastError() after the launches (0 on
+// success).
 extern "C" int vitocm_fused_mlp_wgmma(int lnout, const void* x, const void* s1, const void* bn1,
                                       const void* w1, const void* b1, const void* w2,
                                       const void* b2, const void* s2, const void* bn2, void* out,
-                                      void* z, int R, int D, int H, float eps, void* stream) {
+                                      void* z, void* h1, void* gp, void* ypart, int split_from,
+                                      int parts, int R, int D, int H, float eps, void* stream) {
   using namespace vitocm;
-  if (R < 1 || H < kFC || H % kFC != 0 || (lnout && z == nullptr))
+  const int tiles = R > 0 ? (R + kFR - 1) / kFR : 0;
+  if (R < 1 || H < kFC || H % kFC != 0 || (lnout && (z == nullptr || h1 != nullptr)) ||
+      (gp != nullptr && h1 == nullptr) || parts < 1 || split_from < 0 || split_from > tiles ||
+      (h1 != nullptr && split_from < tiles && (parts < 2 || ypart == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  float* yp = static_cast<float*>(ypart);
   if (D == 384)
     return dispatch_mlp_wgmma<384>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2),
-                                   out, z, R, H, eps, s);
+                                   out, z, h1, gp, yp, split_from, parts, R, H, eps, s);
   if (D == 192)
     return dispatch_mlp_wgmma<192>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2),
-                                   out, z, R, H, eps, s);
+                                   out, z, h1, gp, yp, split_from, parts, R, H, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // Hopper building blocks of the wgmma kernels (attention_qkv_wgmma.cu,
-// attention_bwd_wgmma.cu, attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu):
+// attention_bwd_wgmma.cu, attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu,
+// fused_mlp_bwd_wgmma.cu):
 // warpgroup matrix products (wgmma), tensor-memory copies (TMA) completing on
 // shared-memory barriers (mbarrier), and the shared-memory descriptors that
 // tie the two together.
@@ -53,6 +54,38 @@ __device__ __forceinline__ uint64_t desc_k64(const void* p) { return smem_desc(p
 // MN-major, 128-byte rows along K; blocks of 64 N values lbo bytes apart
 __device__ __forceinline__ uint64_t desc_mn128(const void* p, uint32_t lbo) {
   return smem_desc(p, lbo, 1024, 1);
+}
+// MN-major, 64-byte rows along K (32 N values, one block: no LBO)
+__device__ __forceinline__ uint64_t desc_mn64(const void* p) { return smem_desc(p, 0, 512, 2); }
+
+// byte offset of (r, col) in a tile of 64-byte rows (32 bf16 columns) as
+// TMA's 64-byte swizzle lays it out from a 512-byte boundary: the 16-byte
+// chunk col / 8 XOR (r / 2) % 4. A warp's accumulator-layout pairs (rows g,
+// g + 8 of 16, columns 8i + 2t .. ) land in 32 distinct banks.
+__device__ __forceinline__ int sw64_offset(int r, int col) {
+  return r * 64 + ((((col >> 3) ^ (r >> 1)) & 3) << 4) + (col & 7) * 2;
+}
+
+// byte offset of (r, col) in a (128 x N) bf16 tile as TMA's 128-byte
+// swizzle writes it in 64-column chunks of 128 rows: chunk col / 64 at
+// (col / 64) * 128 * 128, 128-byte rows, 16-byte groups XOR r % 8
+__device__ __forceinline__ int sw128_offset(int r, int col) {
+  return (col >> 6) * 128 * 128 + r * 128 + ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2;
+}
+
+// A warp's 16 x 32 bf16 tile, held at sw64_offset(r, col) of `tile`, out to
+// rows row0 .. row0 + 15 (those below R) of a row-major array with `ld`
+// columns, at column col0: 16 bytes a lane and store
+__device__ __forceinline__ void warp_tile_store(const unsigned char* tile, __nv_bfloat16* dst,
+                                                long long row0, long long R, int ld, int col0,
+                                                int lane) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = (lane >> 2) + 8 * k, q = lane & 3;
+    if (row0 + r < R)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ld + col0 + 8 * q) =
+          *reinterpret_cast<const uint4*>(tile + r * 64 + ((q ^ ((r >> 1) & 3)) << 4));
+  }
 }
 
 // --- wgmma synchronization -------------------------------------------------
@@ -174,16 +207,29 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
 }
 
 // D (64 x 32, f32, registers) += A (64 x 16) . B (16 x 32), both from shared
-// memory through descriptors, both K-major
+// memory through descriptors, A K-major; TRANS_B = 1 reads B MN-major, 0 K-major
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// D (64 x 8, f32, registers) += A (64 x 16) . B (16 x 8), both from shared
+// memory; TRANS_A / TRANS_B = 1 read A / B MN-major, 0 K-major
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n8k16(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+      "%7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, shared
@@ -237,6 +283,37 @@ __device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96], const uint32
         "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// D (64 x 192, f32) += A (64 x 16) . B (16 x 192), both from shared memory;
+// TRANS_A / TRANS_B = 1 read A / B MN-major, 0 K-major
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // --- the attention backwards' two product shapes ----------------------------

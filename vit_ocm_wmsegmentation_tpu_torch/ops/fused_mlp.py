@@ -22,12 +22,11 @@ Counterpart of the inference forward of
 
 They launch the kernels of ``csrc/`` for CUDA tensors and their plain twins
 for CPU tensors. Which kernel a CUDA call launches is fixed by its route
-(:func:`mlp_route`, :func:`mlp_bwd_route`), never by a fallback: float32 takes ``fused_mlp.cu`` and
-``fused_mlp_bwd.cu`` (CUDA cores); bfloat16 inference (lnout and plain, no
-residuals) takes ``fused_mlp_wgmma.cu`` (wgmma fed by TMA), the bfloat16
-training forward (h1, gp) ``fused_mlp_mma.cu`` and its backward
-``fused_mlp_bwd_mma.cu`` (mma.sync); design notes in each source. Weights
-come in nn.Linear's layout:
+(:func:`mlp_route`, :func:`mlp_bwd_route`), never by a fallback: float32
+takes ``fused_mlp.cu`` and ``fused_mlp_bwd.cu`` (CUDA cores); bfloat16 the
+forward of ``fused_mlp_wgmma.cu`` (lnout, plain, h1 and gp) and the backward
+of ``fused_mlp_bwd_wgmma.cu`` (wgmma fed by TMA); design notes in each
+source. Weights come in nn.Linear's layout:
 ``w1`` = fc1.weight (H, D), ``w2`` = fc2.weight (D, H) -- the transpose of
 the JAX package's (D, H) / (H, D). Each wrapper's ``launches`` counts kernel
 launches.
@@ -43,14 +42,16 @@ from .. import build
 from .. import nn as tnn
 
 KERNEL_WIDTHS = (192, 384)  # D values the kernels are instantiated for
-HIDDEN_CHUNK = 32  # H must be a multiple of this on the wgmma route (its chunk)
-MMA_HIDDEN_CHUNK = 64  # ... and of this on the other routes (the mma.sync kernels' chunk)
+HIDDEN_CHUNK = 32  # H must be a multiple of this in bfloat16 (the wgmma kernels' chunk)
+F32_HIDDEN_CHUNK = 64  # ... and of this in float32 (the f32 kernels' masked last chunk)
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (fused_mlp_bwd.cu)
-_BWD_MIN_TILE = 64  # rows of the backward's dx tile, both storage types
+FWD_TILE = 128  # rows of a CTA of the bf16 forward (fused_mlp_wgmma.cu)
+MAX_FWD_PARTS = 4  # CTAs that share a tile of the bf16 training forward's last wave, at most
+MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (at most, in bf16)
+_BWD_MIN_TILE = 64  # rows of the backward's ln_part tile, both storage types
 
 
 def _gelu_prime(h):
@@ -94,20 +95,19 @@ def fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, e
 
 
 def mlp_route(x, w1, w2, want=None):
-    """The kernel source a CUDA call with these operands launches: bfloat16
-    with no residual (``want`` None: fused_mlp_block, fused_mlp_block_lnout)
-    "fused_mlp_wgmma.cu", bfloat16 with ``want`` "h1" or "gp" (the training
-    forward) "fused_mlp_mma.cu", float32 "fused_mlp.cu". Raises on shapes,
-    dtypes and layouts no kernel takes; the device is the caller's check."""
+    """The kernel source a CUDA call with these operands launches, for every
+    ``want`` (None: fused_mlp_block, fused_mlp_block_lnout; "h1", "gp": the
+    training forward): bfloat16 "fused_mlp_wgmma.cu", float32
+    "fused_mlp.cu". Raises on shapes, dtypes and layouts no kernel takes;
+    the device is the caller's check."""
     if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"fused_mlp: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
     d = x.shape[1]
     hdim = w1.shape[0]
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"fused_mlp: kernel built for D in {KERNEL_WIDTHS}, got D={d}")
-    route = ("fused_mlp.cu" if x.dtype == torch.float32
-             else "fused_mlp_wgmma.cu" if want is None else "fused_mlp_mma.cu")
-    chunk = HIDDEN_CHUNK if route == "fused_mlp_wgmma.cu" else MMA_HIDDEN_CHUNK
+    route = "fused_mlp.cu" if x.dtype == torch.float32 else "fused_mlp_wgmma.cu"
+    chunk = HIDDEN_CHUNK if route == "fused_mlp_wgmma.cu" else F32_HIDDEN_CHUNK
     if hdim % chunk or tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim):
         raise ValueError(f"fused_mlp: want w1 (H, D) and w2 (D, H) with H % {chunk} == 0, "
                          f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
@@ -122,11 +122,11 @@ def mlp_route(x, w1, w2, want=None):
 
 def mlp_bwd_route(x, do, h1, w1, w2, gp=None):
     """The kernel source a CUDA backward with these operands launches:
-    float32 "fused_mlp_bwd.cu", bfloat16 "fused_mlp_bwd_mma.cu". h1 is the
-    saved pre-GELU activation or, with gp (the SAVE_GP route), the saved g.
-    Raises on shapes, dtypes and layouts no kernel takes; the device is the
-    caller's check."""
-    mlp_route(x, w1, w2, "h1")  # the mma.sync kernels' chunk
+    float32 "fused_mlp_bwd.cu", bfloat16 "fused_mlp_bwd_wgmma.cu"; H as the
+    forward's (:func:`mlp_route`). h1 is the saved pre-GELU activation or,
+    with gp (the SAVE_GP route), the saved g. Raises on shapes, dtypes and
+    layouts no kernel takes; the device is the caller's check."""
+    mlp_route(x, w1, w2, "h1")
     r, d = x.shape
     hdim = w1.shape[0]
     hidden = (("h1", h1),) if gp is None else (("g", h1), ("gp", gp))
@@ -136,19 +136,35 @@ def mlp_bwd_route(x, do, h1, w1, w2, gp=None):
             raise ValueError(f"fused_mlp_bwd: {name} must be a contiguous, 16-byte aligned "
                              f"{x.dtype} {shape} tensor on {x.device}, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    return "fused_mlp_bwd.cu" if x.dtype == torch.float32 else "fused_mlp_bwd_mma.cu"
+    return "fused_mlp_bwd.cu" if x.dtype == torch.float32 else "fused_mlp_bwd_wgmma.cu"
+
+
+def fwd_split(r, sms):
+    """(split_from, parts) of the bfloat16 training forward over r rows on a
+    card of sms SMs: its ceil(r / FWD_TILE) tiles run one CTA an SM, and
+    when they are more than one wave, each tile past the last whole wave
+    runs as ``parts`` CTAs (at most MAX_FWD_PARTS, as many as the SMs hold),
+    each over a share of the hidden chunks, so that the last wave takes a
+    fraction of a tile's time. (tiles, 1) splits none."""
+    tiles = -(-r // FWD_TILE)
+    tail = tiles % sms
+    parts = min(MAX_FWD_PARTS, sms // tail) if tiles > sms and tail else 1
+    return (tiles - tail, parts) if parts > 1 else (tiles, 1)
 
 
 def bwd_workspace(r, d, hdim, dtype, save_gp=False):
     """f32 values of the backward's two workspaces for r rows: ``part``, the
-    MLP_SPLITS weight-gradient partials of (2 H D + H + D) values each, then
-    for float32 the dx kernel's dh1 (R, H) and, on the save-h1 route, g
-    (R, H), which the weight kernel reads; ``ln_part``, 2 D values for each
-    dx tile of _BWD_MIN_TILE rows."""
-    part = MLP_SPLITS * (2 * hdim * d + hdim + d)
+    MLP_SPLITS weight-gradient partials, then the dx kernel's dh1 (R, H)
+    and, on the save-h1 route, g (R, H), which the weight kernel reads;
+    ``ln_part``, one row for each tile of _BWD_MIN_TILE rows. float32: (2 H D
+    + H + D) values a partial, dh1 and g in f32, rows of 2 D ([ds | dbb]);
+    bfloat16: (2 H D + H) a partial, dh1 and g in bf16 (two to an f32 value),
+    rows of 3 D ([db2 | ds | dbb])."""
+    hidden = (1 if save_gp else 2) * r * hdim
+    tiles = -(-r // _BWD_MIN_TILE)
     if dtype == torch.float32:
-        part += (1 if save_gp else 2) * r * hdim
-    return part, -(-r // _BWD_MIN_TILE) * 2 * d
+        return MLP_SPLITS * (2 * hdim * d + hdim + d) + hidden, tiles * 2 * d
+    return MLP_SPLITS * (2 * hdim * d + hdim) + hidden // 2, tiles * 3 * d
 
 
 def _check(x, w1, w2, want=None):
@@ -180,9 +196,17 @@ def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     s1, bn1, b1f, b2f, s2, bn2 = (ptr(t) for t in args)
     if route == "fused_mlp_wgmma.cu":
+        split_from, parts, ypart = -(-r // FWD_TILE), 1, None
+        if want is not None:  # the training forward: its last wave's tiles split
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            split_from, parts = fwd_split(r, sms)
+            if parts > 1:
+                ypart = torch.empty(((-(-r // FWD_TILE) - split_from) * parts * FWD_TILE, d),
+                                    dtype=torch.float32, device=x.device)
         rc = build.library().vitocm_fused_mlp_wgmma(
             int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f, w2.data_ptr(), b2f, s2, bn2,
-            out.data_ptr(), ptr(z), r, d, hdim, float(eps), build.stream_ptr(x.device))
+            out.data_ptr(), ptr(z), ptr(h1), ptr(gp), ptr(ypart), split_from, parts, r, d, hdim,
+            float(eps), build.stream_ptr(x.device))
     else:
         rc = build.library().vitocm_fused_mlp(
             build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
@@ -206,7 +230,7 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
 def fused_mlp_block_lnout(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps=1e-6):
     """(out, z): out as :func:`fused_mlp_block`, z = LN(out)*scale2 + bias2.
     CPU tensors take the plain twin; CUDA tensors launch the kernel of
-    :func:`mlp_route` (bfloat16: fused_mlp_wgmma.cu, float32: fused_mlp.cu)."""
+    :func:`mlp_route`."""
     if x.device.type == "cpu":
         return fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps)
     out, z = _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout=True)
