@@ -13,11 +13,13 @@ and then, failing on the first phase that fails:
    inference and training attention forward, the training attention's dk/dv
    and dq kernels on both backward routes, the MLP forward in every bf16
    instance, inference and training, and the bf16 MLP backward's dx and
-   weight kernels) warpgroup products (HGMMA) and TMA loads (UTMALDG) and no
-   mma.sync (HMMA); the f32 attention kernels (forward at both head dims and
-   both layouts, dk/dv and dq on both backward routes) and the f32 MLP
-   kernels (the forward in every instance the launcher builds, the
-   backward's dx and weight kernels) FFMA
+   weight kernels, and the GEMM of the int8 route and the probes in bf16)
+   warpgroup products (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+   (HMMA), the GEMM's three int8 instances IGMMA and UTMALDG and no IMMA;
+   the f32 attention kernels (forward at both head dims and both layouts,
+   the saved-P forward in its one- and two-pass instances, dk/dv and dq on
+   both backward routes) and the f32 MLP kernels (the forward in every
+   instance the launcher builds, the backward's dx and weight kernels) FFMA
    and cp.async (LDGSTS) and no tensor-core instruction (no TF32);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
@@ -38,7 +40,10 @@ and then, failing on the first phase that fails:
    forward's out bit-equal to the h1 forward's; the tools/
    probes' kernels: the tiled matmul at 2048^3 in bf16 and int8 (int8
    stores bit-equal, wrapped), int8_dot at the mosaic's four projection
-   shapes (112945 rows; bit-equal), probe attention in int8 (each output
+   shapes (112945 rows; bit-equal) and its row quantizer alone at both row
+   widths (values and scales bit-equal), these and the 2048^3 matmul also
+   with calls queued back to back (their host set-up rivals their device
+   time), probe attention in int8 (each output
    within one bf16 ulp) and bf16, the four attention modes and the nine
    attention functions of the probes at (49 x 6, 2305 of 2432 keys, 64)
    (within 1e-2 of max|twin|);
@@ -80,7 +85,8 @@ and then, failing on the first phase that fails:
    mode with ``--streamed auto``, which must take the streamed route;
 8. runs the int8 serving route (``--quant int8``) on phase 2's mosaic,
    f32 and bf16, ``--infer_mlp auto`` and ``none``: the launches of one call
-   (22 or 44 int8_dot, 11 attention, 10 LN-out MLP with auto), int8 vs the
+   (22 or 44 int8_dot and as many of its row quantizer, 11 attention, 10
+   LN-out MLP with auto), int8 vs the
    unquantized f32 mask (weight seeds 0-3 pooled) and int8 kernel vs plain
    route (f32: seed 0; bf16: seeds 0-3 pooled), Dice > 0.99 and >= 0.99 in
    f32, 0.98 in bf16, where the route sits on bf16's own noise floor
@@ -131,6 +137,7 @@ FM = "vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py"
 TH = "vit_ocm_wmsegmentation_tpu/ops/threshold.py"
 LN = "vit_ocm_wmsegmentation_tpu/ops/ln_linear.py"
 PD, BAV, BAO = "tools/probe_dot.py", "tools/bench_attention_variants.py", "tools/bench_attn_opt.py"
+QZ = "vit_ocm_wmsegmentation_tpu/ops/quant.py"
 # wrapper -> (module, source file per storage dtype, TPU kernel it replaces)
 KERNELS = {
     "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_wgmma.cu"},
@@ -157,8 +164,9 @@ KERNELS = {
                          FM + ":243"),
     "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
     "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":44"),
-    "int8_dot": ("qz", {"int8": "matmul_mma.cu"}, PD + ":38"),
-    "probe_matmul": ("pr", {"bf16": "matmul_mma.cu", "int8": "matmul_mma.cu"}, PD + ":38"),
+    "int8_dot": ("qz", {"int8": "matmul_wgmma.cu"}, PD + ":38"),
+    "quantize_rows": ("qz", {"bf16": "quantize_rows.cu"}, QZ + ":54"),
+    "probe_matmul": ("pr", {"bf16": "matmul_wgmma.cu", "int8": "matmul_wgmma.cu"}, PD + ":38"),
     "probe_attention": ("pr", {"bf16": "probe_attention_mma.cu", "int8": "probe_attention_mma.cu"},
                         PD + ":72"),
 }
@@ -170,9 +178,9 @@ PROBE_REPLACES = {"dot": PD + ":72", "full": BAV + ":31", "bf16exp": BAV + ":31"
                   "qkvflat_pipe2": BAO + ":333", "qkvflat_pipe2b": BAO + ":333"}
 PROJ_SHAPES = ((384, 1152), (384, 384), (384, 1536), (1536, 384))  # (K, N): qkv, proj, fc1, fc2
 # --quant int8 on the 1152^2 mosaic: launches of one segment_mosaic call
-INT8_LAUNCHES = {"auto": {"int8_dot": 22, "attention_qkv": 11, "fused_mlp_block_lnout": 10,
-                          "fused_mlp_block": 1},
-                 "none": {"int8_dot": 44, "attention_qkv": 11}}
+INT8_LAUNCHES = {"auto": {"int8_dot": 22, "quantize_rows": 22, "attention_qkv": 11,
+                          "fused_mlp_block_lnout": 10, "fused_mlp_block": 1},
+                 "none": {"int8_dot": 44, "quantize_rows": 44, "attention_qkv": 11}}
 PROBE_N, PROBE_NP, PROBE_GROUPS = 2305, 2432, 49 * 6  # tools/ probes' attention shape
 MOSAIC_LAUNCHES = {"attention_qkv": 11, "fused_mlp_block_lnout": 10, "fused_mlp_block": 1}
 MIM_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 4, "fused_mlp_block_h1": 4,
@@ -202,13 +210,16 @@ CONTROLS = {}
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
 # no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
 # plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
-# and its weight kernel in 2; the f32 attention kernels (attention_qkv.cu, both head
-# dims and both layouts; the dk/dv and dq kernels of attention_bwd.cu and
-# attention_savep.cu) and the f32 MLP kernels (fused_mlp.cu: 2 widths x 4
-# modes; fused_mlp_bwd.cu: the dx kernel, 2 widths x 2 routes, and the
-# weight kernel) run exact f32 FFMA fed by cp.async (LDGSTS) and no
-# tensor-core instruction, so no TF32.
+# and its weight kernel in 2, the GEMM of matmul_wgmma.cu in bf16 (HGMMA) and
+# in its three int8 instances (IGMMA, and no IMMA: no mma.sync); the f32
+# attention kernels (attention_qkv.cu, both head dims and both layouts; the
+# saved-P forward at both head dims, one pass or two; the dk/dv and dq
+# kernels of attention_bwd.cu and attention_savep.cu) and the f32 MLP
+# kernels (fused_mlp.cu: 2 widths x 4 modes; fused_mlp_bwd.cu: the dx kernel,
+# 2 widths x 2 routes, and the weight kernel) run exact f32 FFMA fed by
+# cp.async (LDGSTS) and no tensor-core instruction, so no TF32.
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
+_IGMMA = (3, ("IGMMA", "UTMALDG"), ("IMMA", "HMMA", "HGMMA"))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
 SASS_CHECKS = {
     "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": (8, *_WGMMA[1:]),
@@ -219,6 +230,8 @@ SASS_CHECKS = {
     "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
     "attn_bwd_savep_dq_kernel": (2, *_FFMA), "fused_mlp_kernel": (8, *_FFMA),
     "mlp_bwd_dx_kernel": (4, *_FFMA), "mlp_bwd_w_kernel": (1, *_FFMA),
+    "attn_fwd_savep_kernel": (4, *_FFMA), "matmul_wgmma_kernelIa": _IGMMA,
+    "matmul_wgmma_kernelI13__nv_bfloat16": (1, ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "IGMMA")),
 }
 
 
@@ -242,6 +255,8 @@ def reset_counts():
     mods = _modules()
     for name, (m, _, _) in KERNELS.items():
         getattr(mods[m], name).launches = 0
+    for wrapper in (mods["qz"].quantize_rows, mods["qz"].int8_dot):
+        wrapper.launches_by_shape.clear()
 
 
 @contextlib.contextmanager
@@ -280,6 +295,23 @@ def cuda_ms(fn, iters=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, n=20):
+    """Device time a call in ms with n calls queued back to back (CUDA
+    events around the n): the host's set-up of each call overlaps the
+    device's work, where cuda_ms waits for it before every call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound(flops, nbytes, tag):
@@ -1084,9 +1116,12 @@ def phase_mim_cli():
             raise AssertionError(f"the routes' epoch: losses {hist}, launches {counts} != {want}")
 
 
-def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, nbytes):
+def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, nbytes,
+               queued=False):
     """One kernel row: kernel against its twin, then kernel, twin and library
-    times (CUDA events) beside the bound."""
+    times (CUDA events) beside the bound; with queued, also the kernel's time
+    with calls queued back to back (for kernels short beside their call's
+    host set-up)."""
     import torch
 
     got = kern()
@@ -1102,6 +1137,8 @@ def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, 
             print(f"  {name}: the library call failed ({str(e).splitlines()[0]}); library_ms null")
     bound_ms, bound_by = bound(flops, nbytes, tag)
     lib = f", library {lib_ms:.3f} ms" if lib_ms is not None else ""
+    if queued:
+        lib += f", kernel queued back to back {queued_ms(kern):.3f} ms"
     print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {bound_ms:.3f} ms "
           f"({bound_by})")
     return {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
@@ -1134,8 +1171,10 @@ def _within_one_ulp(name, got, want):
 
 
 def _matmul_rows(gen):
-    """Row 11a: the tiled matmul at 2048^3 (bf16, int8) and int8_dot at the
-    mosaic's four projection shapes (112945 rows, bf16 in and out)."""
+    """Row 11a: the tiled matmul at 2048^3 (bf16, int8); row 11a': int8_dot
+    at the mosaic's four projection shapes (112945 rows, bf16 in and out)
+    and its row quantizer alone at both widths it takes there (values and
+    scales bit-equal to rowwise_int8's)."""
     import torch
 
     pr, qz = _modules()["pr"], _modules()["qz"]
@@ -1155,9 +1194,9 @@ def _matmul_rows(gen):
             library = lambda: torch.matmul(a, bt.t())  # noqa: E731
         isz = a.element_size()
         rows[f"probe_matmul[{tag}]"] = _timed_row(
-            f"probe_matmul[{tag}]", "matmul_mma.cu", PD + ":38", tag,
+            f"probe_matmul[{tag}]", "matmul_wgmma.cu", PD + ":38", tag,
             lambda: pr.probe_matmul(a, bt), lambda: pr.probe_matmul_plain(a, bt), check, library,
-            2 * m ** 3, 3 * m * m * isz)
+            2 * m ** 3, 3 * m * m * isz, queued=True)
     n_rows = TILES * TOKENS
     for k, n in PROJ_SHAPES:
         x = torch.randn(n_rows, k, generator=gen, device=dev).to(torch.bfloat16)
@@ -1171,12 +1210,20 @@ def _matmul_rows(gen):
             acc = torch._int_mm(xq, wq[0].t())
             return ((acc.float() * sx) * wq[1] + bias).to(torch.bfloat16)
 
+        if f"quantize_rows[{k}]" not in rows:
+            qname = f"quantize_rows[{k}]"
+            rows[qname] = _timed_row(
+                qname, "quantize_rows.cu", QZ + ":54", "f32", lambda x=x: qz.quantize_rows(x),
+                lambda x=x: qz.rowwise_int8(x),
+                lambda g, wnt, q=qname: max(_equal(q, g[0], wnt[0]),
+                                            _equal(q + " scales", g[1], wnt[1])),
+                None, n_rows * k, n_rows * k * 3 + n_rows * 4, queued=True)
         rows[name] = _timed_row(
-            name, "matmul_mma.cu", PD + ":38", "int8",
+            name, "matmul_wgmma.cu", PD + ":38", "int8",
             lambda x=x, wq=wq, bias=bias: qz.int8_dot(x, wq, bias, torch.bfloat16),
             lambda x=x, wq=wq, bias=bias: qz.int8_dot_plain(x, wq, bias, torch.bfloat16),
             lambda g, wnt, name=name: _equal(name, g, wnt), library,
-            2 * n_rows * k * n, n_rows * k * 2 + n * k + n * 8 + n_rows * n * 2)
+            2 * n_rows * k * n, n_rows * k * 2 + n * k + n * 8 + n_rows * n * 2, queued=True)
         del x
     return rows
 
@@ -1282,8 +1329,8 @@ def phase_int8_route(models):
     """The int8 serving route (--quant int8) at full width on phase 2's
     1152^2 mosaic: launches, mask gates over weight seeds 0-3, ms per mosaic
     beside the unquantized routes, the streamed path, the serving CLI.
-    Returns the int8_dot launches of one bf16 --infer_mlp none call by
-    projection shape."""
+    Returns the launches of int8_dot and its quantizer in one bf16
+    --infer_mlp none call, by projection shape and row width."""
     import torch
     from PIL import Image
 
@@ -1293,7 +1340,7 @@ def phase_int8_route(models):
     from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
     from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
 
-    pr = _modules()["pr"]
+    qz = _modules()["qz"]
     dev = torch.device("cuda")
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     int8 = {"auto": InferRoutes("lnout", "int8"), "none": InferRoutes("none", "int8")}
@@ -1308,21 +1355,15 @@ def phase_int8_route(models):
         run(models[tag], tag, int8["none"])
     torch.cuda.synchronize()
     shapes = {}
-    launch = pr.launch_matmul
-
-    def by_shape(a, bt, *args, **kw):  # int8_dot's GEMM launches by projection shape
-        key = f"int8_dot[{a.shape[1]}->{bt.shape[0]}]"
-        shapes[key] = shapes.get(key, 0) + 1
-        return launch(a, bt, *args, **kw)
-
     for tag in dtypes:
         for mlp, routes in int8.items():
             reset_counts()
-            with mock.patch.object(pr, "launch_matmul", by_shape) if (tag, mlp) == ("bf16", "none") \
-                    else contextlib.nullcontext():
-                mask, attn = run(models[tag], tag, routes)
-                torch.cuda.synchronize()
+            mask, attn = run(models[tag], tag, routes)
+            torch.cuda.synchronize()
             counts = launch_counts()
+            if (tag, mlp) == ("bf16", "none"):  # the wrappers' own counts by shape
+                shapes = {f"{w.__name__}[{key}]": n for w in (qz.int8_dot, qz.quantize_rows)
+                          for key, n in w.launches_by_shape.items()}
             want = {name: INT8_LAUNCHES[mlp].get(name, 0) for name in KERNELS}
             print(f"  int8 route [{tag}, --infer_mlp {mlp}] launches: "
                   f"{ {k: v for k, v in counts.items() if v} }")
@@ -1330,8 +1371,15 @@ def phase_int8_route(models):
                 raise AssertionError(f"int8 route launch counts {counts} != {want}")
             if not bool(attn.isfinite().all()) or not set(mask.unique().tolist()) <= {0, 255}:
                 raise AssertionError(f"int8 route [{tag}, {mlp}]: bad outputs")
-    if sum(shapes.values()) != INT8_LAUNCHES["none"]["int8_dot"] or len(shapes) != 4:
-        raise AssertionError(f"int8_dot launches by shape {shapes}")
+    # each layer runs each projection once, one quantizer launch on its rows
+    per = INT8_LAUNCHES["none"]["int8_dot"] // len(PROJ_SHAPES)
+    want = {}
+    for k, n in PROJ_SHAPES:
+        want[f"int8_dot[{k}->{n}]"] = per
+        want[f"quantize_rows[{k}]"] = want.get(f"quantize_rows[{k}]", 0) + per
+    print(f"  int8 route [bf16, --infer_mlp none] launches by shape: {shapes}")
+    if shapes != want:
+        raise AssertionError(f"int8_dot and quantize_rows launches by shape {shapes} != {want}")
 
     # mask gates over weight seeds 0-3 (random weights sit at a noise floor)
     pooled = {}

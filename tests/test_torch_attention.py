@@ -132,3 +132,23 @@ def test_cls_row_attention_bf16_keeps_f32_probabilities(n, h):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=2.0**-7,
                                atol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [2, 63, 64, 65, 127, 128, 129, 257])
+def test_savep_f32_twin_matches_jax_want_p(n, d):
+    """The f32 saved-P forward's twin against the JAX package's
+    _flash_fwd(want_p) in interpret mode: out, P (exp(s - m), m the true row
+    max) and inv = 1 / denominator, within 1e-5 of max|JAX|; P's padded
+    columns are exactly 0."""
+    rng = np.random.default_rng(n + d)
+    q, k, v = (rng.normal(0, 1, (1, 2, n, d)).astype(np.float32) for _ in range(3))
+    jout, jinv, jp = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)), 0, True,
+                                    want_lse=False, want_p=True)
+    out, p, inv = tfa.flash_attention_savep(*(torch.from_numpy(a.reshape(2, n, d))
+                                              for a in (q, k, v)))
+    assert p.shape == (2, n, tfa.p_columns(n)) and p.dtype == torch.float32
+    assert not p[..., n:].any()
+    for got, want in ((out, np.asarray(jout)[:, :n]), (p[..., :n], np.asarray(jp)[:, :n, :n]),
+                      (inv, np.asarray(jinv)[:, :n, 0])):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -5,10 +5,11 @@ bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
 csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
 (csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu,
 and csrc/attention_savep_bwd_wgmma.cu on the saved-P route);
-the bfloat16 MLP training forward takes the mma.sync kernel, float32 the
-CUDA-core ones. The route functions read only shapes, dtypes and layouts, so
-these tests run without a card; on the CPU the wrappers take their plain
-twins and count no launch.
+the bfloat16 MLP training forward takes the wgmma kernel too, float32 the
+CUDA-core ones; the tiled GEMM of the probes and the int8 route takes
+csrc/matmul_wgmma.cu in every dtype and epilogue. The route functions read
+only shapes, dtypes and layouts, so these tests run without a card; on the
+CPU the wrappers take their plain twins and count no launch.
 """
 
 import pytest
@@ -16,6 +17,8 @@ import torch
 
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+from vit_ocm_wmsegmentation_tpu_torch.ops import probes
+from vit_ocm_wmsegmentation_tpu_torch.ops import quant
 
 from port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
@@ -303,3 +306,104 @@ def test_wrappers_raise_on_devices_without_a_kernel(name):
                 fm.fused_mlp_block(x, v, v, w1, b1, w2, v)
             else:
                 fm.fused_mlp_block_lnout(x, v, v, w1, b1, w2, v, v, v)
+
+
+I8 = torch.int8
+
+
+@pytest.mark.parametrize("dtype,out_dtype,dequant", [(BF16, BF16, False), (I8, I8, False),
+                                                     (I8, F32, True), (I8, BF16, True)])
+@pytest.mark.parametrize("k", [16, 48, 384, 1536])
+def test_matmul_route_names_the_kernel(dtype, out_dtype, dequant, k):
+    """Every dtype and epilogue of the GEMM, at K from one 16-byte row step
+    (int8 K = 16: half a k32 step) to the MLP's width, on any M and N."""
+    a, bt = torch.zeros(130, k, dtype=dtype), torch.zeros(1160, k, dtype=dtype)
+    assert probes.matmul_route(a, bt, out_dtype, dequant) == "matmul_wgmma.cu"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("K * itemsize", "multiple of 16 bytes"), ("mixed dtypes", "one dtype"),
+    ("K mismatch", "one dtype"), ("3-D a", "one dtype"), ("bf16 to f32", "no kernel"),
+    ("int8 dequant to int8", "no kernel"), ("bf16 dequant", "no kernel"),
+    ("f32 operands", "no kernel")])
+def test_matmul_route_raises_on_what_no_kernel_takes(case, match):
+    a, bt, out, dq = torch.zeros(8, 32, dtype=I8), torch.zeros(4, 32, dtype=I8), I8, False
+    if case == "K * itemsize":
+        a, bt = a[:, :24].contiguous(), bt[:, :24].contiguous()
+    elif case == "mixed dtypes":
+        bt = bt.to(BF16)
+    elif case == "K mismatch":
+        bt = torch.zeros(4, 48, dtype=I8)
+    elif case == "3-D a":
+        a = a[None]
+    elif case == "bf16 to f32":
+        a, bt, out = a.to(BF16), bt.to(BF16), F32
+    elif case == "int8 dequant to int8":
+        dq = True
+    elif case == "bf16 dequant":
+        a, bt, out, dq = a.to(BF16), bt.to(BF16), BF16, True
+    else:
+        a, bt, out = a.float(), bt.float(), F32
+    with pytest.raises(ValueError, match=match):
+        probes.matmul_route(a, bt, out, dq)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_quantizer_and_int8_dot_on_the_cpu_take_the_twins_and_count_no_launch(dtype):
+    x = torch.randn(5, 7, 48).to(dtype)
+    w = quant.colwise_int8(torch.randn(24, 48))
+    counts = lambda: [(f.launches, dict(f.launches_by_shape))  # noqa: E731
+                      for f in (quant.quantize_rows, quant.int8_dot)]
+    before = counts()
+    xq, s = quant.quantize_rows(x)
+    assert torch.equal(xq, quant.rowwise_int8(x)[0]) and s.shape == (5, 7, 1)
+    assert torch.equal(quant.int8_dot(x, w), quant.int8_dot_plain(x, w))
+    assert counts() == before
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("k", [16, 48, 384, 1536, 4096])
+def test_quantize_route_names_the_kernel(dtype, k):
+    """Both input dtypes, K from one 16-byte step of int8 output to the
+    widest row the kernel holds in registers, any number of rows."""
+    assert quant.quantize_route(torch.zeros(3, 5, k, dtype=dtype)) == "quantize_rows.cu"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("K not a multiple of 16", "multiple of 16"), ("K past QUANT_K_MAX", "multiple of 16"),
+    ("int8 rows", "multiple of 16"), ("float64 rows", "multiple of 16"),
+    ("a 0-d tensor", "multiple of 16"), ("misaligned view", "16-byte aligned"),
+    ("strided view", "16-byte aligned")])
+def test_quantize_route_raises_on_what_no_kernel_takes(case, match):
+    """What the kernel cannot load raises ValueError, among it a contiguous
+    view whose data is not 16-byte aligned (its 16-byte row loads would
+    fault on the card)."""
+    x = torch.zeros(4, 48)
+    if case == "K not a multiple of 16":
+        x = torch.zeros(4, 40)
+    elif case == "K past QUANT_K_MAX":
+        x = torch.zeros(1, quant.QUANT_K_MAX + 16)
+    elif case == "int8 rows":
+        x = x.to(I8)
+    elif case == "float64 rows":
+        x = x.double()
+    elif case == "a 0-d tensor":
+        x = torch.zeros(())
+    elif case == "misaligned view":
+        x = torch.zeros(4 * 48 + 1)[1:].view(4, 48)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    else:
+        x = torch.zeros(4, 96)[:, ::2]
+    with pytest.raises(ValueError, match=match):
+        quant.quantize_route(x)
+
+
+@pytest.mark.parametrize("name", ["quantize_rows", "int8_dot"])
+def test_int8_wrappers_raise_on_devices_without_a_kernel(name):
+    x = torch.zeros(4, 48, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if name == "quantize_rows":
+            quant.quantize_rows(x)
+        else:
+            quant.int8_dot(x, (torch.zeros(8, 48, dtype=I8, device="meta"),
+                               torch.zeros(8, device="meta")))

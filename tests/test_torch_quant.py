@@ -22,7 +22,7 @@ from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as tfa
 from vit_ocm_wmsegmentation_tpu_torch.ops import quant as tquant
 from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as tth
 
-from port_helpers import one_torch_thread  # noqa: F401  (autouse)
+from port_helpers import one_torch_thread, quant_rows  # noqa: F401  (autouse)
 
 from torch_oracle import make_vit_state_dict
 
@@ -57,7 +57,10 @@ def _weights(seed):
     return vit_params_from_torch(sd, JCFG), model
 
 
-@pytest.mark.parametrize("shape", [(64, 384, 1536), (7, 48, 5)])
+# (M, K, N): a small case, then the mosaic's four projections (qkv, proj,
+# fc1, fc2) at an M that is not a multiple of the GEMM's 128-row tile
+@pytest.mark.parametrize("shape", [(64, 384, 1536), (7, 48, 5), (130, 384, 1152), (130, 384, 384),
+                                   (130, 384, 1536), (130, 1536, 384)])
 def test_int8_dot_and_colwise_match_jax_exactly(shape):
     m, k, n = shape
     rng = np.random.default_rng(m)
@@ -78,6 +81,26 @@ def test_int8_dot_and_colwise_match_jax_exactly(shape):
     for weight in (wt, (tq, ts)):
         np.testing.assert_array_equal(tquant.int8_dot_plain(torch.from_numpy(x), weight).numpy(), want)
         np.testing.assert_array_equal(tquant.int8_dot(torch.from_numpy(x), weight).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [16, 384, 1536])
+def test_quantize_rows_twin_matches_jax_exactly(k, dtype):
+    """quantize_rows on the CPU (its plain twin, rowwise_int8) against the
+    JAX package's _rowwise_int8: values and scales equal, on rows over six
+    decades, an all-zero row and exact round-half ties of x / s (0.5 -> 0,
+    2.5 -> 2: half to even); no kernel launches."""
+    x = quant_rows(130, k, k)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    jq, js = jquant._rowwise_int8(jx)
+    before = tquant.quantize_rows.launches
+    tq, ts = tquant.quantize_rows(tx)
+    assert tquant.quantize_rows.launches == before
+    assert tq.dtype == torch.int8 and ts.shape == (130, 1)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert float(ts[1]) == 1.0 and tq[2, 1] == 0 and tq[2, 3] == 2 and tq[3, 1] == 0
 
 
 def _mha_case(seed, n=20, dm=32):

@@ -32,7 +32,7 @@ LINK_FLAGS = ["-lcuda"]
 
 # storage dtype -> the C interface's dtype code (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-INT8_CODE = 2  # int8 operands of csrc/matmul_mma.cu and csrc/probe_attention_mma.cu
+INT8_CODE = 2  # int8 operands of csrc/matmul_wgmma.cu and csrc/probe_attention_mma.cu
 
 _lock = threading.Lock()
 _lib = None
@@ -83,6 +83,8 @@ def _declare(lib):
     lib.vitocm_histogram_u8.restype = _I
     lib.vitocm_matmul.argtypes = [_I, _I, *[_P] * 6, _I, _I, _I, _P]
     lib.vitocm_matmul.restype = _I
+    lib.vitocm_quantize_rows.argtypes = [_I, _P, _P, _P, _I, _I, _P]
+    lib.vitocm_quantize_rows.restype = _I
     lib.vitocm_probe_attention.argtypes = [*[_I] * 6, *[_P] * 6, *[_I] * 5, ctypes.c_float, _P]
     lib.vitocm_probe_attention.restype = _I
     return lib

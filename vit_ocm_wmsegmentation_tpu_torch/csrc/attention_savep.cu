@@ -11,16 +11,29 @@
 // the wrapper; P (B*h, N, Np) with Np = N rounded up to the 64-key tile, its
 // padded columns exactly 0; inv (B*h, N) f32.
 //
-// Forward. The online softmax of attention_qkv.cu cannot write P as it goes:
-// its running max changes from key tile to key tile. So one CTA (64 query
-// rows, 256 threads, a 4 x 4 score block and a 4 x d/16 output block each)
-// walks the keys twice: pass 1 computes s tile by tile and keeps each row's
-// max (padded keys masked); pass 2 recomputes s, writes P = exp(s - m) (the
-// rounding to the storage type is the identity in f32), accumulates o += P V
-// and the row sum of P, then writes o / sum and inv = 1 / sum. 1.5x the
-// FLOPs of the lse route's forward plus the write of P: 1.02 GB a layer at
-// the MIM shape (48, 2305, 128), 0.30 ms of HBM time against the ~8 ms the
-// f32 products take on the CUDA cores, so the FMA issue bounds it.
+// Forward: attention_qkv.cu's f32 forward (row 5) with P written out. One
+// CTA of 256 threads owns 128 query rows and walks the keys in tiles (128 at
+// d = 64, 64 at d = 128) with register micro-tiles read as float4
+// (ffma_tiles.cuh: 8 x 8 scores and 8 x 4 outputs at d = 64, 8 x 4 and 8 x 8
+// at d = 128) and K and V tiles through a three-slot 16-byte cp.async ring.
+// The softmax stays in registers and its P tile passes through shared memory
+// on its way to P.V, so each tile's P also goes out from there as float4s,
+// neighbouring lanes on neighbouring keys (1.05 GB a layer at the MIM shape
+// (48, 2305, 128), 0.31 ms of HBM time beside the ~3.7 ms of FFMA work that
+// bounds the kernel). The online softmax shifts tile t by the running max
+// m_t, not by the row's max m, so with at most d key tiles (N <= 8192) the
+// kernel walks the keys once: it keeps each row's m_t in the row's own out
+// row until the end (out is written last), then rescales the stored tiles
+// whose shift was not the final max, P *= exp(m_t - m) (about half of them
+// for random scores), and writes out = o / l and inv = 1 / l from the online
+// sum l. Such a P differs from exp(s - m) by an ulp or two, well inside the
+// f32 gate against the plain twin (1e-5 of max|twin|), which computes
+// exp(s - m) in one step.
+// Past d key tiles the same loop runs after a first pass that takes each
+// row's max (K tiles only, through the same ring), with the running max
+// started there: every tile is then shifted by m and nothing is rescaled.
+// Padded keys score -inf, so P's padded columns are exactly 0. bf16 storage
+// takes attention_savep_mma.cu.
 //
 // Backward. The lse route's deterministic split with no atomics
 // (attention_bwd.cu): the row statistics once (inv and D = rowsum(do * o),
@@ -62,149 +75,197 @@
 
 namespace vitocm {
 
-constexpr int kPB = 64;   // query rows (forward, dq) or keys (dk/dv) per CTA, and per tile
-constexpr int kPT = 256;  // threads
-constexpr int kPS = kPB + 1;
+constexpr int kPB = 64;    // P's columns are a multiple of this key tile
+constexpr int kSfT = 256;  // threads of the forward
+
+// the forward's tiles: query rows a CTA, keys a tile, row groups, lanes a
+// row group, ring slots (K_t, V_t, K_t+1 or V_t, K_t+1, V_t+1)
+template <int D>
+struct SavepFwdTiles {
+  static constexpr int BQ = 128, BK = D == 64 ? 128 : 64, RG = 16, KG = 16, SLOTS = 3;
+};
 
 template <int D>
 constexpr size_t savep_fwd_smem_bytes() {
-  return sizeof(float) * (kPB * (D + 1) * 2 + kPB * D + kPB * kPS);
+  using T = SavepFwdTiles<D>;
+  return sizeof(float) *
+         ((T::BQ + T::SLOTS * T::BK) * (D + 4) + T::BQ * (T::BK + T::KG) + T::BQ);
 }
 
-// rows r0.. of one (N, D) slice into shared memory (pitch P), zeros past N
-template <int D, int P>
-__device__ __forceinline__ void savep_rows(float* dst, const float* src, int r0, int N) {
-  for (int i = threadIdx.x; i < kPB * D; i += kPT) {
-    const int r = i / D, c = i % D;
-    dst[r * P + c] = r0 + r < N ? src[(long long)(r0 + r) * D + c] : 0.f;
-  }
-}
-
-// s = Q K^T for rows tr + 16i of Qs and rows tc + 16j of Ks (pitch D + 1)
-template <int D>
-__device__ __forceinline__ void savep_scores(float (&s)[4][4], const float* Qs, const float* Ks,
-                                             int tr, int tc) {
-  constexpr int PQ = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int kk = 0; kk < D; ++kk) {
-    float qv[4], kv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + 16 * i) * PQ + kk];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + 16 * j) * PQ + kk];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-}
-
-// the 16 threads of a row group (tid / 16) hold a row's partial results
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kPT)
+// ONE_PASS (at most D key tiles): the keys once, the stored tiles rescaled
+// to the row's max at the end; otherwise a first pass takes the max
+template <int D, bool ONE_PASS>
+__global__ void __launch_bounds__(kSfT, 1)
 attn_fwd_savep_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ P, float* __restrict__ inv, int N, int Np) {
-  constexpr int PQ = D + 1, OJ = D / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;                  // (PB, PQ)
-  float* Ks = Qs + kPB * PQ;       // (PB, PQ)
-  float* Vs = Ks + kPB * PQ;       // (PB, D)
-  float* Ps = Vs + kPB * D;        // (PB, PS)
+  using T = SavepFwdTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, RG = T::RG, KG = T::KG;
+  constexpr int TR = BQ / RG, TK = BK / KG, TC = D / KG;
+  constexpr int PQ = D + 4, PP = BK + KG;  // PP: a warp's P stores hit distinct banks
+  static_assert(RG * KG == kSfT && TK * KG == BK && TC % 4 == 0 && 32 % KG == 0, "tile shape");
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;                          // (BQ, PQ)
+  float* ring = Qs + BQ * PQ;              // (SLOTS, BK, PQ)
+  float* Ps = ring + T::SLOTS * BK * PQ;   // (BQ, PP)
+  float* m_fin = Ps + BQ * PP;             // (BQ): each row's max, for the rescale
+  auto slot = [&](int i) { return ring + (i % T::SLOTS) * BK * PQ; };
 
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int q0 = blockIdx.x * kPB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kg = lane % KG, rg = warp * (32 / KG) + lane / KG;
+  const int q0 = blockIdx.x * BQ;
   const long long off = (long long)blockIdx.y * N * D;
   q += off; k += off; v += off; out += off;
   P += (long long)blockIdx.y * N * Np;
   inv += (long long)blockIdx.y * N;
+  const int tiles = (N + BK - 1) / BK;
 
-  savep_rows<D, PQ>(Qs, q, q0, N);
-  float s[4][4];
-
-  // pass 1: the row max over every valid key
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < N; k0 += kPB) {
-    __syncthreads();  // Qs written / the previous K tile consumed
-    savep_rows<D, PQ>(Ks, k, k0, N);
-    __syncthreads();
-    savep_scores<D>(s, Qs, Ks, tr, tc);
+  float m_run[TR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TR; ++i) m_run[i] = -INFINITY;
+  stage_rows<BQ, D, PQ, kSfT>(Qs, q, q0, N, D);
+  if constexpr (!ONE_PASS) {  // pass 1: each row's max over the valid keys
+    stage_rows<BK, D, PQ, kSfT>(slot(0), k, 0, N, D);
+    cp_async_commit();
+    if (tiles > 1) stage_rows<BK, D, PQ, kSfT>(slot(1), k, BK, N, D);
+    cp_async_commit();
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<1>();
+      __syncthreads();  // K_t has landed; K_t-1 is consumed
+      if (t + 2 < tiles) stage_rows<BK, D, PQ, kSfT>(slot(t + 2), k, (t + 2) * BK, N, D);
+      cp_async_commit();
+      float s[TR][TK];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tc + 16 * j < N) m[i] = fmaxf(m[i], s[i][j]);
-  }
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = row16_max(m[i]);
-
-  // pass 2: P = exp(s - m), written out; o += P V, l += P
-  float o[4][OJ], l[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
+      tile_dot<TR, TK, RG, KG, D, PQ, PQ>(s, Qs, slot(t), rg, kg);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) o[i][j] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kPB) {
-    __syncthreads();  // the previous K, V and P tiles are consumed
-    for (int i = tid; i < kPB * D; i += kPT) {
-      const int r = i / D, c = i % D, row = k0 + r;
-      const bool ok = row < N;
-      Ks[r * PQ + c] = ok ? k[(long long)row * D + c] : 0.f;
-      Vs[r * D + c] = ok ? v[(long long)row * D + c] : 0.f;
+        for (int j = 0; j < TK; ++j)
+          if (t * BK + kg + KG * j < N) m_run[i] = fmaxf(m_run[i], s[i][j]);
     }
-    __syncthreads();
-    savep_scores<D>(s, Qs, Ks, tr, tc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr + 16 * i, row = q0 + r;
+    for (int i = 0; i < TR; ++i) m_run[i] = group_max<KG>(m_run[i]);
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the ring
+  }
+
+  stage_rows<BK, D, PQ, kSfT>(slot(0), k, 0, N, D);
+  cp_async_commit();
+  stage_rows<BK, D, PQ, kSfT>(slot(1), v, 0, N, D);
+  cp_async_commit();
+  float o[TR][TC], l_run[TR];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tc + 16 * j;
-        const float p = k0 + col < N ? expf(s[i][j] - m[i]) : 0.f;
-        l[i] += p;
-        Ps[r * kPS + col] = p;
-        if (row < N) P[(long long)row * Np + k0 + col] = p;  // k0 + col < Np
+  for (int i = 0; i < TR; ++i) {
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) o[i][c] = 0.f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<1>();
+    __syncthreads();  // K_t has landed; V_t-1 and P are consumed
+    if (t + 1 < tiles) stage_rows<BK, D, PQ, kSfT>(slot(2 * t + 2), k, (t + 1) * BK, N, D);
+    cp_async_commit();
+
+    float s[TR][TK];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
+    tile_dot<TR, TK, RG, KG, D, PQ, PQ>(s, Qs, slot(2 * t), rg, kg);
+
+    // online softmax of each row over this tile (every tile holds a valid key)
+    const int k0 = t * BK;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        if (k0 + kg + KG * j >= N) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m_run[i], group_max<KG>(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+        Ps[(rg + RG * i) * PP + kg + KG * j] = s[i][j];
+      }
+      const float alpha = expf(m_run[i] - m_new);  // 0 on the first tile of one pass
+      l_run[i] = l_run[i] * alpha + group_sum<KG>(sum);
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < TC; ++c) o[i][c] *= alpha;
+      const int row = q0 + rg + RG * i;
+      if (ONE_PASS && kg == 0 && row < N) out[(long long)row * D + t] = m_new;  // tile t's shift
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // V_t has landed; P is written; K_t is consumed
+    if (t + 1 < tiles) stage_rows<BK, D, PQ, kSfT>(slot(2 * t + 3), v, (t + 1) * BK, N, D);
+    cp_async_commit();
+    // the P tile out, keys k0 .. below Np, a float4 a thread a step
+    for (int idx = threadIdx.x; idx < BQ * (BK / 4); idx += kSfT) {
+      const int r = idx / (BK / 4), c = 4 * (idx % (BK / 4));
+      if (q0 + r < N && k0 + c < Np)
+        *reinterpret_cast<float4*>(P + (long long)(q0 + r) * Np + k0 + c) =
+            *reinterpret_cast<const float4*>(Ps + r * PP + c);
+    }
+    tile_pv<TR, TC, RG, KG, BK, PP, PQ>(o, Ps, slot(2 * t + 1), rg, kg);
+  }
+
+  if constexpr (ONE_PASS) {
+    if (kg == 0)
+#pragma unroll
+      for (int i = 0; i < TR; ++i) m_fin[rg + RG * i] = m_run[i];
+    __syncthreads();  // the maxima, every P tile and every shift are written
+    // a warp a row: tiles stored with a shift below the row's max, times
+    // exp(shift - max); eight float4s a lane in flight at a time
+    constexpr int F4 = BK / 4;  // float4s a tile row
+    for (int r = warp; r < BQ; r += kSfT / 32) {
+      const int row = q0 + r;
+      if (row >= N) break;  // rows only grow with r
+      const float m = m_fin[r];
+      float* prow = P + (long long)row * Np;
+      const float* shifts = out + (long long)row * D;
+      for (int base = 0; base < tiles * F4; base += 8 * 32) {
+        float4 p[8];
+        float f[8];
+        bool fix[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int idx = base + 32 * u + lane, t = idx / F4, col = t * BK + 4 * (idx % F4);
+          fix[u] = idx < tiles * F4 && col < Np && shifts[t] < m;
+          if (fix[u]) {
+            f[u] = expf(shifts[t] - m);
+            p[u] = *reinterpret_cast<const float4*>(prow + col);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int idx = base + 32 * u + lane, col = (idx / F4) * BK + 4 * (idx % F4);
+          if (fix[u])
+            *reinterpret_cast<float4*>(prow + col) =
+                make_float4(p[u].x * f[u], p[u].y * f[u], p[u].z * f[u], p[u].w * f[u]);
+        }
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kPB; ++kk) {
-      float pv[4], vv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(tr + 16 * i) * kPS + kk];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) vv[j] = Vs[kk * D + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
+    __syncthreads();  // every shift is read before out overwrites them
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sum = row16_sum(l[i]);  // >= 1: the max term is exp(0)
-    const int row = q0 + tr + 16 * i;
+  for (int i = 0; i < TR; ++i) {
+    const int row = q0 + rg + RG * i;
     if (row >= N) continue;
-    if (tc == 0) inv[row] = 1.f / sum;
+    const float l = l_run[i];  // >= 1: the max term is exp(0)
+    float* orow = out + (long long)row * D + 4 * kg;
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) out[(long long)row * D + tc + 16 * j] = o[i][j] / sum;
+    for (int g = 0; g < TC / 4; ++g)
+      st4(orow + 4 * KG * g, o[i][4 * g] / l, o[i][4 * g + 1] / l, o[i][4 * g + 2] / l,
+          o[i][4 * g + 3] / l);
+    if (kg == 0) inv[row] = 1.f / l;
   }
 }
 
@@ -446,11 +507,14 @@ attn_bwd_savep_dq_kernel(const float* __restrict__ k, const float* __restrict__ 
 template <int D>
 static int launch_fwd_savep(const void* qs, const void* k, const void* v, void* out, void* P,
                             float* inv, int BH, int N, int Np, cudaStream_t stream) {
+  using T = SavepFwdTiles<D>;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const size_t smem = savep_fwd_smem_bytes<D>();
-  cudaFuncSetAttribute(attn_fwd_savep_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  attn_fwd_savep_kernel<D><<<dim3((N + kPB - 1) / kPB, BH), kPT, smem, stream>>>(
+  // the row's shifts live in its out row (D floats) until the rescale
+  auto kern = (N + T::BK - 1) / T::BK <= D ? attn_fwd_savep_kernel<D, true>
+                                            : attn_fwd_savep_kernel<D, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<dim3((N + T::BQ - 1) / T::BQ, BH), kSfT, smem, stream>>>(
       f(qs), f(k), f(v), static_cast<float*>(out), static_cast<float*>(P), inv, N, Np);
   return (int)cudaGetLastError();
 }

@@ -3,16 +3,16 @@
 * :func:`probe_matmul` is ``tools/probe_dot.py::matmul``: a tiled A B, bf16
   with f32 accumulation stored as bf16, or int8 with int32 accumulation
   stored as int8 (wrapped modulo 256, as XLA's convert does). Its kernel
-  (``csrc/matmul_mma.cu``) is also the int8 serving route's GEMM
-  (:func:`ops.quant.int8_dot`, through :func:`launch_matmul`).
+  (``csrc/matmul_wgmma.cu``: wgmma fed by TMA) is also the int8 serving
+  route's GEMM (:func:`ops.quant.int8_dot`, through :func:`launch_matmul`).
 * :func:`probe_attention` runs one attention probe (``csrc/
   probe_attention_mma.cu``): ``tools/probe_dot.py::attn`` (variant "dot",
   int8 or bf16), the four modes of ``tools/bench_attention_variants.py`` and
   the nine distinct functions of ``tools/bench_attn_opt.py`` (:data:`VARIANTS`).
 
 B operands come k-contiguous: :func:`probe_matmul` takes B transposed, (N,
-K), which its callers make once, outside any timed region (ldmatrix has no
-8-bit transpose). The plain twins (``*_plain``) compute in f32 from the
+K), which its callers make once, outside any timed region (8-bit wgmma reads
+both operands K-major). The plain twins (``*_plain``) compute in f32 from the
 rounded operands, integer products exactly (int64 on the CPU, float64 on the
 card). CPU tensors take the twins; CUDA tensors launch the kernels or raise.
 Each wrapper's ``launches`` counts kernel launches.
@@ -99,35 +99,57 @@ def _check_cuda(name, *ts):
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: no kernel for device {t.device}")
+    check_layout(name, *ts)
+
+
+def check_layout(name, *ts):
+    """Raises ValueError unless the tensors are contiguous, 16-byte aligned
+    and on one device, as the kernels' 16-byte and TMA loads need."""
+    for t in ts:
         if t.device != ts[0].device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: want contiguous, 16-byte aligned tensors on one device, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _matmul_plan(a, bt, out_dtype, dequant):
+    """(dtype code, epilogue) of csrc/matmul_wgmma.cu for these operands;
+    raises ValueError on what the kernel does not take."""
+    if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1] or a.dtype != bt.dtype:
+        raise ValueError(f"matmul: want (M, K) and (N, K) of one dtype, got {tuple(a.shape)} "
+                         f"{a.dtype} and {tuple(bt.shape)} {bt.dtype}")
+    (m, k), n = a.shape, bt.shape[0]
+    if (k * a.element_size()) % 16 or m < 1 or n < 1 or k < 1:
+        raise ValueError(f"matmul: K * itemsize must be a multiple of 16 bytes, got K={k} "
+                         f"{a.dtype}")
+    if a.dtype == torch.bfloat16 and not dequant and out_dtype == torch.bfloat16:
+        return build.DTYPE_CODES[torch.bfloat16], 0
+    if a.dtype == torch.int8 and not dequant and out_dtype == torch.int8:
+        return build.INT8_CODE, 0
+    if a.dtype == torch.int8 and dequant and out_dtype in (torch.float32, torch.bfloat16):
+        return build.INT8_CODE, 1 if out_dtype == torch.float32 else 2
+    raise ValueError(f"matmul: no kernel for {a.dtype} operands to {out_dtype} "
+                     f"(dequant={dequant})")
+
+
+def matmul_route(a, bt, out_dtype, dequant=False) -> str:
+    """The kernel source a CUDA call of :func:`launch_matmul` with these
+    operands launches: "matmul_wgmma.cu", for bf16 -> bf16, int8 -> int8 and,
+    dequantized, int8 -> f32 or bf16. Reads only shapes and dtypes, so a CPU
+    tensor stands for its CUDA copy; raises on what the kernel does not take."""
+    _matmul_plan(a, bt, out_dtype, dequant)
+    return "matmul_wgmma.cu"
+
+
 def launch_matmul(a, bt, out_dtype, sx=None, sw=None, bias=None):
-    """C = a @ bt.T on the kernel of csrc/matmul_mma.cu, for (M, K) a and
+    """C = a @ bt.T on the kernel of csrc/matmul_wgmma.cu, for (M, K) a and
     (N, K) bt of one dtype: bf16 -> bf16 (stored), int8 -> int8 (stored,
     wrapped) or, with the row and column scales sx (M,) and sw (N,) and an
     optional bias (N,), int8 -> f32 or bf16 dequantized. Raises on anything
     the kernel does not take; the callers count the launch."""
     _check_cuda("matmul", a, bt)
-    if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1] or a.dtype != bt.dtype:
-        raise ValueError(f"matmul: want (M, K) and (N, K) of one dtype, got {tuple(a.shape)} "
-                         f"{a.dtype} and {tuple(bt.shape)} {bt.dtype}")
-    (m, k), n = a.shape, bt.shape[0]
-    if (k * a.element_size()) % 16 or m < 1 or n < 1:
-        raise ValueError(f"matmul: K * itemsize must be a multiple of 16 bytes, got K={k} "
-                         f"{a.dtype}")
     dequant = sx is not None
-    if a.dtype == torch.bfloat16 and not dequant and out_dtype == torch.bfloat16:
-        code, epi = build.DTYPE_CODES[torch.bfloat16], 0
-    elif a.dtype == torch.int8 and not dequant and out_dtype == torch.int8:
-        code, epi = build.INT8_CODE, 0
-    elif a.dtype == torch.int8 and dequant and out_dtype in (torch.float32, torch.bfloat16):
-        code, epi = build.INT8_CODE, 1 if out_dtype == torch.float32 else 2
-    else:
-        raise ValueError(f"matmul: no kernel for {a.dtype} operands to {out_dtype} "
-                         f"(dequant={dequant})")
+    code, epi = _matmul_plan(a, bt, out_dtype, dequant)
+    (m, k), n = a.shape, bt.shape[0]
     ptrs = [0, 0, 0]
     if dequant:
         vecs = [sx, sw] + ([bias] if bias is not None else [])

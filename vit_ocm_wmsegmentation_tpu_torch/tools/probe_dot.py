@@ -3,7 +3,7 @@ package, with its argv.
 
     python -m vit_ocm_wmsegmentation_tpu_torch.tools.probe_dot {mm_bf16|mm_int8|attn_int8|attn_bf16}
 
-``mm_*`` times the tiled matmul (``csrc/matmul_mma.cu``) at M = K = N =
+``mm_*`` times the tiled matmul (``csrc/matmul_wgmma.cu``) at M = K = N =
 2048 on the original's seeded inputs (int8 in [-3, 3), bf16 N(0, 0.1)); B
 is transposed to (N, K) once, before the timed calls. ``attn_*`` times both
 attention products at the mosaic's folded shape (294 groups, 2432 keys, d
