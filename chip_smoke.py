@@ -15,7 +15,9 @@ and then, failing on the first phase that fails:
    instance, inference and training, and the bf16 MLP backward's dx and
    weight kernels, and the GEMM of the int8 route and the probes in bf16)
    warpgroup products (HGMMA) and TMA loads (UTMALDG) and no mma.sync
-   (HMMA), the GEMM's three int8 instances IGMMA and UTMALDG and no IMMA;
+   (HMMA), the GEMM's three int8 instances IGMMA and UTMALDG and no IMMA,
+   the probe attention (``probe_attention_wgmma.cu``) HGMMA and UTMALDG in
+   its 14 bf16 instances and IGMMA and UTMALDG in its int8 one;
    the f32 attention kernels (forward at both head dims and both layouts,
    the saved-P forward in its one- and two-pass instances, dk/dv and dq on
    both backward routes) and the f32 MLP kernels (the forward in every
@@ -167,8 +169,8 @@ KERNELS = {
     "int8_dot": ("qz", {"int8": "matmul_wgmma.cu"}, PD + ":38"),
     "quantize_rows": ("qz", {"bf16": "quantize_rows.cu"}, QZ + ":54"),
     "probe_matmul": ("pr", {"bf16": "matmul_wgmma.cu", "int8": "matmul_wgmma.cu"}, PD + ":38"),
-    "probe_attention": ("pr", {"bf16": "probe_attention_mma.cu", "int8": "probe_attention_mma.cu"},
-                        PD + ":72"),
+    "probe_attention": ("pr", {"bf16": "probe_attention_wgmma.cu",
+                               "int8": "probe_attention_wgmma.cu"}, PD + ":72"),
 }
 # the probe attention's functions -> the TPU kernel body each replaces
 PROBE_REPLACES = {"dot": PD + ":72", "full": BAV + ":31", "bf16exp": BAV + ":31",
@@ -211,7 +213,9 @@ CONTROLS = {}
 # no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
 # plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
 # and its weight kernel in 2, the GEMM of matmul_wgmma.cu in bf16 (HGMMA) and
-# in its three int8 instances (IGMMA, and no IMMA: no mma.sync); the f32
+# in its three int8 instances (IGMMA, and no IMMA: no mma.sync), the probe
+# attention in its 14 bf16 instances (HGMMA) and its int8 one (IGMMA), all
+# with TMA loads; the f32
 # attention kernels (attention_qkv.cu, both head dims and both layouts; the
 # saved-P forward at both head dims, one pass or two; the dk/dv and dq
 # kernels of attention_bwd.cu and attention_savep.cu) and the f32 MLP
@@ -232,7 +236,18 @@ SASS_CHECKS = {
     "mlp_bwd_dx_kernel": (4, *_FFMA), "mlp_bwd_w_kernel": (1, *_FFMA),
     "attn_fwd_savep_kernel": (4, *_FFMA), "matmul_wgmma_kernelIa": _IGMMA,
     "matmul_wgmma_kernelI13__nv_bfloat16": (1, ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "IGMMA")),
+    "probe_attention_wgmma_kernelI13__nv_bfloat16": (14, ("HGMMA", "UTMALDG"),
+                                                     ("HMMA", "IMMA", "IGMMA")),
+    "probe_attention_wgmma_kernelIa": (1, *_IGMMA[1:]),
 }
+
+
+def _names_kernel(key, fn):
+    """Whether the mangled name fn is of the kernel `key` (a prefix of its
+    name and template arguments): the key starts right after the name's
+    length digits, so "attention_wgmma_kernel" is not found in
+    "probe_attention_wgmma_kernel"."""
+    return re.search(rf"(?<![A-Za-z_]){re.escape(key)}", fn) is not None
 
 
 def _modules():
@@ -524,7 +539,7 @@ def check_kernel_builds():
     from vit_ocm_wmsegmentation_tpu_torch import build
 
     def kernel_of(fn):
-        return next((k for k in SASS_CHECKS if k in fn), None)
+        return next((k for k in SASS_CHECKS if _names_kernel(k, fn)), None)
 
     entry, reported = None, set()
     for line in build.build_info["ptxas"].splitlines():
@@ -552,8 +567,8 @@ def check_kernel_builds():
             for op in counts[fn]:
                 counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
     for name, (instances, want, forbid) in SASS_CHECKS.items():
-        found = {fn: c for fn, c in counts.items() if name in fn}
-        in_ptxas = {fn for fn in reported if name in fn}
+        found = {fn: c for fn, c in counts.items() if _names_kernel(name, fn)}
+        in_ptxas = {fn for fn in reported if _names_kernel(name, fn)}
         if len(found) < instances or len(in_ptxas) < instances:
             raise AssertionError(f"{name}: {len(found)} instances in the SASS and {len(in_ptxas)} "
                                  f"in ptxas' report, want {instances}")
@@ -1305,7 +1320,7 @@ def _probe_attention_rows(gen):
         nbytes += (kw["q"].numel() if function.startswith("qkvflat") else
                    kw["q"].shape[0] * kw["q"].shape[1] * d) * 2
         rows[name] = _timed_row(
-            name, "probe_attention_mma.cu", PROBE_REPLACES[function], tag,
+            name, "probe_attention_wgmma.cu", PROBE_REPLACES[function], tag,
             lambda function=function, kw=kw: pr.probe_attention(function, **kw),
             lambda function=function, kw=kw: pr.probe_attention_plain(function, **kw), check,
             sdpa if normalized else None, flops, nbytes)

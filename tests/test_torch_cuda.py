@@ -620,9 +620,31 @@ def test_savep_f32_forward_matches_twin_at_tile_edges(cuda, bh, n, d):
     assert err <= LSE_TOL[torch.float32] * float(pinv.abs().max()), err
 
 
+# the probe kernel's tile edges: 128 query rows a CTA (64 a warpgroup), 64
+# keys a tile
+PROBE_ROWS, PROBE_KEYS = (1, 127, 128, 129, 130), (64, 65, 208)
+
+
+def _probe_cases():
+    """(variant, query rows, keys); qkvflat's rows are its keys."""
+    for variant in sorted(probes.VARIANTS):
+        if probes.VARIANTS[variant].layout == "qkvflat":
+            yield from ((variant, n, n) for n in PROBE_KEYS)
+        else:
+            yield from ((variant, r, n) for r in PROBE_ROWS for n in PROBE_KEYS)
+
+
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
 def _probe_case(variant, dev, rows=130, keys=208, groups=3):
-    gen = torch.Generator(device=dev).manual_seed(keys)
+    """Inputs of one probe call, the last 5 keys padded at -1e30. folded_t's
+    kt rows must be whole 16-byte steps, so its keys round up to 8."""
     var = probes.VARIANTS[variant]
+    if var.layout == "folded_t":
+        keys = _round_up(keys, 8)
+    gen = torch.Generator(device=dev).manual_seed(keys + rows)
     bias = torch.zeros(keys, device=dev)
     bias[-5:] = -1e30  # padded keys
     r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
@@ -636,26 +658,35 @@ def _probe_case(variant, dev, rows=130, keys=208, groups=3):
     return {"q": q, "k": k, "v": v, "bias": bias, "scale": 1.0}
 
 
-@pytest.mark.parametrize("variant", sorted(probes.VARIANTS))
-def test_probe_attention_kernel_matches_plain(cuda, variant):
-    """Odd shapes: 130 query rows, 208 keys (keys past the last 64-key tile,
-    5 padded at -1e30), 3 groups; qkvflat at 2 x 208 rows, 2 heads."""
-    kw = _probe_case(variant, cuda)
+@pytest.mark.parametrize("variant,rows,keys", list(_probe_cases()))
+def test_probe_attention_kernel_matches_plain(cuda, variant, rows, keys):
+    """Around the kernel's tiles: 1, 127, 128, 129 and 130 query rows, 64, 65
+    (72 for folded_t) and 208 keys, 5 of them padded at -1e30, 3 groups;
+    qkvflat at 2 x Np rows, 2 heads."""
+    kw = _probe_case(variant, cuda, rows, keys)
+    assert probes.probe_attention_route(variant, **{k: v for k, v in kw.items()
+                                                    if k != "scale"}) == "probe_attention_wgmma.cu"
     before = probes.probe_attention.launches
     got = probes.probe_attention(variant, **kw)
     assert probes.probe_attention.launches == before + 1
     _close(got, probes.probe_attention_plain(variant, **kw), torch.bfloat16)
 
 
-def test_probe_attention_int8_matches_plain(cuda):
+@pytest.mark.parametrize("rows", PROBE_ROWS)
+@pytest.mark.parametrize("keys", PROBE_KEYS)
+def test_probe_attention_int8_matches_plain(cuda, rows, keys):
     """probe_dot's int8 attention: int32 products, the same exp and the same
-    truncation to int8 give outputs equal to the twin's."""
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randint(-100, 100, (3, 130, 64), generator=gen, device=cuda, dtype=torch.int8)
-    kt = torch.randint(-100, 100, (3, 64, 208), generator=gen, device=cuda, dtype=torch.int8)
-    v = torch.randint(-100, 100, (3, 208, 128), generator=gen, device=cuda, dtype=torch.int8)
-    bias = torch.zeros(208, device=cuda)
+    truncation to int8 give outputs equal to the twin's. int8 kt rows must be
+    whole 16-byte steps, so the keys round up to 16 (65 -> 80)."""
+    keys = _round_up(keys, 16)
+    gen = torch.Generator(device=cuda).manual_seed(keys + rows)
+    ri = lambda *s: torch.randint(-100, 100, s, generator=gen, device=cuda,  # noqa: E731
+                                  dtype=torch.int8)
+    q, kt, v = ri(3, rows, 64), ri(3, 64, keys), ri(3, keys, 128)
+    bias = torch.zeros(keys, device=cuda)
+    before = probes.probe_attention.launches
     got = probes.probe_attention("dot", q, kt, v, bias, 1.0 / 16.0)
+    assert probes.probe_attention.launches == before + 1
     want = probes.probe_attention_plain("dot", q, kt, v, bias, 1.0 / 16.0)
     assert torch.equal(got, want)
 

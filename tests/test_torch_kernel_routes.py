@@ -7,7 +7,8 @@ csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
 and csrc/attention_savep_bwd_wgmma.cu on the saved-P route);
 the bfloat16 MLP training forward takes the wgmma kernel too, float32 the
 CUDA-core ones; the tiled GEMM of the probes and the int8 route takes
-csrc/matmul_wgmma.cu in every dtype and epilogue. The route functions read
+csrc/matmul_wgmma.cu in every dtype and epilogue, and every attention probe
+csrc/probe_attention_wgmma.cu. The route functions read
 only shapes, dtypes and layouts, so these tests run without a card; on the
 CPU the wrappers take their plain twins and count no launch.
 """
@@ -407,3 +408,72 @@ def test_int8_wrappers_raise_on_devices_without_a_kernel(name):
         else:
             quant.int8_dot(x, (torch.zeros(8, 48, dtype=I8, device="meta"),
                                torch.zeros(8, device="meta")))
+
+
+def _probe_inputs(variant, dtype=BF16, rows=130, keys=208, vstride=128, heads=2):
+    """Zero operands of one probe_attention call: folded_t q (3, rows, 64),
+    kt (3, 64, keys), v (3, keys, vstride); folded k and v (3, keys, 64);
+    qkvflat (2, keys, 3 * heads * 64)."""
+    layout = probes.VARIANTS[variant].layout
+    bias = torch.zeros(keys)
+    if layout == "qkvflat":
+        return {"q": torch.zeros(2, keys, 3 * heads * 64, dtype=dtype), "bias": bias,
+                "heads": heads}
+    kshape = (3, 64, keys) if layout == "folded_t" else (3, keys, 64)
+    return {"q": torch.zeros(3, rows, 64, dtype=dtype), "k": torch.zeros(kshape, dtype=dtype),
+            "v": torch.zeros(3, keys, vstride if layout == "folded_t" else 64, dtype=dtype),
+            "bias": bias}
+
+
+@pytest.mark.parametrize("rows,keys", [(1, 64), (129, 208), (2312, 2432)])
+@pytest.mark.parametrize("variant,dtype", [(v, BF16) for v in sorted(probes.VARIANTS)]
+                         + [("dot", I8)])
+def test_probe_attention_route_names_the_kernel(variant, dtype, rows, keys):
+    """Every function of the probes, and probe_dot's int8 attention, at the
+    kernel's tile edges and at the probes' shapes."""
+    kw = _probe_inputs(variant, dtype, rows, keys)
+    assert probes.probe_attention_route(variant, **kw) == "probe_attention_wgmma.cu"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("int8 off dot", "int8 for 'dot' only"), ("mixed dtypes", "int8 for 'dot' only"),
+    ("float64 bias", "float32 bias"), ("bias of the wrong length", "bias of 208"),
+    ("folded_t keys not a multiple of 8", "multiple of 8"),
+    ("int8 keys not a multiple of 16", "multiple of 16"), ("vstride under 64", ">= 64"),
+    ("vstride misaligned", "multiple of 8"), ("int8 vstride misaligned", "multiple of 16"),
+    ("qkv width not 3 heads 64", "qkv"), ("misaligned view", "16-byte aligned"),
+    ("strided kt", "16-byte aligned"), ("unknown variant", "no variant")])
+def test_probe_attention_route_raises_on_what_no_kernel_takes(case, match):
+    """What the kernel's TMA maps cannot take raises ValueError, among it a
+    contiguous view whose data is not 16-byte aligned."""
+    variant, kw = "v0", _probe_inputs("v0")
+    if case == "int8 off dot":
+        kw = _probe_inputs("v0", I8)
+    elif case == "mixed dtypes":
+        kw["v"] = kw["v"].to(I8)
+    elif case == "float64 bias":
+        kw["bias"] = kw["bias"].double()
+    elif case == "bias of the wrong length":
+        kw["bias"] = torch.zeros(207)
+    elif case == "folded_t keys not a multiple of 8":
+        kw = _probe_inputs("v0", keys=204)
+    elif case == "int8 keys not a multiple of 16":
+        variant, kw = "dot", _probe_inputs("dot", I8, keys=200)
+    elif case == "vstride under 64":
+        kw = _probe_inputs("v0", vstride=56)
+    elif case == "vstride misaligned":
+        kw = _probe_inputs("v0", vstride=68)
+    elif case == "int8 vstride misaligned":
+        variant, kw = "dot", _probe_inputs("dot", I8, vstride=72)
+    elif case == "qkv width not 3 heads 64":
+        variant, kw = "qkvflat", _probe_inputs("qkvflat")
+        kw["q"] = torch.zeros(2, 208, 3 * 2 * 64 + 8, dtype=BF16)
+    elif case == "misaligned view":
+        kw["q"] = torch.zeros(3 * 130 * 64 + 1, dtype=BF16)[1:].view(3, 130, 64)
+        assert kw["q"].is_contiguous() and kw["q"].data_ptr() % 16
+    elif case == "strided kt":
+        kw["k"] = torch.zeros(3, 64, 416, dtype=BF16)[..., ::2]
+    else:
+        variant = "v1"
+    with pytest.raises(ValueError, match=match):
+        probes.probe_attention_route(variant, **kw)

@@ -109,6 +109,47 @@ def test_bench_attn_opt_variants_match_the_tpu_bodies(attn_opt, which):
     _close(probes.probe_attention_plain(tbao.VARIANTS[which], **kw), out)
 
 
+# the card kernel's tile edges: 128 query rows a CTA, 64 keys a tile
+EDGE_ROWS, EDGE_KEYS = (1, 127, 128, 129), (63, 65, 129)
+
+
+def _at_edges(mod, monkeypatch, rows, keys):
+    """bench_attn_opt's globals at `rows` query rows and `keys` keys, the
+    last 5 padded at -1e30."""
+    for name, value in {"N": keys - 5, "NP": keys, "BQ": rows}.items():
+        monkeypatch.setattr(mod, name, value)
+
+
+@pytest.mark.parametrize("keys", EDGE_KEYS)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("which", ["v0", "normbound", "combo"])
+def test_bench_attn_opt_variants_match_the_tpu_bodies_at_tile_edges(attn_opt, monkeypatch,
+                                                                    which, rows, keys):
+    """The twins of a two-pass (row max), a one-pass (Cauchy-Schwarz) and the
+    folded function against the TPU bodies at the card kernel's tile edges."""
+    _at_edges(attn_opt, monkeypatch, rows, keys)
+    if which != "combo":
+        out, kw = _jax_case(attn_opt, which)
+    else:  # run_combo's own draws, in its order
+        run, (q,) = attn_opt.run_combo()
+        rng = np.random.default_rng(0)
+        g, d = attn_opt.B * attn_opt.H, attn_opt.D
+        rng.normal(0, 1, (g, rows, d))
+        k, v = (_t(jnp.asarray(rng.normal(0, 1, (g, keys, d)), jnp.bfloat16)) for _ in range(2))
+        out, kw = run(q), {"q": _t(q), "k": k, "v": v, "bias": _bias(attn_opt)}
+    assert kw["q"].shape[1] == rows and kw["bias"].shape == (keys,)
+    _close(probes.probe_attention_plain(tbao.VARIANTS[which], **kw), out)
+
+
+@pytest.mark.parametrize("keys", EDGE_KEYS)
+def test_qkvflat_matches_the_tpu_body_at_tile_edges(attn_opt, monkeypatch, keys):
+    """qkvflat, whose query rows are its keys, at the kernel's key-tile edges."""
+    _at_edges(attn_opt, monkeypatch, keys, keys)
+    out, kw = _jax_case(attn_opt, "qkvflat")
+    assert kw["q"].shape[1] == keys
+    _close(probes.probe_attention_plain(tbao.VARIANTS["qkvflat"], **kw), out)
+
+
 @pytest.mark.parametrize("function", ["v0", "exp2", "bf16sm", "qkvflat_pipe2"])
 def test_bench_attn_opt_inputs_are_the_originals(attn_opt, function):
     """The port's CLI draws the original's inputs (same seed, same order)."""

@@ -32,7 +32,7 @@ LINK_FLAGS = ["-lcuda"]
 
 # storage dtype -> the C interface's dtype code (csrc/common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-INT8_CODE = 2  # int8 operands of csrc/matmul_wgmma.cu and csrc/probe_attention_mma.cu
+INT8_CODE = 2  # int8 operands of csrc/matmul_wgmma.cu and csrc/probe_attention_wgmma.cu
 
 _lock = threading.Lock()
 _lib = None

@@ -1,6 +1,6 @@
 // Hopper building blocks of the wgmma kernels (attention_qkv_wgmma.cu,
 // attention_bwd_wgmma.cu, attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu,
-// fused_mlp_bwd_wgmma.cu):
+// fused_mlp_bwd_wgmma.cu, probe_attention_wgmma.cu):
 // warpgroup matrix products (wgmma), tensor-memory copies (TMA) completing on
 // shared-memory barriers (mbarrier), and the shared-memory descriptors that
 // tie the two together.
@@ -106,6 +106,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // --- mbarrier ----------------------------------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
@@ -191,20 +196,62 @@ inline bool make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const u
 
 // --- products (register lists spelled out) ------------------------------------
 // D (64 x 64, f32, registers) += A (64 x 16) . B (16 x 64), both from shared
-// memory through descriptors, both K-major
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+// memory through descriptors, A K-major; TRANS_B = 1 reads B MN-major (N
+// contiguous), 0 K-major; scale_d = 0 ignores D's old values (D = A . B)
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
+
+#define VITOCM_S32_ACC32                                                                   \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),       \
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), \
+      "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),           \
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),           \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+
+// D (64 x 64, s32, registers) += A (64 x 32) . B (32 x 64), s8, both from
+// shared memory, both K-major (8-bit wgmma has no transpose); scale_d = 0
+// ignores D's old values
+__device__ __forceinline__ void wgmma_ss_m64n64k32_s8(int (&d)[32], uint64_t da, uint64_t db,
+                                                      int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : VITOCM_S32_ACC32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, s32) += A (64 x 32, s8 in registers) . B (32 x 64, s8, shared
+// memory, K-major). A register of the A operand holds four int8 values of one
+// row in k order, as mma.sync.m16n8k32's A fragment: a[0] = A[g][4t..4t+3],
+// a[1] = A[g+8][4t..], a[2] = A[g][16+4t..], a[3] = A[g+8][16+4t..] for warp
+// w's rows 16w..16w+15
+__device__ __forceinline__ void wgmma_rs_m64n64k32_s8(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : VITOCM_S32_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef VITOCM_S32_ACC32
 
 // D (64 x 32, f32, registers) += A (64 x 16) . B (16 x 32), both from shared
 // memory through descriptors, A K-major; TRANS_B = 1 reads B MN-major, 0 K-major
@@ -249,6 +296,18 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// D (64 x 8, f32) += A (64 x 16, bf16 in registers) . B (16 x 8, shared
+// memory, K-major)
+__device__ __forceinline__ void wgmma_rs_m64n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D (64 x 192, f32) += A (64 x 16, bf16 in registers) . B (16 x 192, shared

@@ -6,9 +6,10 @@
   (``csrc/matmul_wgmma.cu``: wgmma fed by TMA) is also the int8 serving
   route's GEMM (:func:`ops.quant.int8_dot`, through :func:`launch_matmul`).
 * :func:`probe_attention` runs one attention probe (``csrc/
-  probe_attention_mma.cu``): ``tools/probe_dot.py::attn`` (variant "dot",
-  int8 or bf16), the four modes of ``tools/bench_attention_variants.py`` and
-  the nine distinct functions of ``tools/bench_attn_opt.py`` (:data:`VARIANTS`).
+  probe_attention_wgmma.cu``: wgmma fed by TMA; :func:`probe_attention_route`
+  names it): ``tools/probe_dot.py::attn`` (variant "dot", int8 or bf16), the
+  four modes of ``tools/bench_attention_variants.py`` and the nine distinct
+  functions of ``tools/bench_attn_opt.py`` (:data:`VARIANTS`).
 
 B operands come k-contiguous: :func:`probe_matmul` takes B transposed, (N,
 K), which its callers make once, outside any timed region (8-bit wgmma reads
@@ -252,6 +253,59 @@ def probe_attention_plain(variant, q, k=None, v=None, bias=None, scale=1.0, head
     return torch.cat([o, o, o], dim=-1)
 
 
+def _probe_plan(variant, q, k, v, bias, heads):
+    """(groups, query rows, keys, vstride) of a call of csrc/probe_attention_wgmma.cu;
+    raises ValueError on what the kernel does not take."""
+    var = VARIANTS.get(variant)
+    if var is None:
+        raise ValueError(f"probe_attention: no variant {variant!r}; want one of {sorted(VARIANTS)}")
+    qkvflat = var.layout == "qkvflat"
+    ts = (q, bias) if qkvflat else (q, k, v, bias)
+    int8 = q.dtype == torch.int8
+    if q.dtype not in (torch.bfloat16, torch.int8) or (int8 and variant != "dot") or any(
+            t.dtype != q.dtype for t in ts[1:-1]) or bias.dtype != torch.float32:
+        raise ValueError(f"probe_attention: {variant} takes bfloat16 operands (int8 for 'dot' "
+                         f"only) and a float32 bias, got {q.dtype}")
+    align = 16 if int8 else 8  # elements in 16 bytes: TMA's row strides
+    if qkvflat:
+        if heads is None or q.dim() != 3 or q.shape[-1] != 3 * heads * HEAD_DIM or heads < 1:
+            raise ValueError(f"probe_attention: want qkv (B, Np, 3 * heads * {HEAD_DIM}), got "
+                             f"{tuple(q.shape)} for heads={heads}")
+        groups, rq, nk, vstride = q.shape[0] * heads, q.shape[1], q.shape[1], 0
+    else:
+        if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+            raise ValueError(f"probe_attention: want 3-D q, k, v, got {tuple(q.shape)} "
+                             f"{tuple(k.shape)} {tuple(v.shape)}")
+        groups, rq, d = q.shape
+        nk = k.shape[2] if var.layout == "folded_t" else k.shape[1]
+        kshape = (groups, HEAD_DIM, nk) if var.layout == "folded_t" else (groups, nk, HEAD_DIM)
+        vstride = v.shape[2]
+        if (d != HEAD_DIM or tuple(k.shape) != kshape or v.shape[:2] != (groups, nk)
+                or vstride < HEAD_DIM or vstride % align):
+            raise ValueError(f"probe_attention: want q (G, Rq, {HEAD_DIM}), k {kshape}, v (G, Nk, "
+                             f">= {HEAD_DIM}, a multiple of {align}), got {tuple(q.shape)} "
+                             f"{tuple(k.shape)} {tuple(v.shape)}")
+        if var.layout == "folded_t" and nk % align:
+            raise ValueError(f"probe_attention: kt's keys must be a multiple of {align}, got {nk}")
+    if min(groups, rq, nk) < 1:
+        raise ValueError(f"probe_attention: empty operands {tuple(q.shape)}")
+    if bias.dim() != 1 or bias.numel() != nk:
+        raise ValueError(f"probe_attention: want a bias of {nk} keys, got {tuple(bias.shape)}")
+    check_layout("probe_attention", *ts)
+    return groups, rq, nk, vstride
+
+
+def probe_attention_route(variant, q, k=None, v=None, bias=None, heads=None) -> str:
+    """The kernel source a CUDA call of :func:`probe_attention` with these
+    operands launches: "probe_attention_wgmma.cu", for every variant (int8
+    for "dot" only). Reads only shapes, dtypes and layouts, so a CPU tensor
+    stands for its CUDA copy; raises ValueError on what the kernel does not
+    take: contiguous, 16-byte aligned operands on one device whose rows are
+    multiples of 16 bytes (TMA's strides), with a bias of one value a key."""
+    _probe_plan(variant, q, k, v, bias, heads)
+    return "probe_attention_wgmma.cu"
+
+
 def probe_attention(variant, q, k=None, v=None, bias=None, scale=1.0, heads=None):
     """One attention probe of :data:`VARIANTS`, head dim 64, bf16 output.
 
@@ -261,44 +315,18 @@ def probe_attention(variant, q, k=None, v=None, bias=None, scale=1.0, heads=None
     Np, 3 * heads * 64) with o in all three sections. bias (Nk,) f32 is added
     to the scaled scores (-1e30 masks a key). Operands bf16; variant "dot"
     also int8. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+    kernel of :func:`probe_attention_route` or raise."""
     var = VARIANTS[variant]
     if q.device.type == "cpu":
         return probe_attention_plain(variant, q, k, v, bias, scale, heads)
     qkvflat = var.layout == "qkvflat"
-    ts = (q, bias) if qkvflat else (q, k, v, bias)
-    _check_cuda("probe_attention", *ts)
-    int8 = q.dtype == torch.int8
-    if q.dtype not in (torch.bfloat16, torch.int8) or (int8 and variant != "dot") or any(
-            t.dtype != q.dtype for t in ts[1:-1]) or bias.dtype != torch.float32:
-        raise ValueError(f"probe_attention: {variant} takes bfloat16 operands (int8 for 'dot' "
-                         f"only) and a float32 bias, got {q.dtype}")
-    align = 16 if int8 else 8  # elements in 16 bytes
-    if qkvflat:
-        if heads is None or q.dim() != 3 or q.shape[-1] != 3 * heads * HEAD_DIM:
-            raise ValueError(f"probe_attention: want qkv (B, Np, 3 * heads * {HEAD_DIM}), got "
-                             f"{tuple(q.shape)} for heads={heads}")
-        groups, rq, nk, vstride = q.shape[0] * heads, q.shape[1], q.shape[1], 0
-    else:
-        g_, rq, d = q.shape
-        nk = k.shape[2] if var.layout == "folded_t" else k.shape[1]
-        kshape = (g_, HEAD_DIM, nk) if var.layout == "folded_t" else (g_, nk, HEAD_DIM)
-        vstride = v.shape[2]
-        if (d != HEAD_DIM or tuple(k.shape) != kshape or v.shape[:2] != (g_, nk)
-                or vstride < HEAD_DIM or vstride % align):
-            raise ValueError(f"probe_attention: want q (G, Rq, {HEAD_DIM}), k {kshape}, v (G, Nk, "
-                             f">= {HEAD_DIM}), got {tuple(q.shape)} {tuple(k.shape)} "
-                             f"{tuple(v.shape)}")
-        if var.layout == "folded_t" and nk % align:
-            raise ValueError(f"probe_attention: kt's keys must be a multiple of {align}, got {nk}")
-        groups = g_
-    if bias.numel() != nk:
-        raise ValueError(f"probe_attention: want a bias of {nk} keys, got {bias.numel()}")
+    _check_cuda("probe_attention", *((q, bias) if qkvflat else (q, k, v, bias)))
+    groups, rq, nk, vstride = _probe_plan(variant, q, k, v, bias, heads)
     out = torch.empty_like(q, dtype=torch.bfloat16) if qkvflat else torch.empty(
         (groups, rq, HEAD_DIM), dtype=torch.bfloat16, device=q.device)
     kmax = torch.empty(groups, dtype=torch.float32, device=q.device)
     codes = [_CODES[f].index(getattr(var, f)) for f in ("layout", "shift", "exp", "sm", "den")]
-    dtype_code = build.INT8_CODE if int8 else build.DTYPE_CODES[torch.bfloat16]
+    dtype_code = build.INT8_CODE if q.dtype == torch.int8 else build.DTYPE_CODES[torch.bfloat16]
     kp, vp = (0, 0) if qkvflat else (k.data_ptr(), v.data_ptr())
     rc = build.library().vitocm_probe_attention(
         dtype_code, *codes, q.data_ptr(), kp, vp, bias.data_ptr(), kmax.data_ptr(),

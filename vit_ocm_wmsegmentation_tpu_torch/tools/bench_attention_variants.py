@@ -5,7 +5,7 @@
 
 (B = 49 tiles, h = 6, N = 2305, d = 64) bf16 from the original's seed,
 folded as the original folds it: kt and v zero-padded to 2432 keys, padded
-keys at -1e30. Modes (``csrc/probe_attention_mma.cu``): full (exp(s - row
+keys at -1e30. Modes (``csrc/probe_attention_wgmma.cu``): full (exp(s - row
 max), denominator the f32 sum of p), bf16exp (exp of bf16(s - max), rounded
 to bf16), noexp (p = relu(s), denominator sum + 1), dotsonly (p = s, none).
 ``block_q`` is the TPU grid's block and the same launch on this card: its

@@ -7,7 +7,7 @@ variants, or ``all``, may share one process).
 One mosaic layer's attention (B = 49, h = 6, N = 2305, d = 64, 2432 padded
 keys at -1e30) on the original's seeded inputs, ones-column denominators
 throughout. The sixteen variants compute nine functions
-(``ops.probes.VARIANTS``, ``csrc/probe_attention_mma.cu``): v0 (row max,
+(``ops.probes.VARIANTS``, ``csrc/probe_attention_wgmma.cu``): v0 (row max,
 exp), exp2 (LOG2E folded into q), nomax, normbound (Cauchy-Schwarz shift),
 bf16sm (bf16 scores, max and exp2), combo (normbound on untransposed k and
 64-wide v), qkvflat (normbound read from the fused qkv projection, o written

@@ -7,7 +7,7 @@ package, with its argv.
 2048 on the original's seeded inputs (int8 in [-3, 3), bf16 N(0, 0.1)); B
 is transposed to (N, K) once, before the timed calls. ``attn_*`` times both
 attention products at the mosaic's folded shape (294 groups, 2432 keys, d
-64; ``csrc/probe_attention_mma.cu``, variant "dot"): s = q kt / 16 + bias,
+64; ``csrc/probe_attention_wgmma.cu``, variant "dot"): s = q kt / 16 + bias,
 p = exp(s - row max) requantized to int8 as trunc(p * 127) or kept in bf16,
 o = (p v)[:, :64] unnormalized, in bf16. Each line gives the median time by
 CUDA events, the rate (useful attention FLOPs, 4 B H N^2 D, as the original
