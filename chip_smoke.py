@@ -220,8 +220,10 @@ CONTROLS = {}
 # saved-P forward at both head dims, one pass or two; the dk/dv and dq
 # kernels of attention_bwd.cu and attention_savep.cu) and the f32 MLP
 # kernels (fused_mlp.cu: 2 widths x 4 modes; fused_mlp_bwd.cu: the dx kernel,
-# 2 widths x 2 routes, and the weight kernel) run exact f32 FFMA fed by
-# cp.async (LDGSTS) and no tensor-core instruction, so no TF32.
+# 2 widths x 2 routes, and the weight kernel) and the f32 LN -> qkv kernels
+# (ln_linear.cu: the forward and the dx kernel at both widths, the weight
+# kernel) run exact f32 FFMA fed by cp.async (LDGSTS) and no tensor-core
+# instruction, so no TF32.
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _IGMMA = (3, ("IGMMA", "UTMALDG"), ("IMMA", "HMMA", "HGMMA"))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
@@ -234,7 +236,9 @@ SASS_CHECKS = {
     "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
     "attn_bwd_savep_dq_kernel": (2, *_FFMA), "fused_mlp_kernel": (8, *_FFMA),
     "mlp_bwd_dx_kernel": (4, *_FFMA), "mlp_bwd_w_kernel": (1, *_FFMA),
-    "attn_fwd_savep_kernel": (4, *_FFMA), "matmul_wgmma_kernelIa": _IGMMA,
+    "attn_fwd_savep_kernel": (4, *_FFMA), "ln_linear_fwd_kernel": (2, *_FFMA),
+    "ln_linear_bwd_dx_kernel": (2, *_FFMA), "ln_linear_bwd_w_kernel": (1, *_FFMA),
+    "matmul_wgmma_kernelIa": _IGMMA,
     "matmul_wgmma_kernelI13__nv_bfloat16": (1, ("HGMMA", "UTMALDG"), ("HMMA", "IMMA", "IGMMA")),
     "probe_attention_wgmma_kernelI13__nv_bfloat16": (14, ("HGMMA", "UTMALDG"),
                                                      ("HMMA", "IMMA", "IGMMA")),
@@ -522,12 +526,26 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
         lambda: ln.ln_linear(xm, s, bb, wq, bq), lambda: ln.ln_linear_plain(xm, s, bb, wq, bq),
         lambda got, want: _compare("ln_linear", tag, got, want, tol), None,
         2 * rows * dm * kq, (rows * dm + rows * kq + kq * dm) * isz + (2 * dm + kq) * 4)
+
+    def check_ln_bwd(got, want):
+        err = _compare("ln_linear_bwd", tag, got, want, GRAD_TOL[tag])
+        if not all(torch.equal(a, b) for a, b in zip(got, ln.ln_linear_bwd(xm, dy, s, bb, wq))):
+            raise AssertionError("ln_linear_bwd: two calls give different bits")
+        print(f"  ln_linear_bwd[{tag}]: dx, ds, dbb, dw, db bit-equal across two calls")
+        return err
+
     cases["ln_linear_bwd"] = (
         lambda: ln.ln_linear_bwd(xm, dy, s, bb, wq),
-        lambda: ln.ln_linear_bwd_plain(xm, dy, s, bb, wq),
-        lambda got, want: _compare("ln_linear_bwd", tag, got, want, GRAD_TOL[tag]), None,
+        lambda: ln.ln_linear_bwd_plain(xm, dy, s, bb, wq), check_ln_bwd, None,
         4 * rows * dm * kq,
         (2 * rows * dm + rows * kq + kq * dm) * isz + (kq * dm + kq + 4 * dm) * 4)
+    # cuBLAS on the products alone, from a precomputed LN(x): controls
+    xn = F.layer_norm(xm.float(), (dm,), s, bb, 1e-6).to(dtype)
+    bqc = bq.to(dtype)
+    CONTROLS[("ln_linear", tag)] = ("cuBLAS F.linear(xn, w, b) alone, a control (not the same "
+                                    "function)", lambda: F.linear(xn, wq, bqc))
+    CONTROLS[("ln_linear_bwd", tag)] = ("cuBLAS dy @ w + dy.T @ xn alone, a control (not the "
+                                        "same function)", lambda: (dy @ wq, dy.T @ xn))
     return cases
 
 

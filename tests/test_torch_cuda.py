@@ -159,7 +159,8 @@ def _digests(dev):
     forward in bf16 (which shares the backward's row statistics). The f32
     training and inference attention, the bf16 MLP training forwards and the
     f32 saved-P forward are drawn (their inputs keep the draws of the others
-    in place) but neither computed nor kept."""
+    in place) but neither computed nor kept. Last, LN -> qkv in bf16,
+    forward and backward, and its f32 forward at the MIM step's rows."""
     import hashlib
 
     rng = np.random.default_rng(6)
@@ -200,6 +201,14 @@ def _digests(dev):
         q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
         if tag == "bf16":
             keep(f"flash_attention_savep[{tag}]", fa.flash_attention_savep(q, k, v))
+    k = 3 * d  # LN -> qkv in bf16 (ln_linear_mma.cu), drawn after every other input
+    x, dy, w = t(rows, d, std=2.0, mean=0.5), t(rows, k), t(k, d, std=d ** -0.5)
+    ln = (t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1))
+    keep("ln_linear[bf16]", (lnl.ln_linear(x, *ln, w, t(k, dtype=torch.float32, std=0.1)),))
+    keep("ln_linear_bwd[bf16]", lnl.ln_linear_bwd(x, dy, *ln, w))
+    x = t(36880, d, dtype=torch.float32, std=2.0, mean=0.5)  # the MIM step's rows, f32
+    w = t(k, d, dtype=torch.float32, std=d ** -0.5)
+    keep("ln_linear[f32]", (lnl.ln_linear(x, *ln, w, t(k, dtype=torch.float32, std=0.1)),))
     torch.cuda.synchronize()
     return out
 
@@ -226,13 +235,21 @@ def _digests(dev):
 # was redesigned on register tiles with one pass over the keys, which
 # changed its P by an ulp or two on purpose;
 # test_savep_f32_forward_matches_twin_at_tile_edges and
-# test_savep_attention_kernels_match_plain hold it.
+# test_savep_attention_kernels_match_plain hold it. The LN -> qkv entries are
+# of the build before the f32 LN -> qkv kernels were redesigned on register
+# tiles (d6b469f): the bf16 ones show that ln_linear_mma.cu kept its bits,
+# the f32 forward that the redesign sums each output in the old order (over
+# D from 0, then the bias), its last wave split over columns included. The
+# f32 backward's bits changed on purpose (another split count, the LN
+# backward's sums over other lanes); test_ln_linear_kernels_match_plain holds
+# it.
 RECORDED_DIGESTS = {
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
     "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
     "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564",
     "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
-    "flash_attention_savep[bf16]": "a5417dca59721aa5"}
+    "flash_attention_savep[bf16]": "a5417dca59721aa5", "ln_linear[bf16]": "29adf4aba5a9fd62",
+    "ln_linear_bwd[bf16]": "0b442ae32484d81d", "ln_linear[f32]": "bbc401ebaae4650c"}
 
 
 def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
@@ -451,10 +468,15 @@ def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d, h):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,d,k", [(70, 384, 1152), (130, 192, 576), (1, 384, 1152),
-                                      (1100, 384, 1152)])
+                                      (1100, 384, 1152), (36880, 384, 1152)]
+                         + [(rows, d, k) for d in (192, 384) for k in (64, 192)
+                            for rows in (63, 64, 65, 129)])
 def test_ln_linear_kernels_match_plain(cuda, dtype, rows, d, k):
     """ln_linear and its backward against their twins; the backward's
-    gradients are bit-equal across two runs (fixed-order reductions)."""
+    gradients are bit-equal across two runs (fixed-order reductions). Around
+    the tiles of both dtypes' kernels (64 rows a CTA or tile; the f32
+    forward's 256-column chunks, whose last one takes 64, 128 or 192 when K
+    is not a multiple of 256) and at the MIM step's 36880 rows."""
     gen = torch.Generator(device=cuda).manual_seed(rows + d + k)
     r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
     x, dy = r(rows, d, std=2.0, mean=0.5).to(dtype), r(rows, k).to(dtype)

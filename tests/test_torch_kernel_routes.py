@@ -6,7 +6,8 @@ csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
 (csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu,
 and csrc/attention_savep_bwd_wgmma.cu on the saved-P route);
 the bfloat16 MLP training forward takes the wgmma kernel too, float32 the
-CUDA-core ones; the tiled GEMM of the probes and the int8 route takes
+CUDA-core ones, as does LN -> qkv (csrc/ln_linear.cu; bfloat16
+csrc/ln_linear_mma.cu); the tiled GEMM of the probes and the int8 route takes
 csrc/matmul_wgmma.cu in every dtype and epilogue, and every attention probe
 csrc/probe_attention_wgmma.cu. The route functions read
 only shapes, dtypes and layouts, so these tests run without a card; on the
@@ -18,6 +19,7 @@ import torch
 
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
 from vit_ocm_wmsegmentation_tpu_torch.ops import fused_mlp as fm
+from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as lnl
 from vit_ocm_wmsegmentation_tpu_torch.ops import probes
 from vit_ocm_wmsegmentation_tpu_torch.ops import quant
 
@@ -192,6 +194,49 @@ def test_mlp_bwd_workspace_sizes(rows, dtype, gp, hidden):
     else:
         assert part == fm.MLP_SPLITS * (2 * h * d + h) + hidden * rows * h // 2
         assert ln_part == -(-rows // 64) * 3 * d
+
+
+@pytest.mark.parametrize("d", [192, 384])
+@pytest.mark.parametrize("dtype,want", [(F32, "ln_linear.cu"), (BF16, "ln_linear_mma.cu")])
+def test_ln_linear_route_names_the_kernel(dtype, want, d):
+    """LN -> qkv, forward and backward: float32 the register-tiled kernels,
+    bfloat16 the tensor-core ones; K = 3 D, as the qkv projection has it."""
+    x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(3 * d, d, dtype=dtype)
+    assert lnl.ln_linear_route(x, w) == want
+
+
+@pytest.mark.parametrize("case,match", [
+    ("K 1120", "K % 64"), ("D 256", "D in"), ("w transposed", "w must be"),
+    ("w strided", "w must be"), ("w bfloat16", "w must be"),
+])
+def test_ln_linear_route_raises_on_what_no_kernel_takes(case, match):
+    """K a multiple of 64 (the kernels' column chunk), D in {192, 384}, w a
+    contiguous (K, D) tensor of x's dtype."""
+    x, w = torch.zeros(5, 384), torch.zeros(1152, 384)
+    if case == "K 1120":
+        w = torch.zeros(1120, 384)
+    elif case == "D 256":
+        x, w = torch.zeros(5, 256), torch.zeros(768, 256)
+    elif case == "w transposed":
+        w = torch.zeros(384, 1152).T
+    elif case == "w strided":
+        w = torch.zeros(1152, 768)[:, ::2]
+    else:
+        w = w.to(BF16)
+    with pytest.raises(ValueError, match=match):
+        lnl.ln_linear_route(x, w)
+
+
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 129, 36880])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ln_linear_bwd_workspace_sizes(rows, dtype):
+    """part: LN_SPLITS partials of [dW (K, D) | db (K)]; ln_part a row of
+    [ds | dbb] (2 D) a 64-row tile; both storage types alike."""
+    d, k = 384, 1152
+    part, ln_part = lnl.bwd_workspace(rows, d, k, dtype)
+    assert lnl._BWD_MIN_TILE == 64
+    assert part == lnl.LN_SPLITS * (k * d + k)
+    assert ln_part == -(-rows // 64) * 2 * d
 
 
 @pytest.mark.parametrize("case,match", [

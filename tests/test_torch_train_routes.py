@@ -122,11 +122,15 @@ def test_gp_out_is_bit_equal_to_h1_out(tag):
 
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
-def test_ln_linear_function_matches_jax_vjp(tag):
+@pytest.mark.parametrize("d", [64, 192])
+@pytest.mark.parametrize("r", [63, 65, 70, 129])
+def test_ln_linear_function_matches_jax_vjp(r, d, tag):
     """ln_linear_trainable: the output and all five gradients against the
-    JAX ln_linear custom VJP (interpret mode, row block 64 over 70 rows)."""
+    JAX ln_linear custom VJP (interpret mode, row block 64), K = 3 D as the
+    qkv projection has it, at rows on both sides of the kernels' 64-row
+    tiles."""
     rng = np.random.default_rng(11)
-    r, d, k = 70, 64, 192
+    k = 3 * d
     f = lambda *s, std=1.0, mean=0.0: (rng.normal(size=s) * std + mean).astype(np.float32)  # noqa: E731
     a = {"x": f(r, d, std=2.0, mean=0.5), "s": f(d, std=0.1, mean=1.0), "b": f(d, std=0.1),
          "w": f(d, k, std=d ** -0.5), "bias": f(k, std=0.1), "dy": f(r, k)}

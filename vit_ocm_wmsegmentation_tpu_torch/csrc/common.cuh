@@ -94,6 +94,23 @@ enum DType { kF32 = 0, kBF16 = 1 };
 int attn_row_stats(int dtype, int d, const float* row, const void* dout, const void* o,
                    float* stats, int BH, int N, int pitch, cudaStream_t s);
 
+// the split count for a grid of `tiles` x splits CTAs over `slots` resident
+// CTAs (SMs x CTAs an SM): the one of 1 .. max_splits whose last wave is
+// fullest (the larger on a tie); the weight-gradient kernels' choice
+static inline int weight_splits(int tiles, int max_splits, int slots) {
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= max_splits; ++s) {
+    const int ctas = tiles * s, waves = (ctas + slots - 1) / slots;
+    const double fill = (double)ctas / ((double)waves * slots);
+    if (fill >= best_fill) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
 // out[i] = sum over s < S of part[s * W + i], in order of s: the fixed-order
 // reduction of the weight-gradient partials (fused_mlp_bwd.cu)
 int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_t stream);

@@ -507,22 +507,6 @@ mlp_bwd_w_wgmma_kernel(const __grid_constant__ CUtensorMap dh1_map,
   }
 }
 
-// the split count for a grid of `tiles` x splits CTAs, one CTA an SM: the one
-// of 1 .. max_splits whose last wave is fullest (the larger on a tie)
-static int weight_splits(int tiles, int max_splits, int sms) {
-  int best = 1;
-  double best_fill = 0.0;
-  for (int s = 1; s <= max_splits; ++s) {
-    const int ctas = tiles * s, waves = (ctas + sms - 1) / sms;
-    const double fill = (double)ctas / ((double)waves * sms);
-    if (fill >= best_fill) {
-      best = s;
-      best_fill = fill;
-    }
-  }
-  return best;
-}
-
 // x, dout, dx, xn (R, D), h1, gp (R, H), w1 (H, D), w2 (D, H) bf16; part
 // holds max_splits x (2 H D + H) f32 partials, then dh1 (R, H) and, without
 // GP, g (R, H) in bf16; ln_part ceil(R / 64) x 3 D f32. Sets *splits to the

@@ -11,11 +11,13 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/ln_linear.py``:
 * :func:`ln_linear_trainable` wires both into a ``torch.autograd.Function``
   that saves only x and the parameters, as the JAX custom VJP does.
 
-They launch ``csrc/ln_linear.cu`` (float32, CUDA cores) and
-``csrc/ln_linear_mma.cu`` (bfloat16, tensor cores; design notes there) for
-CUDA tensors and the plain twins (``*_plain``) for CPU tensors; anything
-else raises. ``w`` comes in nn.Linear's (K, D) layout, the transpose of the
-JAX package's (D, K). Each wrapper's ``launches`` counts kernel launches.
+They launch the kernels of :func:`ln_linear_route` for CUDA tensors,
+never by a fallback: float32 ``csrc/ln_linear.cu`` (register-tiled FFMA on
+the CUDA cores behind a cp.async ring), bfloat16 ``csrc/ln_linear_mma.cu``
+(tensor cores); design notes in each source. CPU tensors take the plain
+twins (``*_plain``); anything else raises. ``w`` comes in nn.Linear's (K, D)
+layout, the transpose of the JAX package's (D, K). Each wrapper's
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from .. import nn as tnn
 
 KERNEL_WIDTHS = (192, 384)  # D values the kernels are instantiated for
 COLUMN_CHUNK = 64  # K must be a multiple of this
-LN_SPLITS = 16  # row splits of the backward's weight-gradient partials
-_BWD_MIN_TILE = 32  # rows of the f32 backward's dx tile; the bf16 one takes 64
+LN_SPLITS = 16  # row splits of the backward's weight-gradient partials (at most, in float32)
+_BWD_MIN_TILE = 64  # rows of the backward's dx tile and ln_part row, both storage types
 
 
 def ln_linear_plain(x, scale, bias, w, b, eps=1e-6):
@@ -55,22 +57,41 @@ def ln_linear_bwd_plain(x, dy, scale, bias, w, eps=1e-6):
     return dx.to(dt), (dxn * xh).sum(0), dxn.sum(0), dy32.T @ xn, dy32.sum(0)
 
 
+def ln_linear_route(x, w):
+    """The kernel source a CUDA call with these operands launches, forward
+    and backward: float32 "ln_linear.cu", bfloat16 "ln_linear_mma.cu".
+    Raises on shapes, dtypes and layouts no kernel takes; the device is the
+    caller's check."""
+    if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"ln_linear: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
+    d = x.shape[1]
+    k = w.shape[0]
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"ln_linear: kernels built for D in {KERNEL_WIDTHS}, got D={d}")
+    if k % COLUMN_CHUNK or tuple(w.shape) != (k, d):
+        raise ValueError(f"ln_linear: want w (K, D) with K % {COLUMN_CHUNK} == 0, got "
+                         f"{tuple(w.shape)} for D={d}")
+    for what, t in (("x", x), ("w", w)):
+        _check_operand("ln_linear", what, t, tuple(t.shape), x)
+    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_mma.cu"
+
+
+def bwd_workspace(r, d, k, dtype):
+    """f32 values of the backward's two workspaces for r rows, the same for
+    both storage types: ``part``, LN_SPLITS partials of [dW (K, D) | db (K)]
+    (float32 writes as many of them as fill the card); ``ln_part``, a row of
+    [ds | dbb] (2 D) for each tile of _BWD_MIN_TILE rows."""
+    if dtype not in build.DTYPE_CODES:
+        raise ValueError(f"ln_linear_bwd: no kernel for {dtype}")
+    return LN_SPLITS * (k * d + k), -(-r // _BWD_MIN_TILE) * 2 * d
+
+
 def _check(name, x, w):
     """(R, D, K) of a kernel call; raises on anything the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"{name}: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
-    r, d = x.shape
-    k = w.shape[0]
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: kernels built for D in {KERNEL_WIDTHS}, got D={d}")
-    if k % COLUMN_CHUNK or tuple(w.shape) != (k, d):
-        raise ValueError(f"{name}: want w (K, D) with K % {COLUMN_CHUNK} == 0, got "
-                         f"{tuple(w.shape)} for D={d}")
-    for what, t in (("x", x), ("w", w)):
-        _check_operand(name, what, t, tuple(t.shape), x)
-    return r, d, k
+    ln_linear_route(x, w)
+    return (*x.shape, w.shape[0])
 
 
 def _check_operand(name, what, t, shape, x):
@@ -116,8 +137,7 @@ def ln_linear_bwd(x, dy, scale, bias, w, eps=1e-6):
     s, bn = _f32_vector("scale", scale, d, x.device), _f32_vector("bias", bias, d, x.device)
     width = k * d + k
     f32 = dict(dtype=torch.float32, device=x.device)
-    part = torch.empty(LN_SPLITS * width, **f32)
-    ln_part = torch.empty(-(-r // _BWD_MIN_TILE) * 2 * d, **f32)
+    part, ln_part = (torch.empty(n, **f32) for n in bwd_workspace(r, d, k, x.dtype))
     grads = torch.empty(width + 2 * d, **f32)
     dx, xn = torch.empty_like(x), torch.empty_like(x)  # xn: LN(x), from the dx kernel
     rc = build.library().vitocm_ln_linear_bwd(
