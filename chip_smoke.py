@@ -11,9 +11,10 @@ and then, failing on the first phase that fails:
    SASS_CHECKS and asserts that they spill nothing and that their SASS holds
    the opcodes of their design: the wgmma kernels (``csrc/*_wgmma.cu``:
    inference and training attention forward, the training attention's dk/dv
-   and dq kernels on both backward routes, the MLP forward in every bf16
-   instance, inference and training, and the bf16 MLP backward's dx and
-   weight kernels, and the GEMM of the int8 route and the probes in bf16)
+   and dq kernels on both backward routes, the saved-P forward, the MLP
+   forward in every bf16 instance, inference and training, the bf16 MLP
+   backward's and LN -> qkv backward's dx and weight kernels, and the GEMM
+   of the int8 route and the probes in bf16)
    warpgroup products (HGMMA) and TMA loads (UTMALDG) and no mma.sync
    (HMMA), the GEMM's three int8 instances IGMMA and UTMALDG and no IMMA,
    the probe attention (``probe_attention_wgmma.cu``) HGMMA and UTMALDG in
@@ -38,7 +39,7 @@ and then, failing on the first phase that fails:
    values (counts exactly equal to the twin's); the opt-in training routes'
    kernels (saved-P attention forward and backward, the MLP block's gp
    forward and backward, LN -> qkv forward and backward) at the MIM step's
-   shapes, the saved-P backward bit-equal across two calls, the gp
+   shapes, the saved-P forward and backward bit-equal across two calls, the gp
    forward's out bit-equal to the h1 forward's; the tools/
    probes' kernels: the tiled matmul at 2048^3 in bf16 and int8 (int8
    stores bit-equal, wrapped), int8_dot at the mosaic's four projection
@@ -108,7 +109,6 @@ the port's package is missing.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import glob
 import json
@@ -156,8 +156,8 @@ KERNELS = {
     "fused_mlp_bwd": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_wgmma.cu"},
                       FM + ":243"),
     "histogram_u8_kernel": ("th", {"u8": "histogram_u8.cu"}, TH + ":71"),
-    "flash_attention_savep": ("fa", {"f32": "attention_savep.cu", "bf16": "attention_savep_mma.cu"},
-                              FA + ":74"),
+    "flash_attention_savep": ("fa", {"f32": "attention_savep.cu",
+                                     "bf16": "attention_savep_wgmma.cu"}, FA + ":74"),
     "flash_attention_bwd_savep": ("fa", {"f32": "attention_savep.cu",
                                          "bf16": "attention_savep_bwd_wgmma.cu"}, FA + ":211"),
     "fused_mlp_block_gp": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
@@ -165,7 +165,7 @@ KERNELS = {
     "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_wgmma.cu"},
                          FM + ":243"),
     "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
-    "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":44"),
+    "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_bwd_wgmma.cu"}, LN + ":44"),
     "int8_dot": ("qz", {"int8": "matmul_wgmma.cu"}, PD + ":38"),
     "quantize_rows": ("qz", {"bf16": "quantize_rows.cu"}, QZ + ":54"),
     "probe_matmul": ("pr", {"bf16": "matmul_wgmma.cu", "int8": "matmul_wgmma.cu"}, PD + ":38"),
@@ -212,10 +212,11 @@ CONTROLS = {}
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
 # no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
 # plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
-# and its weight kernel in 2, the GEMM of matmul_wgmma.cu in bf16 (HGMMA) and
-# in its three int8 instances (IGMMA, and no IMMA: no mma.sync), the probe
-# attention in its 14 bf16 instances (HGMMA) and its int8 one (IGMMA), all
-# with TMA loads; the f32
+# and its weight kernel in 2, the saved-P forward in 2 (d 64 and 128), the
+# LN -> qkv backward's dx and weight kernels in 2 each (D 192 and 384), the
+# GEMM of matmul_wgmma.cu in bf16 (HGMMA) and in its three int8 instances
+# (IGMMA, and no IMMA: no mma.sync), the probe attention in its 14 bf16
+# instances (HGMMA) and its int8 one (IGMMA), all with TMA loads; the f32
 # attention kernels (attention_qkv.cu, both head dims and both layouts; the
 # saved-P forward at both head dims, one pass or two; the dk/dv and dq
 # kernels of attention_bwd.cu and attention_savep.cu) and the f32 MLP
@@ -232,6 +233,8 @@ SASS_CHECKS = {
     "mlp_bwd_dx_wgmma_kernel": (4, *_WGMMA[1:]), "mlp_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]),
     "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
     "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,
+    "attn_fwd_savep_wgmma_kernel": (2, *_WGMMA[1:]), "ln_bwd_dx_wgmma_kernel": (2, *_WGMMA[1:]),
+    "ln_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]),
     "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
     "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
     "attn_bwd_savep_dq_kernel": (2, *_FFMA), "fused_mlp_kernel": (8, *_FFMA),
@@ -276,26 +279,6 @@ def reset_counts():
         getattr(mods[m], name).launches = 0
     for wrapper in (mods["qz"].quantize_rows, mods["qz"].int8_dot):
         wrapper.launches_by_shape.clear()
-
-
-@contextlib.contextmanager
-def plain_training_route():
-    """Every training kernel wrapper swapped for its plain twin."""
-    fa, fm, ln = (_modules()[m] for m in ("fa", "fm", "ln"))
-    twins = {(fa, "flash_attention"): fa.flash_attention_plain,
-             (fa, "flash_attention_bwd"): fa.flash_attention_bwd_plain,
-             (fa, "flash_attention_savep"): fa.flash_attention_savep_plain,
-             (fa, "flash_attention_bwd_savep"): fa.flash_attention_bwd_savep_plain,
-             (fm, "fused_mlp_block_h1"): lambda *a: fm.fused_mlp_block_plain(*a, want_h1=True),
-             (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd_plain,
-             (fm, "fused_mlp_block_gp"): fm.fused_mlp_block_gp_plain,
-             (fm, "fused_mlp_bwd_gp"): fm.fused_mlp_bwd_gp_plain,
-             (ln, "ln_linear"): ln.ln_linear_plain,
-             (ln, "ln_linear_bwd"): ln.ln_linear_bwd_plain}
-    with contextlib.ExitStack() as stack:
-        for (mod, name), twin in twins.items():
-            stack.enter_context(mock.patch.object(mod, name, twin))
-        yield
 
 
 def cuda_ms(fn, iters=10, warmup=2):
@@ -465,6 +448,9 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
         err = _compare("flash_attention_savep", tag, g[0], w[0], tol)
         _compare("flash_attention_savep P", tag, g[1], w[1], tol)
         _compare("flash_attention_savep inv", tag, g[2], w[2], LSE_TOL[tag])
+        if not all(torch.equal(a, b) for a, b in zip(g, fa.flash_attention_savep(q, k, v))):
+            raise AssertionError("flash_attention_savep: two calls give different bits")
+        print(f"  flash_attention_savep[{tag}]: out, P, inv bit-equal across two calls")
         return err
 
     sdpa_in = [t.unflatten(0, (MIM_BATCH, 3)).detach().requires_grad_() for t in (q, k, v)]
@@ -1029,6 +1015,7 @@ def _mim_route_run(what, tag, model0, x, mask, routes, launched, default_loss=No
     more steps timed. Returns (first loss, launch counts, ms/step)."""
     import torch
 
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
     from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
     from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
 

@@ -201,7 +201,7 @@ def _digests(dev):
         q, k, v, do = (t(4, 130, 128, dtype=dtype) for _ in range(4))
         if tag == "bf16":
             keep(f"flash_attention_savep[{tag}]", fa.flash_attention_savep(q, k, v))
-    k = 3 * d  # LN -> qkv in bf16 (ln_linear_mma.cu), drawn after every other input
+    k = 3 * d  # LN -> qkv in bf16, drawn after every other input
     x, dy, w = t(rows, d, std=2.0, mean=0.5), t(rows, k), t(k, d, std=d ** -0.5)
     ln = (t(d, dtype=torch.float32, std=0.1, mean=1.0), t(d, dtype=torch.float32, std=0.1))
     keep("ln_linear[bf16]", (lnl.ln_linear(x, *ln, w, t(k, dtype=torch.float32, std=0.1)),))
@@ -242,14 +242,21 @@ def _digests(dev):
 # D from 0, then the bias), its last wave split over columns included. The
 # f32 backward's bits changed on purpose (another split count, the LN
 # backward's sums over other lanes); test_ln_linear_kernels_match_plain holds
-# it.
+# it. ln_linear_bwd[bf16] was recorded again on the build that moved the
+# bf16 LN -> qkv backward from mma.sync to the wgmma kernels of
+# ln_linear_bwd_wgmma.cu, whose f32 sums run in another order on purpose
+# (dxn and dW over 16-wide wgmma steps, the weight partials over other
+# splits, ln_part by reduce_rows). flash_attention_savep[bf16] reproduces
+# across the move of the bf16 saved-P forward from mma.sync to the wgmma
+# kernel of attention_savep_wgmma.cu: at this shape the new kernel gives the
+# old one's bits.
 RECORDED_DIGESTS = {
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
     "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
     "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564",
     "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
     "flash_attention_savep[bf16]": "a5417dca59721aa5", "ln_linear[bf16]": "29adf4aba5a9fd62",
-    "ln_linear_bwd[bf16]": "0b442ae32484d81d", "ln_linear[f32]": "bbc401ebaae4650c"}
+    "ln_linear_bwd[bf16]": "54c13a7204f0a705", "ln_linear[f32]": "bbc401ebaae4650c"}
 
 
 def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
@@ -415,22 +422,28 @@ def _bit_equal(a, b):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,n,d", [(4, 130, 128), (3, 129, 64), (2, 1, 64), (2, 64, 128),
-                                    (2, 63, 64), (2, 65, 128), (3, 127, 128), (2, 128, 64),
-                                    (2, 129, 128), (2, 192, 128), (2, 255, 64), (3, 257, 128),
-                                    (2, 257, 64), (1, 385, 128), (48, 2305, 128)])
+                                    (2, 63, 64), (2, 65, 128), (3, 127, 128), (2, 127, 64),
+                                    (2, 128, 64), (2, 129, 128), (2, 192, 128), (2, 255, 64),
+                                    (3, 257, 128), (2, 257, 64), (1, 385, 128), (48, 2305, 128)])
 def test_savep_attention_kernels_match_plain(cuda, dtype, bh, n, d):
     """The saved-P forward (out, P, inv) and backward against their twins;
-    P's padded columns are 0; the backward is bit-equal across two runs.
-    Around the backward's tiles (bf16: 128 keys a dk/dv CTA in 64-query
-    tiles, 128 queries a dq CTA in 64-key tiles; f32: 64 keys a dk/dv CTA
-    in 64-query tiles, 128 queries a dq CTA in key tiles of 64 at d = 64
-    and 32 at d = 128) and at the MIM step's (48, 2305, 128)."""
+    P's padded columns are 0; both are bit-equal across two runs. Around
+    the forward's tiles (bf16: 128 queries a CTA, 64-key tiles; f32: 128
+    queries a CTA, key tiles of 128 at d = 64 and 64 at d = 128), the
+    backward's (bf16: 128 keys a dk/dv CTA in 64-query tiles, 128 queries a
+    dq CTA in 64-key tiles; f32: 64 keys a dk/dv CTA in 64-query tiles, 128
+    queries a dq CTA in key tiles of 64 at d = 64 and 32 at d = 128) and at
+    the MIM step's (48, 2305, 128)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d + 2)
     q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    bf16 = dtype == torch.bfloat16
+    assert fa.flash_attention_savep_route(q, k, v) == (
+        "attention_savep_wgmma.cu" if bf16 else "attention_savep.cu")
     assert fa.flash_attention_bwd_savep_route(q, k, v, q, do) == (
-        "attention_savep_bwd_wgmma.cu" if dtype == torch.bfloat16 else "attention_savep.cu")
+        "attention_savep_bwd_wgmma.cu" if bf16 else "attention_savep.cu")
     before = (fa.flash_attention_savep.launches, fa.flash_attention_bwd_savep.launches)
     out, p, inv = fa.flash_attention_savep(q, k, v)
+    assert _bit_equal((out, p, inv), fa.flash_attention_savep(q, k, v))
     pout, pp, pinv = fa.flash_attention_savep_plain(q, k, v)
     assert p.shape == pp.shape == (bh, n, fa.p_columns(n)) and p.dtype == dtype
     assert not p[..., n:].any()
@@ -443,7 +456,7 @@ def test_savep_attention_kernels_match_plain(cuda, dtype, bh, n, d):
         _close_grad(g, w, dtype)
     assert _bit_equal(grads, fa.flash_attention_bwd_savep(q, k, v, out, p, inv, do))
     assert (fa.flash_attention_savep.launches, fa.flash_attention_bwd_savep.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.parametrize("dtype,rows,d,h",
@@ -470,18 +483,23 @@ def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d, h):
 @pytest.mark.parametrize("rows,d,k", [(70, 384, 1152), (130, 192, 576), (1, 384, 1152),
                                       (1100, 384, 1152), (36880, 384, 1152)]
                          + [(rows, d, k) for d in (192, 384) for k in (64, 192)
-                            for rows in (63, 64, 65, 129)])
+                            for rows in (63, 64, 65, 129)]
+                         + [(rows, d, 3 * d) for d in (192, 384) for rows in (127, 129, 257)])
 def test_ln_linear_kernels_match_plain(cuda, dtype, rows, d, k):
     """ln_linear and its backward against their twins; the backward's
     gradients are bit-equal across two runs (fixed-order reductions). Around
-    the tiles of both dtypes' kernels (64 rows a CTA or tile; the f32
-    forward's 256-column chunks, whose last one takes 64, 128 or 192 when K
-    is not a multiple of 256) and at the MIM step's 36880 rows."""
+    the tiles of both dtypes' kernels (64 rows a CTA or tile; the bf16
+    backward's 128-row dx CTA and its weight kernel's 128-unit tiles, whole
+    or cut by K; the f32 forward's 256-column chunks, whose last one takes
+    64, 128 or 192 when K is not a multiple of 256) and at the MIM step's
+    36880 rows."""
     gen = torch.Generator(device=cuda).manual_seed(rows + d + k)
     r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
     x, dy = r(rows, d, std=2.0, mean=0.5).to(dtype), r(rows, k).to(dtype)
     w = r(k, d, std=d ** -0.5).to(dtype)
     s, bb, b = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(k, std=0.1)
+    assert lnl.ln_linear_bwd_route(x, w) == (
+        "ln_linear_bwd_wgmma.cu" if dtype == torch.bfloat16 else "ln_linear.cu")
     before = (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches)
     _close(lnl.ln_linear(x, s, bb, w, b), lnl.ln_linear_plain(x, s, bb, w, b), dtype)
     grads = lnl.ln_linear_bwd(x, dy, s, bb, w)

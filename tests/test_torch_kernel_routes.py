@@ -3,11 +3,12 @@
 The wrappers choose their kernel by route, explicitly (no fallback):
 bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
 csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
-(csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu,
-and csrc/attention_savep_bwd_wgmma.cu on the saved-P route);
-the bfloat16 MLP training forward takes the wgmma kernel too, float32 the
-CUDA-core ones, as does LN -> qkv (csrc/ln_linear.cu; bfloat16
-csrc/ln_linear_mma.cu); the tiled GEMM of the probes and the int8 route takes
+(csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu),
+and on the saved-P route both ways (csrc/attention_savep_wgmma.cu,
+csrc/attention_savep_bwd_wgmma.cu); the bfloat16 MLP training forward takes
+the wgmma kernel too, float32 the CUDA-core ones, as does LN -> qkv
+(csrc/ln_linear.cu both ways; bfloat16 csrc/ln_linear_mma.cu forward and
+csrc/ln_linear_bwd_wgmma.cu backward); the tiled GEMM of the probes and the int8 route takes
 csrc/matmul_wgmma.cu in every dtype and epilogue, and every attention probe
 csrc/probe_attention_wgmma.cu. The route functions read
 only shapes, dtypes and layouts, so these tests run without a card; on the
@@ -49,6 +50,8 @@ ATTN_ROUTES = {"flash_attention": (fa.flash_attention_route, "attention_qkv.cu",
                                    "attention_qkv_wgmma.cu"),
                "flash_attention_bwd": (fa.flash_attention_bwd_route, "attention_bwd.cu",
                                        "attention_bwd_wgmma.cu"),
+               "flash_attention_savep": (fa.flash_attention_savep_route, "attention_savep.cu",
+                                         "attention_savep_wgmma.cu"),
                "flash_attention_bwd_savep": (fa.flash_attention_bwd_savep_route,
                                              "attention_savep.cu",
                                              "attention_savep_bwd_wgmma.cu")}
@@ -60,7 +63,8 @@ ATTN_ROUTES = {"flash_attention": (fa.flash_attention_route, "attention_qkv.cu",
 def test_training_attention_routes_name_the_kernel(name, dtype, d):
     route, f32_source, bf16_source = ATTN_ROUTES[name]
     q = torch.zeros(6, 130, d, dtype=dtype)
-    others = (q,) * (2 if name == "flash_attention" else 4)  # k, v (and o, do)
+    forward = name in ("flash_attention", "flash_attention_savep")
+    others = (q,) * (2 if forward else 4)  # k, v (and o, do)
     assert route(q, *others) == (bf16_source if dtype == BF16 else f32_source)
     assert route(q) == route(q, *others)
 
@@ -199,10 +203,19 @@ def test_mlp_bwd_workspace_sizes(rows, dtype, gp, hidden):
 @pytest.mark.parametrize("d", [192, 384])
 @pytest.mark.parametrize("dtype,want", [(F32, "ln_linear.cu"), (BF16, "ln_linear_mma.cu")])
 def test_ln_linear_route_names_the_kernel(dtype, want, d):
-    """LN -> qkv, forward and backward: float32 the register-tiled kernels,
-    bfloat16 the tensor-core ones; K = 3 D, as the qkv projection has it."""
+    """LN -> qkv forward: float32 the register-tiled kernel, bfloat16 the
+    mma.sync one; K = 3 D, as the qkv projection has it."""
     x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(3 * d, d, dtype=dtype)
     assert lnl.ln_linear_route(x, w) == want
+
+
+@pytest.mark.parametrize("d", [192, 384])
+@pytest.mark.parametrize("dtype,want", [(F32, "ln_linear.cu"), (BF16, "ln_linear_bwd_wgmma.cu")])
+def test_ln_linear_bwd_route_names_the_kernel(dtype, want, d):
+    """LN -> qkv backward: float32 the register-tiled kernels, bfloat16 the
+    wgmma dx and weight kernels; K = 3 D."""
+    x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(3 * d, d, dtype=dtype)
+    assert lnl.ln_linear_bwd_route(x, w) == want
 
 
 @pytest.mark.parametrize("case,match", [
@@ -211,7 +224,7 @@ def test_ln_linear_route_names_the_kernel(dtype, want, d):
 ])
 def test_ln_linear_route_raises_on_what_no_kernel_takes(case, match):
     """K a multiple of 64 (the kernels' column chunk), D in {192, 384}, w a
-    contiguous (K, D) tensor of x's dtype."""
+    contiguous (K, D) tensor of x's dtype; both directions' routes refuse."""
     x, w = torch.zeros(5, 384), torch.zeros(1152, 384)
     if case == "K 1120":
         w = torch.zeros(1120, 384)
@@ -223,15 +236,18 @@ def test_ln_linear_route_raises_on_what_no_kernel_takes(case, match):
         w = torch.zeros(1152, 768)[:, ::2]
     else:
         w = w.to(BF16)
-    with pytest.raises(ValueError, match=match):
-        lnl.ln_linear_route(x, w)
+    for route in (lnl.ln_linear_route, lnl.ln_linear_bwd_route):
+        with pytest.raises(ValueError, match=match):
+            route(x, w)
 
 
-@pytest.mark.parametrize("rows", [1, 63, 64, 65, 129, 36880])
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 127, 128, 129, 257, 36880])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_ln_linear_bwd_workspace_sizes(rows, dtype):
     """part: LN_SPLITS partials of [dW (K, D) | db (K)]; ln_part a row of
-    [ds | dbb] (2 D) a 64-row tile; both storage types alike."""
+    [ds | dbb] (2 D) a 64-row tile, both storage types alike: a float32 dx
+    CTA, a consumer warpgroup of the bfloat16 dx kernel's 128-row CTA (the
+    second one's row is past the last when its rows are)."""
     d, k = 384, 1152
     part, ln_part = lnl.bwd_workspace(rows, d, k, dtype)
     assert lnl._BWD_MIN_TILE == 64
@@ -308,8 +324,13 @@ def _call(name, dtype):
         q = torch.randn(2, 10, 64).to(dtype)
         if name == "flash_attention":
             return fa.flash_attention(q, q, q)
+        if name == "flash_attention_savep":
+            return fa.flash_attention_savep(q, q, q)
         o, lse = fa.flash_attention(q, q, q)
         return fa.flash_attention_bwd(q, q, q, o, lse, q)
+    if name == "ln_linear_bwd":
+        x, w, v = torch.randn(5, 192).to(dtype), torch.zeros(576, 192, dtype=dtype), torch.ones(192)
+        return lnl.ln_linear_bwd(x, torch.zeros(5, 576, dtype=dtype), v, v, w)
     x, w1, w2 = _mlp(dtype, d=192, h=768)
     v, b1 = torch.zeros(192), torch.zeros(768)
     if name == "fused_mlp_block":
@@ -318,7 +339,8 @@ def _call(name, dtype):
 
 
 WRAPPERS = {"attention_qkv": fa, "fused_mlp_block": fm, "fused_mlp_block_lnout": fm,
-            "flash_attention": fa, "flash_attention_bwd": fa}
+            "flash_attention": fa, "flash_attention_bwd": fa, "flash_attention_savep": fa,
+            "ln_linear_bwd": lnl}
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -342,8 +364,13 @@ def test_wrappers_raise_on_devices_without_a_kernel(name):
             q = torch.zeros(2, 10, 64, dtype=BF16, device="meta")
             if name == "flash_attention":
                 fa.flash_attention(q, q, q)
+            elif name == "flash_attention_savep":
+                fa.flash_attention_savep(q, q, q)
             else:
                 fa.flash_attention_bwd(q, q, q, q, torch.zeros(2, 10, device="meta"), q)
+        elif name == "ln_linear_bwd":
+            x, w = torch.zeros(5, 384, device="meta"), torch.zeros(1152, 384, device="meta")
+            lnl.ln_linear_bwd(x, torch.zeros(5, 1152, device="meta"), x[0], x[0], w)
         else:
             x, w1, w2 = (t.to("meta") for t in _mlp(BF16))
             v = torch.zeros(384, device="meta")

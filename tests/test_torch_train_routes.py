@@ -48,11 +48,12 @@ def _attention_arrays(d, tag, n=130):
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("n", [63, 65, 127, 129, 130])
+@pytest.mark.parametrize("n", [63, 65, 127, 129, 130, 257])
 def test_savep_function_matches_jax_vjp(n, d, tag):
     """flash_attention_trainable(save_p=True) against the JAX custom VJP on
-    its saved-P route, at N on both sides of the backward kernels' tiles
-    (64 queries or keys a tile, 64 or 128 a CTA) and at a ragged N = 130."""
+    its saved-P route, at N on both sides of the kernels' tiles (64 queries
+    or keys a tile, 64 or 128 a CTA; the bf16 forward's 128-row CTA and
+    64-key tile) and at a ragged N = 130."""
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _attention_arrays(d, tag, n)
     out, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention_trainable(q, k, v, 0, True, True),
                        jq, jk, jv)
@@ -122,13 +123,14 @@ def test_gp_out_is_bit_equal_to_h1_out(tag):
 
 
 @pytest.mark.parametrize("tag", ["f32", "bf16"])
-@pytest.mark.parametrize("d", [64, 192])
-@pytest.mark.parametrize("r", [63, 65, 70, 129])
+@pytest.mark.parametrize("r,d", [(r, d) for d in (64, 192) for r in (63, 65, 70, 129)]
+                         + [(r, d) for d in (192, 384) for r in (127, 129, 257)
+                            if (r, d) != (129, 192)])
 def test_ln_linear_function_matches_jax_vjp(r, d, tag):
     """ln_linear_trainable: the output and all five gradients against the
     JAX ln_linear custom VJP (interpret mode, row block 64), K = 3 D as the
     qkv projection has it, at rows on both sides of the kernels' 64-row
-    tiles."""
+    tiles and of the bf16 backward's 128-row dx CTA, at both kernel widths."""
     rng = np.random.default_rng(11)
     k = 3 * d
     f = lambda *s, std=1.0, mean=0.0: (rng.normal(size=s) * std + mean).astype(np.float32)  # noqa: E731

@@ -33,7 +33,7 @@
 // row's max (K tiles only, through the same ring), with the running max
 // started there: every tile is then shifted by m and nothing is rescaled.
 // Padded keys score -inf, so P's padded columns are exactly 0. bf16 storage
-// takes attention_savep_mma.cu.
+// takes attention_savep_wgmma.cu.
 //
 // Backward. The lse route's deterministic split with no atomics
 // (attention_bwd.cu): the row statistics once (inv and D = rowsum(do * o),
@@ -542,11 +542,11 @@ static int launch_bwd_savep(const void* qs, const void* k, const void* v, const 
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core forward of attention_savep_mma.cu and
-// the wgmma backward of attention_savep_bwd_wgmma.cu (stats read through TMA)
+// bf16 storage takes the wgmma forward of attention_savep_wgmma.cu and the
+// wgmma backward of attention_savep_bwd_wgmma.cu (stats read through TMA)
 template <int D>
-int launch_fwd_savep_mma(const void* qs, const void* k, const void* v, void* out, void* P,
-                         float* inv, int BH, int N, int Np, cudaStream_t stream);
+int launch_fwd_savep_wgmma(const void* qs, const void* k, const void* v, void* out, void* P,
+                           float* inv, int BH, int N, int Np, cudaStream_t stream);
 template <int D>
 int launch_bwd_savep_wgmma(const void* qs, const void* k, const void* v, const void* P,
                            const float* stats, int pitch, const void* dout, void* dq, void* dk,
@@ -569,9 +569,9 @@ extern "C" int vitocm_flash_fwd_savep(int dtype, const void* qs, const void* k, 
   if (dtype == kF32 && head_dim == 128)
     return launch_fwd_savep<128>(qs, k, v, out, P, fi, BH, N, Np, s);
   if (dtype == kBF16 && head_dim == 64)
-    return launch_fwd_savep_mma<64>(qs, k, v, out, P, fi, BH, N, Np, s);
+    return launch_fwd_savep_wgmma<64>(qs, k, v, out, P, fi, BH, N, Np, s);
   if (dtype == kBF16 && head_dim == 128)
-    return launch_fwd_savep_mma<128>(qs, k, v, out, P, fi, BH, N, Np, s);
+    return launch_fwd_savep_wgmma<128>(qs, k, v, out, P, fi, BH, N, Np, s);
   return (int)cudaErrorInvalidValue;
 }
 

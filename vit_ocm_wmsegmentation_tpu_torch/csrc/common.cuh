@@ -21,6 +21,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// the two bf16 at p, in float
+__device__ __forceinline__ float2 bf16x2_at(const void* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// v summed over the 8 lanes of a warp that share lane % 4 (the rows g of
+// an accumulator's quad layout, one column), in a fixed order
+__device__ __forceinline__ float sum_over_g(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// v summed over the 4 lanes of a quad (one row's columns), in a fixed order
+__device__ __forceinline__ float sum_over_quad(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // exact-erf GELU and its derivative, sharing the Phi term:
 // g = h Phi(h), gp = Phi(h) + h phi(h)
 __device__ __forceinline__ void gelu_pieces(float h, float& g, float& gp) {
@@ -114,5 +133,10 @@ static inline int weight_splits(int tiles, int max_splits, int slots) {
 // out[i] = sum over s < S of part[s * W + i], in order of s: the fixed-order
 // reduction of the weight-gradient partials (fused_mlp_bwd.cu)
 int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_t stream);
+
+// the same sums for a tall part (S >> W), in another fixed order: each of 8
+// warps a block sums a range of rows, then the 8 sums in order
+// (fused_mlp_bwd.cu)
+int reduce_rows(const float* part, float* out, int S, int W, cudaStream_t stream);
 
 }  // namespace vitocm

@@ -364,7 +364,8 @@ int reduce_splits(const float* part, float* out, int S, long long W, cudaStream_
 
 // out[i] = sum over s < S of part[s * W + i] for a tall part (S >> W): a
 // block sums 32 columns, each of its 8 warps a fixed range of rows in order,
-// then the 8 warp sums in order
+// then the 8 warp sums in order (the bf16 ln_part rows of this file and of
+// ln_linear.cu)
 __global__ void reduce_rows_kernel(const float* __restrict__ part, float* __restrict__ out, int S,
                                    int W) {
   __shared__ float sums[8][32];
@@ -382,7 +383,7 @@ __global__ void reduce_rows_kernel(const float* __restrict__ part, float* __rest
   }
 }
 
-static int reduce_rows(const float* part, float* out, int S, int W, cudaStream_t stream) {
+int reduce_rows(const float* part, float* out, int S, int W, cudaStream_t stream) {
   reduce_rows_kernel<<<(W + 31) / 32, 256, 0, stream>>>(part, out, S, W);
   return (int)cudaGetLastError();
 }

@@ -104,23 +104,6 @@ struct BwdW {
   static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + 1024 + 8 * 2 * STAGES;
 };
 
-__device__ __forceinline__ float2 bf16x2_at(const void* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// v summed over the 8 lanes of a warp that share lane % 4 (the rows g of a
-// quad layout), in a fixed order
-__device__ __forceinline__ float sum_over_g(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-
-__device__ __forceinline__ float sum_over_quad(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int D, bool GP>
 __global__ void __launch_bounds__(kBThreads, 1)
 mlp_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap do_map,

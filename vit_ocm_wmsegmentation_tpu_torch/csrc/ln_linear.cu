@@ -50,7 +50,8 @@
 //     three-slot cp.async ring (96 KB); the first column tile also sums db.
 //     The split count is the one (at most the caller's) whose last wave of
 //     CTAs over the card's SMs is fullest; each split writes one partial.
-// bf16 storage takes the tensor-core kernels of ln_linear_mma.cu.
+// bf16 storage takes the tensor-core forward of ln_linear_mma.cu and the
+// wgmma backward of ln_linear_bwd_wgmma.cu.
 //
 // Numerics: every sum runs over its inner index in order (y over D from 0,
 // then the bias; dxn over K; dW and db over the split's rows), so the
@@ -426,14 +427,15 @@ static int launch_ln_bwd(const void* x, const void* dy, const float* s, const fl
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core kernels of ln_linear_mma.cu
+// bf16 storage takes the tensor-core forward of ln_linear_mma.cu and the
+// wgmma backward of ln_linear_bwd_wgmma.cu
 template <int D>
 int launch_ln_fwd_mma(const void* x, const float* s, const float* bn, const void* w,
                       const float* b, void* y, int R, int K, float eps, cudaStream_t stream);
 template <int D>
-int launch_ln_bwd_mma(const void* x, const void* dy, const float* s, const float* bn,
-                      const void* w, void* dx, void* xn, float* ln_part, float* part, int R,
-                      int K, int splits, int rps, float eps, cudaStream_t stream);
+int launch_ln_bwd_wgmma(const void* x, const void* dy, const float* s, const float* bn,
+                        const void* w, void* dx, void* xn, float* ln_part, float* part, int R,
+                        int K, int max_splits, float eps, int* splits, cudaStream_t stream);
 
 template <int D>
 static int launch_any_ln_bwd(int dtype, const void* x, const void* dy, const float* s,
@@ -442,11 +444,10 @@ static int launch_any_ln_bwd(int dtype, const void* x, const void* dy, const flo
                              cudaStream_t st) {
   if (dtype == kF32)
     return launch_ln_bwd<D>(x, dy, s, bn, w, dx, xn, ln_part, part, R, K, splits, eps, used, st);
-  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-  const int rps = ((R + splits - 1) / splits + kLnR - 1) / kLnR * kLnR;  // whole tiles
-  *used = splits;
-  return launch_ln_bwd_mma<D>(x, dy, s, bn, w, dx, xn, ln_part, part, R, K, splits, rps, eps,
-                              st);
+  if (dtype == kBF16)
+    return launch_ln_bwd_wgmma<D>(x, dy, s, bn, w, dx, xn, ln_part, part, R, K, splits, eps,
+                                  used, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace vitocm
@@ -476,9 +477,9 @@ extern "C" int vitocm_ln_linear(int dtype, const void* x, const void* s, const v
 // Workspaces: xn (R, D) in the storage type (LN(x) from the dx kernel for
 // the weight kernel), part (splits, K D + K) and ln_part (ceil(R / 64), 2D)
 // in f32. grads (K D + K + 2D) f32 receives [dW (K, D) | db (K) | ds (D) |
-// dbb (D)]. bf16 writes all `splits` partials; f32 as many of them as fill
-// the card. D in {192, 384}, K a multiple of 64. Returns cudaGetLastError()
-// after the launches (0 on success).
+// dbb (D)]. Both storage types write as many of the `splits` partials as
+// fill the card. D in {192, 384}, K a multiple of 64. Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int vitocm_ln_linear_bwd(int dtype, const void* x, const void* dy, const void* s,
                                     const void* bn, const void* w, void* dx, void* xn, void* part,
                                     void* ln_part, void* grads, int R, int D, int K, int splits,
@@ -500,5 +501,7 @@ extern "C" int vitocm_ln_linear_bwd(int dtype, const void* x, const void* dy, co
   float* g = static_cast<float*>(grads);
   rc = reduce_splits(fpart, g, used, W, st);
   if (rc != 0) return rc;
-  return reduce_splits(fln, g + W, (R + kLnR - 1) / kLnR, 2LL * D, st);
+  const int tiles = (R + kLnR - 1) / kLnR;
+  if (dtype == kBF16) return reduce_rows(fln, g + W, tiles, 2 * D, st);
+  return reduce_splits(fln, g + W, tiles, 2LL * D, st);
 }

@@ -1,9 +1,10 @@
 // Hopper building blocks of the wgmma kernels (attention_qkv_wgmma.cu,
-// attention_bwd_wgmma.cu, attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu,
-// fused_mlp_bwd_wgmma.cu, probe_attention_wgmma.cu):
+// attention_bwd_wgmma.cu, attention_savep_wgmma.cu,
+// attention_savep_bwd_wgmma.cu, fused_mlp_wgmma.cu, fused_mlp_bwd_wgmma.cu,
+// ln_linear_bwd_wgmma.cu, probe_attention_wgmma.cu):
 // warpgroup matrix products (wgmma), tensor-memory copies (TMA) completing on
-// shared-memory barriers (mbarrier), and the shared-memory descriptors that
-// tie the two together.
+// shared-memory barriers (mbarrier) and TMA stores, and the shared-memory
+// descriptors that tie them together.
 // sm_90a only.
 //
 // Operand tiles live in shared memory as TMA writes them with the 128-byte
@@ -161,7 +162,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// shared -> device memory through a tiled map, into this thread's bulk
+// group; the box's rows and columns past the map's dims are not written.
+// The tile's shared-memory writes need fence_proxy_async first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading their
+// shared-memory sources
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // generic-proxy stores to shared memory made visible to wgmma's reads
+// (and to TMA stores)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

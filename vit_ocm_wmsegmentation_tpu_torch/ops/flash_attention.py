@@ -25,12 +25,12 @@ FFMA behind a cp.async ring, and ``csrc/attention_savep.cu``, on the CUDA
 cores; bf16: :func:`attention_qkv`
 and :func:`flash_attention` on ``csrc/attention_qkv_wgmma.cu``,
 :func:`flash_attention_bwd` on ``csrc/attention_bwd_wgmma.cu`` (wgmma fed
-by TMA), the saved-P forward on ``csrc/attention_savep_mma.cu``
-(mma.sync) and its backward on ``csrc/attention_savep_bwd_wgmma.cu``
-(wgmma fed by TMA); design notes there) and takes its plain twin
-(``*_plain``) for CPU tensors; anything else raises.
-:func:`attention_qkv_route`, :func:`flash_attention_route`,
-:func:`flash_attention_bwd_route` and :func:`flash_attention_bwd_savep_route`
+by TMA), the saved-P forward on ``csrc/attention_savep_wgmma.cu`` and its
+backward on ``csrc/attention_savep_bwd_wgmma.cu`` (both wgmma fed by TMA);
+design notes there) and takes its plain twin (``*_plain``) for CPU tensors;
+anything else raises. :func:`attention_qkv_route`,
+:func:`flash_attention_route`, :func:`flash_attention_bwd_route`,
+:func:`flash_attention_savep_route` and :func:`flash_attention_bwd_savep_route`
 name the source a CUDA call launches. Each wrapper's ``launches`` counts kernel
 launches.
 """
@@ -181,6 +181,8 @@ def _check_folded(name, *ts, devices=("cuda",)):
 
 _FWD_SOURCES = {torch.float32: "attention_qkv.cu", torch.bfloat16: "attention_qkv_wgmma.cu"}
 _BWD_SOURCES = {torch.float32: "attention_bwd.cu", torch.bfloat16: "attention_bwd_wgmma.cu"}
+_FWD_SAVEP_SOURCES = {torch.float32: "attention_savep.cu",
+                      torch.bfloat16: "attention_savep_wgmma.cu"}
 _BWD_SAVEP_SOURCES = {torch.float32: "attention_savep.cu",
                       torch.bfloat16: "attention_savep_bwd_wgmma.cu"}
 
@@ -203,6 +205,15 @@ def flash_attention_bwd_route(q, *others) -> str:
     :func:`flash_attention_route`, a CPU tensor stands for its CUDA copy."""
     _check_folded("flash_attention_bwd", q, *others, devices=("cpu", "cuda"))
     return _BWD_SOURCES[q.dtype]
+
+
+def flash_attention_savep_route(q, *others) -> str:
+    """The kernel source a CUDA call of :func:`flash_attention_savep` with
+    this q (and the k, v given after it) launches: bfloat16
+    "attention_savep_wgmma.cu", float32 "attention_savep.cu". As
+    :func:`flash_attention_route`, a CPU tensor stands for its CUDA copy."""
+    _check_folded("flash_attention_savep", q, *others, devices=("cpu", "cuda"))
+    return _FWD_SAVEP_SOURCES[q.dtype]
 
 
 def flash_attention_bwd_savep_route(q, *others) -> str:
@@ -310,8 +321,8 @@ def flash_attention_savep(q, k, v):
     """The forward of the saved-P route for folded (B*h, N, d) q, k, v (q
     unscaled): (out in q's dtype, P (B*h, N, p_columns(N)) in q's dtype, inv
     (B*h, N) float32), P * inv being the softmax. CPU tensors take the plain
-    twin; CUDA tensors launch the kernel (d in HEAD_DIMS, contiguous
-    float32/bfloat16)."""
+    twin; CUDA tensors launch the kernel of :func:`flash_attention_savep_route`
+    (d in HEAD_DIMS, contiguous float32/bfloat16)."""
     if q.device.type == "cpu":
         return flash_attention_savep_plain(q, k, v)
     _check_folded("flash_attention_savep", q, k, v)

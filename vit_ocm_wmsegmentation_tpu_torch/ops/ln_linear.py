@@ -11,10 +11,12 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/ln_linear.py``:
 * :func:`ln_linear_trainable` wires both into a ``torch.autograd.Function``
   that saves only x and the parameters, as the JAX custom VJP does.
 
-They launch the kernels of :func:`ln_linear_route` for CUDA tensors,
-never by a fallback: float32 ``csrc/ln_linear.cu`` (register-tiled FFMA on
-the CUDA cores behind a cp.async ring), bfloat16 ``csrc/ln_linear_mma.cu``
-(tensor cores); design notes in each source. CPU tensors take the plain
+They launch the kernels of :func:`ln_linear_route` (forward) and
+:func:`ln_linear_bwd_route` (backward) for CUDA tensors, never by a
+fallback: float32 ``csrc/ln_linear.cu`` (register-tiled FFMA on the CUDA
+cores behind a cp.async ring) both ways; bfloat16 ``csrc/ln_linear_mma.cu``
+(mma.sync) forward and ``csrc/ln_linear_bwd_wgmma.cu`` (wgmma fed by TMA)
+backward; design notes in each source. CPU tensors take the plain
 twins (``*_plain``); anything else raises. ``w`` comes in nn.Linear's (K, D)
 layout, the transpose of the JAX package's (D, K). Each wrapper's
 ``launches`` counts kernel launches.
@@ -29,8 +31,8 @@ from .. import nn as tnn
 
 KERNEL_WIDTHS = (192, 384)  # D values the kernels are instantiated for
 COLUMN_CHUNK = 64  # K must be a multiple of this
-LN_SPLITS = 16  # row splits of the backward's weight-gradient partials (at most, in float32)
-_BWD_MIN_TILE = 64  # rows of the backward's dx tile and ln_part row, both storage types
+LN_SPLITS = 16  # row splits of the backward's weight-gradient partials, at most
+_BWD_MIN_TILE = 64  # rows of an ln_part row of the backward, both storage types
 
 
 def ln_linear_plain(x, scale, bias, w, b, eps=1e-6):
@@ -58,10 +60,26 @@ def ln_linear_bwd_plain(x, dy, scale, bias, w, eps=1e-6):
 
 
 def ln_linear_route(x, w):
-    """The kernel source a CUDA call with these operands launches, forward
-    and backward: float32 "ln_linear.cu", bfloat16 "ln_linear_mma.cu".
-    Raises on shapes, dtypes and layouts no kernel takes; the device is the
-    caller's check."""
+    """The kernel source a CUDA call of :func:`ln_linear` with these operands
+    launches: float32 "ln_linear.cu", bfloat16 "ln_linear_mma.cu". Raises on
+    shapes, dtypes and layouts no kernel takes; the device is the caller's
+    check."""
+    _check_shapes(x, w)
+    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_mma.cu"
+
+
+def ln_linear_bwd_route(x, w):
+    """The kernel source a CUDA call of :func:`ln_linear_bwd` with these
+    operands launches: float32 "ln_linear.cu", bfloat16
+    "ln_linear_bwd_wgmma.cu" (its dx and weight-gradient kernels, then
+    ln_linear.cu's fixed-order reductions). Raises as :func:`ln_linear_route`
+    does."""
+    _check_shapes(x, w)
+    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_bwd_wgmma.cu"
+
+
+def _check_shapes(x, w):
+    """Raises on shapes, dtypes and layouts no kernel of either direction takes."""
     if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"ln_linear: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
     d = x.shape[1]
@@ -73,14 +91,15 @@ def ln_linear_route(x, w):
                          f"{tuple(w.shape)} for D={d}")
     for what, t in (("x", x), ("w", w)):
         _check_operand("ln_linear", what, t, tuple(t.shape), x)
-    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_mma.cu"
 
 
 def bwd_workspace(r, d, k, dtype):
     """f32 values of the backward's two workspaces for r rows, the same for
     both storage types: ``part``, LN_SPLITS partials of [dW (K, D) | db (K)]
-    (float32 writes as many of them as fill the card); ``ln_part``, a row of
-    [ds | dbb] (2 D) for each tile of _BWD_MIN_TILE rows."""
+    (each kernel writes as many of them as fill the card: float32 two CTAs an
+    SM of 128 x 128 tiles, bfloat16 one of 128 units x D); ``ln_part``, a row
+    of [ds | dbb] (2 D) for each tile of _BWD_MIN_TILE rows (float32 a dx
+    CTA, bfloat16 a consumer warpgroup of the 128-row dx CTA)."""
     if dtype not in build.DTYPE_CODES:
         raise ValueError(f"ln_linear_bwd: no kernel for {dtype}")
     return LN_SPLITS * (k * d + k), -(-r // _BWD_MIN_TILE) * 2 * d
@@ -90,7 +109,7 @@ def _check(name, x, w):
     """(R, D, K) of a kernel call; raises on anything the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    ln_linear_route(x, w)
+    _check_shapes(x, w)
     return (*x.shape, w.shape[0])
 
 
@@ -128,8 +147,9 @@ def ln_linear(x, scale, bias, w, b, eps=1e-6):
 def ln_linear_bwd(x, dy, scale, bias, w, eps=1e-6):
     """Backward of :func:`ln_linear` from x and the cotangent dy (R, K):
     (dx in x's dtype, then f32 dscale, dbias, dw (K, D), db). CPU tensors
-    take the plain twin; CUDA tensors launch the kernels (dx, weight-gradient
-    partials, their fixed-order reduction)."""
+    take the plain twin; CUDA tensors launch the kernels of
+    :func:`ln_linear_bwd_route` (dx, weight-gradient partials, their
+    fixed-order reduction)."""
     if x.device.type == "cpu":
         return ln_linear_bwd_plain(x, dy, scale, bias, w, eps)
     r, d, k = _check("ln_linear_bwd", x, w)

@@ -18,9 +18,11 @@ events, median of 10) with its peak device memory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import subprocess
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -29,6 +31,9 @@ from torch.profiler import ProfilerActivity, profile
 from .data.mask_generator import MaskGenerator
 from .models import simmim
 from .models.vit import TrainRoutes
+from .ops import flash_attention as fa
+from .ops import fused_mlp as fm
+from .ops import ln_linear as ln
 from .pipeline import exact_matmuls
 from .profile_mosaic import kernel_table
 from .train.mim_trainer import make_train_step
@@ -40,6 +45,26 @@ BATCH, SIZE = 16, 384
 ROUTES = {"default": TrainRoutes(), "ln_qkv": TrainRoutes(ln_qkv=True),
           "save_p": TrainRoutes(attn_save_p=True), "gp": TrainRoutes(mlp_save_gp=True),
           "all": TrainRoutes(mlp_save_gp=True, ln_qkv=True, attn_save_p=True)}
+
+
+@contextlib.contextmanager
+def plain_training_route():
+    """Every training kernel wrapper swapped for its plain twin (the
+    autograd Functions look the wrappers up at call time)."""
+    twins = {(fa, "flash_attention"): fa.flash_attention_plain,
+             (fa, "flash_attention_bwd"): fa.flash_attention_bwd_plain,
+             (fa, "flash_attention_savep"): fa.flash_attention_savep_plain,
+             (fa, "flash_attention_bwd_savep"): fa.flash_attention_bwd_savep_plain,
+             (fm, "fused_mlp_block_h1"): lambda *a: fm.fused_mlp_block_plain(*a, want_h1=True),
+             (fm, "fused_mlp_bwd"): fm.fused_mlp_bwd_plain,
+             (fm, "fused_mlp_block_gp"): fm.fused_mlp_block_gp_plain,
+             (fm, "fused_mlp_bwd_gp"): fm.fused_mlp_bwd_gp_plain,
+             (ln, "ln_linear"): ln.ln_linear_plain,
+             (ln, "ln_linear_bwd"): ln.ln_linear_bwd_plain}
+    with contextlib.ExitStack() as stack:
+        for (mod, name), twin in twins.items():
+            stack.enter_context(mock.patch.object(mod, name, twin))
+        yield
 
 
 def step_ms(step, x, mask, iters=10):
