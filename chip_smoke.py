@@ -13,8 +13,8 @@ and then, failing on the first phase that fails:
    inference and training attention forward, the training attention's dk/dv
    and dq kernels on both backward routes, the saved-P forward, the MLP
    forward in every bf16 instance, inference and training, the bf16 MLP
-   backward's and LN -> qkv backward's dx and weight kernels, and the GEMM
-   of the int8 route and the probes in bf16)
+   backward's and LN -> qkv backward's dx and weight kernels, the LN -> qkv
+   forward, and the GEMM of the int8 route and the probes in bf16)
    warpgroup products (HGMMA) and TMA loads (UTMALDG) and no mma.sync
    (HMMA), the GEMM's three int8 instances IGMMA and UTMALDG and no IMMA,
    the probe attention (``probe_attention_wgmma.cu``) HGMMA and UTMALDG in
@@ -23,7 +23,8 @@ and then, failing on the first phase that fails:
    the saved-P forward in its one- and two-pass instances, dk/dv and dq on
    both backward routes) and the f32 MLP kernels (the forward in every
    instance the launcher builds, the backward's dx and weight kernels) FFMA
-   and cp.async (LDGSTS) and no tensor-core instruction (no TF32);
+   and cp.async (LDGSTS) and no tensor-core instruction (no TF32); the
+   histogram bulk copies (UBLKCP) and shared-memory atomics (ATOMS);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
@@ -35,11 +36,14 @@ and then, failing on the first phase that fails:
    mosaic's and the MIM step's rows, the backward's four products at the MIM
    step's); the mosaic kernels
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
-   the histogram on a 32768^2 uint8 image and on 2^24 + 67 pixels of two
-   values (counts exactly equal to the twin's); the opt-in training routes'
+   the histogram on a 32768^2 uint8 image, a view of it 3 bytes in, 2^24 +
+   67 pixels of two values and two skewed buffers (2^30 zeros, ~90 % bin 0;
+   counts exactly equal to the twin's; timed on the first and the skewed
+   two); the opt-in training routes'
    kernels (saved-P attention forward and backward, the MLP block's gp
    forward and backward, LN -> qkv forward and backward) at the MIM step's
-   shapes, the saved-P forward and backward bit-equal across two calls, the gp
+   shapes, the saved-P forward and backward and the LN -> qkv forward and
+   backward bit-equal across two calls, the gp
    forward's out bit-equal to the h1 forward's; the tools/
    probes' kernels: the tiled matmul at 2048^3 in bf16 and int8 (int8
    stores bit-equal, wrapped), int8_dot at the mosaic's four projection
@@ -164,7 +168,7 @@ KERNELS = {
                            FM + ":123"),
     "fused_mlp_bwd_gp": ("fm", {"f32": "fused_mlp_bwd.cu", "bf16": "fused_mlp_bwd_wgmma.cu"},
                          FM + ":243"),
-    "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_mma.cu"}, LN + ":30"),
+    "ln_linear": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_wgmma.cu"}, LN + ":30"),
     "ln_linear_bwd": ("ln", {"f32": "ln_linear.cu", "bf16": "ln_linear_bwd_wgmma.cu"}, LN + ":44"),
     "int8_dot": ("qz", {"int8": "matmul_wgmma.cu"}, PD + ":38"),
     "quantize_rows": ("qz", {"bf16": "quantize_rows.cu"}, QZ + ":54"),
@@ -213,8 +217,8 @@ CONTROLS = {}
 # no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
 # plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
 # and its weight kernel in 2, the saved-P forward in 2 (d 64 and 128), the
-# LN -> qkv backward's dx and weight kernels in 2 each (D 192 and 384), the
-# GEMM of matmul_wgmma.cu in bf16 (HGMMA) and in its three int8 instances
+# LN -> qkv forward and the backward's dx and weight kernels in 2 each (D 192
+# and 384), the GEMM of matmul_wgmma.cu in bf16 (HGMMA) and in its three int8 instances
 # (IGMMA, and no IMMA: no mma.sync), the probe attention in its 14 bf16
 # instances (HGMMA) and its int8 one (IGMMA), all with TMA loads; the f32
 # attention kernels (attention_qkv.cu, both head dims and both layouts; the
@@ -224,7 +228,8 @@ CONTROLS = {}
 # 2 widths x 2 routes, and the weight kernel) and the f32 LN -> qkv kernels
 # (ln_linear.cu: the forward and the dx kernel at both widths, the weight
 # kernel) run exact f32 FFMA fed by cp.async (LDGSTS) and no tensor-core
-# instruction, so no TF32.
+# instruction, so no TF32. The histogram (histogram_u8.cu) loads by bulk
+# copies (UBLKCP) and counts by shared-memory atomics (ATOMS).
 _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _IGMMA = (3, ("IGMMA", "UTMALDG"), ("IMMA", "HMMA", "HGMMA"))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
@@ -234,7 +239,8 @@ SASS_CHECKS = {
     "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
     "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,
     "attn_fwd_savep_wgmma_kernel": (2, *_WGMMA[1:]), "ln_bwd_dx_wgmma_kernel": (2, *_WGMMA[1:]),
-    "ln_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]),
+    "ln_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]), "ln_linear_fwd_wgmma_kernel": (2, *_WGMMA[1:]),
+    "histogram_u8_kernel": (1, ("UBLKCP", "ATOMS"), ()),
     "attention_f32_kernel": (4, *_FFMA), "attn_bwd_dkdv_f32_kernel": (2, *_FFMA),
     "attn_bwd_dq_f32_kernel": (2, *_FFMA), "attn_bwd_savep_dkdv_kernel": (2, *_FFMA),
     "attn_bwd_savep_dq_kernel": (2, *_FFMA), "fused_mlp_kernel": (8, *_FFMA),
@@ -508,9 +514,17 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
     wq = randn(kq, dm, std=dm ** -0.5).to(dtype)
     bq = randn(kq, std=0.1)
     dy = randn(rows, kq).to(dtype)
+
+    def check_ln_fwd(got, want):
+        err = _compare("ln_linear", tag, got, want, tol)
+        if not torch.equal(got, ln.ln_linear(xm, s, bb, wq, bq)):
+            raise AssertionError("ln_linear: two calls give different bits")
+        print(f"  ln_linear[{tag}]: y bit-equal across two calls")
+        return err
+
     cases["ln_linear"] = (
         lambda: ln.ln_linear(xm, s, bb, wq, bq), lambda: ln.ln_linear_plain(xm, s, bb, wq, bq),
-        lambda got, want: _compare("ln_linear", tag, got, want, tol), None,
+        check_ln_fwd, None,
         2 * rows * dm * kq, (rows * dm + rows * kq + kq * dm) * isz + (2 * dm + kq) * 4)
 
     def check_ln_bwd(got, want):
@@ -642,9 +656,11 @@ def phase_kernels():
 
 def _histogram_row(gen):
     """The histogram kernel against its chunked twin, exactly: a 32768^2
-    uint8 image (the 1.07 G-pixel blend image of the streamed path's size)
-    and 2^24 + 67 pixels of one value and five of another (past an f32
-    accumulator's 2^24); timed on the first, beside torch.bincount."""
+    uint8 image (the 1.07 G-pixel blend image of the streamed path's size),
+    a view of it 3 bytes in (not 16-byte aligned), 2^24 + 67 pixels of one
+    value and five of another (past an f32 accumulator's 2^24), and two
+    skewed buffers, 2^30 zeros and a 32768^2 image of ~90 % bin 0; timed on
+    the first beside torch.bincount, and on the skewed two."""
     import torch
 
     th = _modules()["th"]
@@ -653,7 +669,15 @@ def _histogram_row(gen):
     x = torch.randint(0, 256, (32768, 32768), generator=gen, device=dev, dtype=torch.uint8)
     tail = torch.full(((1 << 24) + 67,), 7, dtype=torch.uint8, device=dev)
     tail[-5:] = 9
-    for what, img in (("32768^2", x), ("2^24 + 67", tail)):
+    # ~90 % bin 0: a 2^24-byte block 64 times, so that every count is a
+    # multiple of 64 and exact in the f32 counts the wrapper returns
+    tenth = torch.randint(0, 10, (1 << 24,), generator=gen, device=dev, dtype=torch.uint8)
+    block = torch.where(tenth == 0, x.reshape(-1)[: 1 << 24], torch.zeros_like(tenth))
+    skewed = {"zeros 2^30": torch.zeros(1 << 30, dtype=torch.uint8, device=dev),
+              "90 % zeros 32768^2": block.repeat(64).reshape(32768, 32768)}
+    del tenth, block
+    for what, img in (("32768^2", x), ("32768^2 [3:]", x.reshape(-1)[3:]),
+                      ("2^24 + 67", tail), *skewed.items()):
         got, want = th.histogram_u8_kernel(img), th.histogram_u8_chunked(img)
         torch.cuda.synchronize()
         print(f"  histogram_u8_kernel[u8] {what}: counts equal to the twin's: "
@@ -668,6 +692,9 @@ def _histogram_row(gen):
     bound_ms, bound_by = bound(n, n + 256 * 8, "u8")
     print(f"  histogram_u8_kernel[u8]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.bincount "
           f"(uint8) {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    print("  histogram_u8_kernel[u8] skewed: " + ", ".join(
+        f"{what} {cuda_ms(lambda: th.histogram_u8_kernel(img)):.3f} ms"
+        for what, img in skewed.items()))
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
 

@@ -237,9 +237,12 @@ def _digests(dev):
 # test_savep_f32_forward_matches_twin_at_tile_edges and
 # test_savep_attention_kernels_match_plain hold it. The LN -> qkv entries are
 # of the build before the f32 LN -> qkv kernels were redesigned on register
-# tiles (d6b469f): the bf16 ones show that ln_linear_mma.cu kept its bits,
-# the f32 forward that the redesign sums each output in the old order (over
-# D from 0, then the bias), its last wave split over columns included. The
+# tiles (d6b469f): the f32 forward's shows that the redesign sums each output
+# in the old order (over D from 0, then the bias), its last wave split over
+# columns included. ln_linear[bf16] reproduces across the move of the bf16
+# forward from mma.sync to the wgmma kernel of ln_linear_wgmma.cu, which
+# normalizes x with the same arithmetic and sums each output over D in
+# 16-wide steps from 0, then the bias, as the mma.sync kernel did. The
 # f32 backward's bits changed on purpose (another split count, the LN
 # backward's sums over other lanes); test_ln_linear_kernels_match_plain holds
 # it. ln_linear_bwd[bf16] was recorded again on the build that moved the
@@ -403,11 +406,44 @@ def _u8_case(case, dev):
     return x
 
 
-@pytest.mark.parametrize("case", ["n0", "n1", "17x13", "misaligned", "zeros_2^30", "2^24+67"])
+# the histogram kernel's pieces (16 KB) and its grid's stride over them (a
+# piece each of 132 CTAs on an H100)
+HIST_PIECE, HIST_STRIDE = 16384, 132 * 16384
+HIST_CASES = (["n0", "n1", "17x13", "misaligned", "zeros_2^30", "2^24+67"]
+              + [f"offset{o}" for o in range(1, 16)]
+              + [f"len{n}" for n in (15, 16, 17, HIST_PIECE - 1, HIST_PIECE, HIST_PIECE + 1,
+                                     HIST_PIECE + 16, HIST_STRIDE - 16, HIST_STRIDE,
+                                     HIST_STRIDE + 17, 2 * HIST_STRIDE + HIST_PIECE + 5)]
+              + ["skew_2^28"])
+
+
+def _u8_more(case, dev):
+    """HIST_CASES past _u8_case's: views o bytes past a 16-byte boundary over
+    several pieces, lengths around a piece and the grid's stride, and 2^28
+    bytes of ~90 % bin 0 with runs of zeros (a 2^24-byte block 16 times, so
+    that every count is a multiple of 16 and the f32 counts are exact)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if case.startswith("offset"):
+        x = torch.randint(0, 256, (5 * HIST_PIECE + 101,), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        return x[int(case[6:]):]
+    if case.startswith("len"):
+        return torch.randint(0, 256, (int(case[3:]),), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    x = torch.randint(0, 256, (1 << 24,), generator=gen, device=dev, dtype=torch.uint8)
+    keep = torch.randint(0, 10, (1 << 24,), generator=gen, device=dev, dtype=torch.uint8) == 0
+    x = torch.where(keep, x, torch.zeros_like(x))
+    x[: 1 << 20] = 0  # and a run of 1 MB of zeros
+    return x.repeat(16)
+
+
+@pytest.mark.parametrize("case", HIST_CASES)
 def test_histogram_kernel_equals_twin(cuda, case):
-    x = _u8_case(case, cuda)
+    x = (_u8_more if case.startswith(("offset", "len", "skew")) else _u8_case)(case, cuda)
     if case == "misaligned":
         assert x.data_ptr() % 16 != 0
+    if case.startswith("offset"):
+        assert x.data_ptr() % 16 == int(case[6:])
     before = th.histogram_u8_kernel.launches
     got = th.histogram_u8_kernel(x)
     want = th.histogram_u8_chunked(x)
@@ -484,29 +520,35 @@ def test_mlp_gp_kernels_match_plain(cuda, dtype, rows, d, h):
                                       (1100, 384, 1152), (36880, 384, 1152)]
                          + [(rows, d, k) for d in (192, 384) for k in (64, 192)
                             for rows in (63, 64, 65, 129)]
-                         + [(rows, d, 3 * d) for d in (192, 384) for rows in (127, 129, 257)])
+                         + [(rows, d, 3 * d) for d in (192, 384) for rows in (127, 129, 257)]
+                         + [(rows, d, k) for d in (192, 384) for k in (128, 256, 320, 384)
+                            for rows in (127, 129, 257)])
 def test_ln_linear_kernels_match_plain(cuda, dtype, rows, d, k):
-    """ln_linear and its backward against their twins; the backward's
-    gradients are bit-equal across two runs (fixed-order reductions). Around
-    the tiles of both dtypes' kernels (64 rows a CTA or tile; the bf16
-    backward's 128-row dx CTA and its weight kernel's 128-unit tiles, whole
-    or cut by K; the f32 forward's 256-column chunks, whose last one takes
-    64, 128 or 192 when K is not a multiple of 256) and at the MIM step's
-    36880 rows."""
+    """ln_linear and its backward against their twins; the forward's output
+    and the backward's gradients are bit-equal across two runs (fixed-order
+    sums and reductions). Around the tiles of both dtypes' kernels (64 rows a
+    CTA or tile; the bf16 forward's 128-row units of 192 output columns,
+    whole or cut by K; the bf16 backward's 128-row dx CTA and its weight
+    kernel's 128-unit tiles, whole or cut by K; the f32 forward's 256-column
+    chunks, whose last one takes 64, 128 or 192 when K is not a multiple of
+    256) and at the MIM step's 36880 rows."""
     gen = torch.Generator(device=cuda).manual_seed(rows + d + k)
     r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
     x, dy = r(rows, d, std=2.0, mean=0.5).to(dtype), r(rows, k).to(dtype)
     w = r(k, d, std=d ** -0.5).to(dtype)
     s, bb, b = r(d, std=0.1, mean=1.0), r(d, std=0.1), r(k, std=0.1)
-    assert lnl.ln_linear_bwd_route(x, w) == (
-        "ln_linear_bwd_wgmma.cu" if dtype == torch.bfloat16 else "ln_linear.cu")
+    bf16 = dtype == torch.bfloat16
+    assert lnl.ln_linear_route(x, w) == ("ln_linear_wgmma.cu" if bf16 else "ln_linear.cu")
+    assert lnl.ln_linear_bwd_route(x, w) == ("ln_linear_bwd_wgmma.cu" if bf16 else "ln_linear.cu")
     before = (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches)
-    _close(lnl.ln_linear(x, s, bb, w, b), lnl.ln_linear_plain(x, s, bb, w, b), dtype)
+    y = lnl.ln_linear(x, s, bb, w, b)
+    _close(y, lnl.ln_linear_plain(x, s, bb, w, b), dtype)
+    assert torch.equal(y, lnl.ln_linear(x, s, bb, w, b))
     grads = lnl.ln_linear_bwd(x, dy, s, bb, w)
     for got, want in zip(grads, lnl.ln_linear_bwd_plain(x, dy, s, bb, w)):
         _close_grad(got, want, dtype)
     assert _bit_equal(grads, lnl.ln_linear_bwd(x, dy, s, bb, w))
-    assert (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert (lnl.ln_linear.launches, lnl.ln_linear_bwd.launches) == (before[0] + 2, before[1] + 2)
 
 
 def test_new_wrappers_reject_layouts_they_do_not_take(cuda):

@@ -7,7 +7,7 @@ csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
 and on the saved-P route both ways (csrc/attention_savep_wgmma.cu,
 csrc/attention_savep_bwd_wgmma.cu); the bfloat16 MLP training forward takes
 the wgmma kernel too, float32 the CUDA-core ones, as does LN -> qkv
-(csrc/ln_linear.cu both ways; bfloat16 csrc/ln_linear_mma.cu forward and
+(csrc/ln_linear.cu both ways; bfloat16 csrc/ln_linear_wgmma.cu forward and
 csrc/ln_linear_bwd_wgmma.cu backward); the tiled GEMM of the probes and the int8 route takes
 csrc/matmul_wgmma.cu in every dtype and epilogue, and every attention probe
 csrc/probe_attention_wgmma.cu. The route functions read
@@ -201,10 +201,10 @@ def test_mlp_bwd_workspace_sizes(rows, dtype, gp, hidden):
 
 
 @pytest.mark.parametrize("d", [192, 384])
-@pytest.mark.parametrize("dtype,want", [(F32, "ln_linear.cu"), (BF16, "ln_linear_mma.cu")])
+@pytest.mark.parametrize("dtype,want", [(F32, "ln_linear.cu"), (BF16, "ln_linear_wgmma.cu")])
 def test_ln_linear_route_names_the_kernel(dtype, want, d):
     """LN -> qkv forward: float32 the register-tiled kernel, bfloat16 the
-    mma.sync one; K = 3 D, as the qkv projection has it."""
+    wgmma one; K = 3 D, as the qkv projection has it."""
     x, w = torch.zeros(5, d, dtype=dtype), torch.zeros(3 * d, d, dtype=dtype)
     assert lnl.ln_linear_route(x, w) == want
 

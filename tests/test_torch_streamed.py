@@ -23,15 +23,45 @@ def _dice(a, b):
     return 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1)
 
 
-@pytest.mark.parametrize("shape", [(256, 128), (300, 200), (17, 13)])
-def test_histograms_match_jax(shape):
-    img = np.random.default_rng(sum(shape)).integers(0, 256, shape, np.uint8)
+# (shape, kind, offset): uniform images; a skewed one (~90 % bin 0, as the
+# blend image is where the attention is low) and an all-255 one; lengths
+# around 16 bytes (the CUDA kernel's vectors) and around its 16 KB pieces;
+# flat views 1-15 bytes in (data pointers off a 16-byte boundary on the card)
+_PIECE = 16384
+HIST_CASES = ([pytest.param(shape, "uniform", 0, id=f"shape{i}")
+               for i, shape in enumerate([(256, 128), (300, 200), (17, 13)])]
+              + [pytest.param(shape, kind, 0, id=f"{kind}-{'x'.join(map(str, shape))}")
+                 for kind, shape in (("skewed", (300, 200)), ("skewed", (1, _PIECE + 3)),
+                                     ("all255", (300, 200)))]
+              + [pytest.param((n,), "uniform", 0, id=f"len{n}")
+                 for n in (15, 16, 17, 33, _PIECE - 1, _PIECE, _PIECE + 1, 4 * _PIECE + 7)]
+              + [pytest.param((_PIECE + 100,), "uniform", o, id=f"view{o}") for o in range(1, 16)])
+
+
+def _hist_image(shape, kind):
+    rng = np.random.default_rng(sum(shape))
+    if kind == "all255":
+        return np.full(shape, 255, np.uint8)
+    img = rng.integers(0, 256, shape, np.uint8)
+    if kind == "skewed":
+        img[rng.random(shape) < 0.9] = 0
+    return img
+
+
+@pytest.mark.parametrize("shape,kind,offset", HIST_CASES)
+def test_histograms_match_jax(shape, kind, offset):
+    img = _hist_image(shape, kind)
+    if offset:
+        img = img.reshape(-1)[offset:]
     j = jnp.asarray(img)
     want = np.asarray(jth.histogram_u8(j))
     assert np.array_equal(np.asarray(jth.histogram_u8_chunked(j, 1000)), want)
     assert np.array_equal(np.asarray(jth.histogram_u8_pallas(j, block_rows=8, interpret=True)),
                           want)
-    t = torch.from_numpy(img)
+    t = torch.from_numpy(_hist_image(shape, kind))
+    if offset:
+        t = t.reshape(-1)[offset:]
+        assert t.storage_offset() == offset
     for got in (tth.histogram_u8(t), tth.histogram_u8_chunked(t), tth.histogram_u8_chunked(t, 1000),
                 tth.histogram_u8_chunked(t, 1), tth.histogram_u8_kernel(t)):
         assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)

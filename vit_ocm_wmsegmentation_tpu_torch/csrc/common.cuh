@@ -105,6 +105,29 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // dtype codes of the C interface
 enum DType { kF32 = 0, kBF16 = 1 };
 
+// *sms = the current device's SM count, with kernel K's dynamic
+// shared-memory limit raised to smem there: asked of the runtime once a
+// device and a kernel, since both calls cost host time on every launch.
+// Returns 0, or the CUDA error.
+template <auto K>
+inline int device_sms_for(size_t smem, int* sms) {
+  static int cached[64] = {};  // by device, 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cached[dev] = n > 0 ? n : 1;
+  }
+  *sms = cached[dev];
+  return 0;
+}
+
 // the attention backward's row statistics (attention_bwd.cu): for every
 // (batch*head, row) of the folded (BH, N, d) dout and o, stats (BH, 2,
 // pitch) = [row, non-finite values as 0 | rowsum(dout * o) in f32], each N

@@ -50,8 +50,8 @@
 //     three-slot cp.async ring (96 KB); the first column tile also sums db.
 //     The split count is the one (at most the caller's) whose last wave of
 //     CTAs over the card's SMs is fullest; each split writes one partial.
-// bf16 storage takes the tensor-core forward of ln_linear_mma.cu and the
-// wgmma backward of ln_linear_bwd_wgmma.cu.
+// bf16 storage takes the wgmma forward of ln_linear_wgmma.cu and the wgmma
+// backward of ln_linear_bwd_wgmma.cu.
 //
 // Numerics: every sum runs over its inner index in order (y over D from 0,
 // then the bias; dxn over K; dW and db over the split's rows), so the
@@ -427,11 +427,11 @@ static int launch_ln_bwd(const void* x, const void* dy, const float* s, const fl
   return (int)cudaGetLastError();
 }
 
-// bf16 storage takes the tensor-core forward of ln_linear_mma.cu and the
-// wgmma backward of ln_linear_bwd_wgmma.cu
+// bf16 storage takes the wgmma forward of ln_linear_wgmma.cu and the wgmma
+// backward of ln_linear_bwd_wgmma.cu
 template <int D>
-int launch_ln_fwd_mma(const void* x, const float* s, const float* bn, const void* w,
-                      const float* b, void* y, int R, int K, float eps, cudaStream_t stream);
+int launch_ln_fwd_wgmma(const void* x, const float* s, const float* bn, const void* w,
+                        const float* b, void* y, int R, int K, float eps, cudaStream_t stream);
 template <int D>
 int launch_ln_bwd_wgmma(const void* x, const void* dy, const float* s, const float* bn,
                         const void* w, void* dx, void* xn, float* ln_part, float* part, int R,
@@ -467,9 +467,9 @@ extern "C" int vitocm_ln_linear(int dtype, const void* x, const void* s, const v
   if (dtype == kF32 && D == 192)
     return launch_ln_fwd<192>(x, f(s), f(bn), w, f(b), y, R, K, eps, st);
   if (dtype == kBF16 && D == 384)
-    return launch_ln_fwd_mma<384>(x, f(s), f(bn), w, f(b), y, R, K, eps, st);
+    return launch_ln_fwd_wgmma<384>(x, f(s), f(bn), w, f(b), y, R, K, eps, st);
   if (dtype == kBF16 && D == 192)
-    return launch_ln_fwd_mma<192>(x, f(s), f(bn), w, f(b), y, R, K, eps, st);
+    return launch_ln_fwd_wgmma<192>(x, f(s), f(bn), w, f(b), y, R, K, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

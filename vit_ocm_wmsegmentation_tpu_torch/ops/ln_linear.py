@@ -14,9 +14,9 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/ops/ln_linear.py``:
 They launch the kernels of :func:`ln_linear_route` (forward) and
 :func:`ln_linear_bwd_route` (backward) for CUDA tensors, never by a
 fallback: float32 ``csrc/ln_linear.cu`` (register-tiled FFMA on the CUDA
-cores behind a cp.async ring) both ways; bfloat16 ``csrc/ln_linear_mma.cu``
-(mma.sync) forward and ``csrc/ln_linear_bwd_wgmma.cu`` (wgmma fed by TMA)
-backward; design notes in each source. CPU tensors take the plain
+cores behind a cp.async ring) both ways; bfloat16 ``csrc/ln_linear_wgmma.cu``
+forward and ``csrc/ln_linear_bwd_wgmma.cu`` backward (both wgmma fed by
+TMA); design notes in each source. CPU tensors take the plain
 twins (``*_plain``); anything else raises. ``w`` comes in nn.Linear's (K, D)
 layout, the transpose of the JAX package's (D, K). Each wrapper's
 ``launches`` counts kernel launches.
@@ -61,11 +61,11 @@ def ln_linear_bwd_plain(x, dy, scale, bias, w, eps=1e-6):
 
 def ln_linear_route(x, w):
     """The kernel source a CUDA call of :func:`ln_linear` with these operands
-    launches: float32 "ln_linear.cu", bfloat16 "ln_linear_mma.cu". Raises on
+    launches: float32 "ln_linear.cu", bfloat16 "ln_linear_wgmma.cu". Raises on
     shapes, dtypes and layouts no kernel takes; the device is the caller's
     check."""
     _check_shapes(x, w)
-    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_mma.cu"
+    return "ln_linear.cu" if x.dtype == torch.float32 else "ln_linear_wgmma.cu"
 
 
 def ln_linear_bwd_route(x, w):

@@ -13,8 +13,9 @@ a synchronize), MP/s, ms/tile, peak device memory
 which must be equal for every K. Then where the time goes, with CUDA events:
 the stages of ``--split_bands`` bands (tile input, ViT, normalize and
 resize, blend and canvas add) and of the threshold over the whole canvas,
-with the histogram kernel beside its plain twin and ``torch.bincount`` on
-the threshold's own uint8 image.
+with the histogram kernel (once in the split, then the median of 10 calls)
+beside its plain twin and ``torch.bincount`` on the threshold's own uint8
+image, with the share of it in bin 0.
 """
 
 from __future__ import annotations
@@ -141,6 +142,15 @@ def threshold_split(timg, attn):
             e[1].record()
             torch.cuda.synchronize()
             split[name] = e[0].elapsed_time(e[1])
+        times = []  # the kernel again, warm: the median of 10 calls
+        for _ in range(10):
+            e = _events(2)
+            e[0].record()
+            th.histogram_u8_kernel(result)
+            e[1].record()
+            e[1].synchronize()
+            times.append(e[0].elapsed_time(e[1]))
+        split["histogram kernel, median of 10"] = float(np.median(times))
         bin0 = float(hist[0]) / result.numel()
     return split, bin0
 
