@@ -104,7 +104,23 @@ and then, failing on the first phase that fails:
 9. runs each probe CLI once through ``python -m`` (3 timing iterations):
    probe_dot in its four modes, bench_attention_variants and bench_attn_opt
    with every mode and variant; each exits 0 and its lines parse;
-10. prints the per-kernel JSON line, then the result line
+10. runs the labeled eval path with ViT-S/8 at full width: (a) the analysis
+   API (``forward_features``, ``get_intermediate_layers(n=4)``,
+   ``get_last_selfattention``, ``last_block_key_features``) on a seeded
+   384^2 image, kernel route against the plain route within 1e-5 of
+   max|plain| in f32; in bf16 each route against the f32 plain route, the
+   kernel route's error at most 1.5 times the plain bf16 route's; the
+   launches of one
+   ``get_intermediate_layers(n=4)`` call (12 attention, 7 LN-out MLP, 5
+   plain MLP); (b) the eval CLI ``eval.main`` on 16 labeled 384^2 PNGs cut
+   from the synthetic OCM mosaic: every method at crop 1, ours at crop 4
+   and 16, ``--median_filter 3``, ``--batch_size 8`` (metrics within 1e-5 of
+   batch 1), ``--bf16 1`` and ``--quant int8``; every metric finite and in
+   [0, 1], each kernel of the path launched, kernel vs plain route per-image
+   mask Dice >= 0.99 on the threshold methods in f32, bf16 vs f32 pooled
+   Dice on ours at most 0.01 below the plain route's own; images/s of a batch of 8 through the batched step
+   in bf16 and f32 (CUDA events), its launches and peak device memory;
+11. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -208,6 +224,20 @@ STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 38
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
+EVAL_N, EVAL_SIZE = 16, 384  # phase 10's labeled set: 48*48 patches + CLS = TOKENS
+# one get_intermediate_layers(n=4) call: blocks 0-7 as one LN-out span, then
+# each of the last 4 alone (LN1, attention, plain fused MLP)
+INTERMEDIATE_LAUNCHES = {"attention_qkv": 12, "fused_mlp_block_lnout": 7, "fused_mlp_block": 5}
+# bf16 analysis API: the kernel route's error against the f32 plain route
+# over the plain bf16 route's (phase 10)
+BF16_ROUTE_RATIO = 1.5
+# bf16 vs f32 eval masks: the kernel route may lose this much Dice more than
+# the plain route (bf16 routes that differ in summation order alone move
+# masks by about 1 % with random weights)
+EVAL_BF16_MARGIN = 0.01
+# the kernels of the eval path (--quant int8 adds the int8 GEMM and its quantizer)
+EVAL_PATH = ("attention_qkv", "fused_mlp_block_lnout", "fused_mlp_block", "int8_dot",
+             "quantize_rows")
 # (wrapper, dtype tag) -> (what, call): a PyTorch call timed beside a kernel
 # as a control, not the same function (phase 1)
 CONTROLS = {}
@@ -1515,6 +1545,195 @@ def phase_int8_route(models):
     return shapes
 
 
+def _write_eval_set(root):
+    """EVAL_N labeled EVAL_SIZE^2 PNGs: seeded pieces of the synthetic OCM
+    mosaic of profile_gigapixel.make_mosaic, each across a corner of its
+    grid of bright blobs, labeled by the rule that placed the blobs
+    (profile_eval.eval_pieces)."""
+    from PIL import Image
+
+    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
+
+    pieces, labels = eval_pieces(EVAL_N, EVAL_SIZE)
+    for sub, arrays in (("images", pieces), ("labels", labels)):
+        os.makedirs(os.path.join(root, sub))
+        for i, a in enumerate(arrays):
+            Image.fromarray(a).save(os.path.join(root, sub, f"{i:02d}.png"))
+
+
+def _analysis_api(models):
+    """(a) the ViT analysis API at full width on one seeded 384^2 image,
+    kernel route against the plain route, and the launches of one
+    get_intermediate_layers(n=4) call. f32: within F32_TOL of max|plain|.
+    bf16: the two routes round differently in each of 12 blocks, so each is
+    held against the f32 plain route, and the kernel route's error there may
+    be at most BF16_ROUTE_RATIO times the plain bf16 route's own. Prints
+    every reading before it fails."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch.models import vit
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import plain_route
+
+    rng = np.random.default_rng(0)
+    x32 = torch.from_numpy(rng.random((1, EVAL_SIZE, EVAL_SIZE, 3), dtype=np.float32)).cuda()
+    funcs = {"forward_features": vit.forward_features,
+             "get_intermediate_layers(n=4)": lambda m, x: vit.get_intermediate_layers(m, x, 4),
+             "get_last_selfattention": vit.get_last_selfattention,
+             "last_block_key_features": vit.last_block_key_features}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    failed = []
+    with pl.exact_matmuls():
+        for name, fn in funcs.items():
+            got = {tag: fn(models[tag], x32.to(dtype)) for tag, dtype in dtypes.items()}
+            with plain_route():
+                want = {tag: fn(models[tag], x32.to(dtype)) for tag, dtype in dtypes.items()}
+            err, rel, finite = _rel_err(got["f32"], want["f32"])
+            print(f"  {name}[f32]: kernel vs plain route max|d| {err:.3e}, rel {rel:.3e} "
+                  f"(tol {F32_TOL:g})")
+            if not (finite and rel <= F32_TOL):
+                failed.append(f"{name}[f32]")
+            kp = _rel_err(got["bf16"], want["bf16"])[1]
+            k32, kfin = _rel_err(got["bf16"], want["f32"])[1:]
+            p32 = _rel_err(want["bf16"], want["f32"])[1]
+            print(f"  {name}[bf16]: kernel vs plain route rel {kp:.3e}; against the f32 plain "
+                  f"route: kernel rel {k32:.3e}, plain rel {p32:.3e} (gate: kernel <= "
+                  f"{BF16_ROUTE_RATIO:g} x plain)")
+            if not (kfin and k32 <= BF16_ROUTE_RATIO * p32):
+                failed.append(f"{name}[bf16]")
+        for tag, dtype in dtypes.items():
+            vit.get_intermediate_layers(models[tag], x32.to(dtype), 4)
+            torch.cuda.synchronize()
+            reset_counts()
+            vit.get_intermediate_layers(models[tag], x32.to(dtype), 4)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in launch_counts().items() if v}
+            print(f"  get_intermediate_layers(n=4) [{tag}] launches: {launched}")
+            if launched != INTERMEDIATE_LAUNCHES:
+                failed.append(f"launches[{tag}]")
+    if failed:
+        raise AssertionError(f"analysis API gates failed: {failed}")
+
+
+def phase_eval(models):
+    """The labeled eval path at full width: (a) the analysis API; (b) the
+    eval CLI on EVAL_N synthetic labeled 384^2 PNGs with every method at
+    crop 1, ours at crop 4 and 16, --median_filter 3, --batch_size 8,
+    --bf16 1 and --quant int8; the mask gates; images/s of batched ours."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import eval as ev_cli
+    from vit_ocm_wmsegmentation_tpu_torch import evaluation as ev
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch.data.datasets import build_eval_samples
+    from vit_ocm_wmsegmentation_tpu_torch.models import vit
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+
+    _analysis_api(models)
+    validate = ev.validate
+    record = {}
+
+    def recording(*args, **kw):
+        meters, masks = {}, []
+        out = validate(*args, meters_out=meters, masks_out=masks, **kw)
+        record["meters"], record["masks"] = {k: m.avg for k, m in meters.items()}, masks
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "set")
+        _write_eval_set(root)
+
+        def cli(*flags):
+            t0 = time.perf_counter()
+            with mock.patch.object(ev, "validate", recording):
+                acc, f1, loss = ev_cli.main(["--eval_dataset_path", root, "--output_dir",
+                                             os.path.join(tmp, "out"), *flags])
+            m = record["meters"]
+            print(f"  eval {' '.join(flags) or '--method ours'}: acc {acc:.5f} f1 {f1:.5f} "
+                  f"Dice {1 - loss:.5f} jaccard {m['jaccard']:.5f} precision "
+                  f"{m['precision']:.5f} recall {m['recall']:.5f}, "
+                  f"{time.perf_counter() - t0:.1f} s (host clock)")
+            vals = [m[k] for k in ("loss", "acc", "f1", "precision", "recall", "jaccard")]
+            if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+                raise AssertionError(f"eval {flags}: a metric outside [0, 1]: {m}")
+            if len(record["masks"]) != EVAL_N:
+                raise AssertionError(f"eval {flags}: {len(record['masks'])} masks")
+            return dict(m), record["masks"]
+
+        reset_counts()
+        runs = {meth: cli("--method", meth) for meth in ev.METHODS}
+        for crop in ("4", "16"):
+            cli("--crop", crop)
+        cli("--median_filter", "3")
+        batched = cli("--batch_size", "8")
+        bf16 = cli("--bf16", "1")
+        cli("--quant", "int8", "--batch_size", "8")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        print(f"  eval runs' launches: { {k: v for k, v in launches.items() if v} }")
+        for name in EVAL_PATH:
+            if not launches[name]:
+                raise AssertionError(f"{name} was not launched on the eval path")
+
+        diff = max(abs(batched[0][k] - runs["ours"][0][k]) for k in batched[0] if k != "time")
+        print(f"  --batch_size 8 vs 1 [ours]: max metric difference {diff:.3e} (gate <= 1e-5)")
+        if not diff <= 1e-5:
+            raise AssertionError(f"batched eval differs from per-image eval by {diff:.3e}")
+        plain = {}
+        for meth in ("ours", "otsu", "heatmap_threshold"):
+            reset_counts()
+            with plain_route():
+                plain[meth] = cli("--method", meth)[1]
+                if meth == "ours":
+                    plain["bf16"] = cli("--bf16", "1")[1]
+            if any(launch_counts().values()):
+                raise AssertionError("the plain route launched a kernel")
+            worst = min(dice(k, p) for k, p in zip(runs[meth][1], plain[meth]))
+            print(f"  kernel vs plain route [{meth}, f32]: least per-image mask Dice {worst:.5f} "
+                  f"(gate >= 0.99)")
+            if not worst >= 0.99:
+                raise AssertionError(f"[{meth}] kernel vs plain route Dice {worst:.5f} < 0.99")
+        # bf16 against f32 on ours, pooled over the images, beside the plain
+        # route's own bf16 against f32: the noise floor of bf16 with random
+        # weights (the attention grid leaves the ViT rounded to bf16)
+        cat = lambda masks: np.concatenate(masks)  # noqa: E731
+        d16 = dice(cat(bf16[1]), cat(runs["ours"][1]))
+        floor = dice(cat(plain["bf16"]), cat(plain["ours"]))
+        print(f"  bf16 vs f32 [ours]: pooled mask Dice {d16:.5f} on the kernel route, {floor:.5f} "
+              f"on the plain route (gate: kernel >= plain - {EVAL_BF16_MARGIN:g}); the fixed "
+              f"0.98 reads {'met' if d16 >= 0.98 else 'not met'}")
+        if not d16 >= floor - EVAL_BF16_MARGIN:
+            raise AssertionError(f"bf16 vs f32 eval mask Dice {d16:.5f} below the plain route's "
+                                 f"{floor:.5f} - {EVAL_BF16_MARGIN:g}")
+
+        # images/s of the batched step (ViT, smoothing, thresholds, metrics)
+        samples = build_eval_samples(root, EVAL_SIZE)[:8]
+        grays = torch.from_numpy(np.stack([s.gray for s in samples])).cuda()
+        targets = torch.from_numpy(np.stack([s.label for s in samples])).cuda()
+        routes = vit.InferRoutes()
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            model = models[tag]
+
+            def step():
+                with torch.inference_mode(), pl.exact_matmuls():
+                    return ev._batched_eval_step(model, grays, targets, "ours", 1, dtype, routes)
+
+            step()
+            torch.cuda.synchronize()
+            reset_counts()
+            step()
+            torch.cuda.synchronize()
+            one = {k: v for k, v in launch_counts().items() if v}
+            if one != MOSAIC_LAUNCHES:  # one ViT call a batch, as one mosaic's
+                raise AssertionError(f"one batch's launches {one} != {MOSAIC_LAUNCHES}")
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, iters=10, warmup=2)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"  batched ours [{tag}], batch 8 of {EVAL_SIZE}^2: {ms:.2f} ms/batch, "
+                  f"{8 / (ms / 1e3):.1f} images/s (CUDA events), launches of one batch {one}, "
+                  f"peak device memory {peak / 2**30:.3f} GiB")
+
+
 _PD_LINE = re.compile(r"^\s*([\d.]+) ms\s+.*?max\|d\| (\S+).*launches (\d+)")
 _BAV_LINE = re.compile(r"^(\w+)\s+bq=\s*(\d+)\s+([\d.]+) ms .*max\|d\| (\S+)\s+launches (\d+)")
 
@@ -1624,7 +1843,10 @@ def main():
     print("phase 9: the probe CLIs")
     probe_launches = {**phase_probe_clis(), **int8_launches}
     took("phase 9")
-    print(f"phases 1-9: {time.perf_counter() - phases:.1f} s (host clock)")
+    print("phase 10: the labeled eval path at full width")
+    phase_eval(models)
+    took("phase 10")
+    print(f"phases 1-10: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():

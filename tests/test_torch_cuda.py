@@ -6,6 +6,9 @@ it also runs where JAX is not installed, without the suite's conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
 
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -817,3 +820,118 @@ def test_vit_tiny_mosaic_int8_route_matches_plain_route(cuda, monkeypatch, mlp):
     pmask, _ = pl.segment_mosaic(model, img, 96, 32, routes=routes)
     a, b = mask.cpu().numpy() > 0, pmask.cpu().numpy() > 0
     assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.98
+
+
+# the eval path's shapes: the crop 16 and crop 4 tiles of a 384^2 image (145
+# and 577 tokens, 16 and 4 to an image) and a whole image (2305), at batch 1
+EVAL_SHAPES = [(1, 145), (16, 145), (1, 577), (4, 577), (1, 2305), (8, 2305)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n", EVAL_SHAPES)
+def test_eval_shapes_kernels_match_plain(cuda, dtype, b, n):
+    """Attention and both inference MLP kernels at ViT-S/8's widths and the
+    eval path's token counts, against their twins."""
+    gen = torch.Generator(device=cuda).manual_seed(b * n)
+    r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
+    qkv = r(b, n, 3 * 384)
+    qkv[..., :384] *= 64 ** -0.5
+    qkv = qkv.to(dtype)
+    _close(fa.attention_qkv(qkv, 6, n), fa.attention_qkv_plain(qkv, 6, n), dtype)
+    x = r(b * n, 384, std=2.0, mean=0.5).to(dtype)
+    w1, w2 = r(1536, 384, std=384 ** -0.5).to(dtype), r(384, 1536, std=1536 ** -0.5).to(dtype)
+    args = (x, r(384, std=0.1, mean=1.0), r(384, std=0.1), w1, r(1536, std=0.1), w2,
+            r(384, std=0.1))
+    ln2 = (r(384, std=0.1, mean=1.0), r(384, std=0.1))
+    out, z = fm.fused_mlp_block_lnout(*args, *ln2)
+    pout, pz = fm.fused_mlp_block_lnout_plain(*args, *ln2)
+    _close(out, pout, dtype)
+    _close(z, pz, dtype)
+    _close(fm.fused_mlp_block(*args), fm.fused_mlp_block_plain(*args), dtype)
+
+
+def _plain_vit(monkeypatch):
+    monkeypatch.setattr(fa, "attention_qkv", fa.attention_qkv_plain)
+    monkeypatch.setattr(fm, "fused_mlp_block", fm.fused_mlp_block_plain)
+    monkeypatch.setattr(fm, "fused_mlp_block_lnout", fm.fused_mlp_block_lnout_plain)
+
+
+def test_vit_tiny_analysis_api_kernel_route_matches_plain_route(cuda, monkeypatch):
+    """forward_features, get_intermediate_layers(n=4), get_last_selfattention
+    and last_block_key_features of ViT-Ti/8 at 96^2, batch 1 and 2: in f32
+    the kernel route within 1e-5 of max|plain route|; in bf16 the two
+    routes round differently in each of 12 blocks, so each is held against
+    the f32 plain route, the kernel route's error at most 1.5 times the
+    plain bf16 route's. One get_intermediate_layers(n=4) launches 12
+    attention, 7 LN-out and 5 plain MLP kernels."""
+    model = vit.init(vit.VIT_TINY(patch_size=8), torch.Generator().manual_seed(1), cuda)
+    models = {torch.float32: model, torch.bfloat16: pl.cast_params(copy.deepcopy(model),
+                                                                   torch.bfloat16)}
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    funcs = (vit.forward_features, lambda m, x: vit.get_intermediate_layers(m, x, 4),
+             vit.get_last_selfattention, vit.last_block_key_features)
+    before = (fa.attention_qkv.launches, fm.fused_mlp_block_lnout.launches,
+              fm.fused_mlp_block.launches)
+    vit.get_intermediate_layers(model, x, 4)
+    assert (fa.attention_qkv.launches - before[0], fm.fused_mlp_block_lnout.launches - before[1],
+            fm.fused_mlp_block.launches - before[2]) == (12, 7, 5)
+    inputs = (x, x[:1])
+    got = {dt: [[f(m, xb.to(dt)) for f in funcs] for xb in inputs] for dt, m in models.items()}
+    _plain_vit(monkeypatch)
+    for i, xb in enumerate(inputs):
+        for j, f in enumerate(funcs):
+            want = {dt: f(m, xb.to(dt)) for dt, m in models.items()}
+            _close(got[torch.float32][i][j], want[torch.float32], torch.float32)
+            ref = want[torch.float32].float()
+            k = float((got[torch.bfloat16][i][j].float() - ref).abs().max())
+            p = float((want[torch.bfloat16].float() - ref).abs().max())
+            assert k <= 1.5 * p, (i, j, k, p)
+
+
+def _eval_set(root, n, size):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "labels"))
+    for i in range(n):
+        img = np.full((size, size), 60.0)
+        img[size // 4 : 3 * size // 4, size // 3 :] = 170
+        img = np.clip(img + rng.normal(0, 25, img.shape), 0, 255).astype(np.uint8)
+        lab = np.zeros((size, size), np.uint8)
+        lab[size // 4 : 3 * size // 4, size // 3 :] = 255
+        Image.fromarray(img).save(os.path.join(root, "images", f"{i}.png"))
+        Image.fromarray(lab).save(os.path.join(root, "labels", f"{i}.png"))
+
+
+@pytest.mark.parametrize("method,crop", [("ours", 1), ("heatmap_threshold", 1), ("ours", 4),
+                                         ("ours", 16), ("k-means_ours", 1), ("chan-vese", 1),
+                                         ("k-means_feature_clustering", 1)])
+def test_vit_tiny_eval_kernel_route_matches_plain_route(cuda, monkeypatch, tmp_path, method,
+                                                        crop):
+    """validate() of ViT-Ti/8 on 4 labeled 96^2 images, f32: per-image masks
+    of the kernel route against the plain route's, Dice >= 0.99; every metric
+    in [0, 1]; batch 4 against batch 1 within 1e-5 where it batches."""
+    from vit_ocm_wmsegmentation_tpu_torch import evaluation as ev
+    from vit_ocm_wmsegmentation_tpu_torch.data.datasets import build_eval_samples
+
+    _eval_set(str(tmp_path), 4, 96)
+    samples = build_eval_samples(str(tmp_path), 96, crop=crop)
+    model = vit.init(vit.VIT_TINY(patch_size=8), torch.Generator().manual_seed(3), cuda)
+
+    def run(**kw):
+        meters, masks = {}, []
+        ev.validate(model, samples, method=method, crop=crop, meters_out=meters,
+                    masks_out=masks, **kw)
+        assert all(0.0 <= meters[k].avg <= 1.0 for k in ("loss", "acc", "f1", "jaccard"))
+        return {k: m.avg for k, m in meters.items() if k != "time"}, masks
+
+    meters, masks = run()
+    if crop == 1 and method in ev.BATCHED_METHODS:
+        batched, _ = run(batch_size=4)
+        assert all(abs(batched[k] - meters[k]) <= 1e-5 for k in meters)
+    _plain_vit(monkeypatch)
+    _, plain = run()
+    for a, b in zip(masks, plain):
+        a, b = a > 0, b > 0
+        assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.99

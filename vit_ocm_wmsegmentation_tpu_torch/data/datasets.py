@@ -1,8 +1,12 @@
-"""SimMIM training data: image listing, augmentation, masking, batching.
+"""Labeled eval samples, and SimMIM training data: image listing,
+augmentation, masking, batching.
 
-The port's copy of the host loader of
+The port's copy of the host loaders of
 ``vit_ocm_wmsegmentation_tpu/data/datasets.py`` (data.py of the
-reference): RandomResizedCrop(scale=(0.67, 1), ratio=(3/4, 4/3)) + random
+reference). Eval images and labels resize with PIL NEAREST to the square
+image size (data.py:282-306); the grid-crop variant (crop > 1) keeps the
+bicubic resize it cuts its grid from (data.py:97-122). Training:
+RandomResizedCrop(scale=(0.67, 1), ratio=(3/4, 4/3)) + random
 horizontal and vertical flips + ToTensor, plus the MaskGenerator, drawn from
 one numpy ``Generator`` per (seed, epoch) in the same order, so one seed
 gives the same batches as the JAX package's loader. Batches are numpy
@@ -12,6 +16,7 @@ ported (it needs ``ops/morphology.get_rois``).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from glob import glob
@@ -28,6 +33,64 @@ def list_images(path: str, pattern: str = "/*") -> list[str]:
     if os.path.isfile(path):
         return sorted(glob(path))
     return sorted(glob(path + pattern))
+
+
+def load_rgb_resized(path: str, size_hw, resample=Image.Resampling.NEAREST) -> np.ndarray:
+    """-> float32 (H, W, 3) in [0, 1] (PIL resize, then ToTensor's /255)."""
+    img = Image.open(path).convert("RGB").resize((size_hw[1], size_hw[0]), resample)
+    return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def load_gray_resized(path: str, size_hw, resample=Image.Resampling.NEAREST) -> np.ndarray:
+    """-> uint8 (H, W): resized as RGB, then converted to L, the reference's
+    order (the resize on RGB, convert('L') later in threshold())."""
+    img = Image.open(path).convert("RGB").resize((size_hw[1], size_hw[0]), resample)
+    return np.array(img.convert("L"), dtype=np.uint8)
+
+
+@dataclasses.dataclass
+class EvalSample:
+    image: np.ndarray  # float32 (H, W, 3) in [0, 1]
+    gray: np.ndarray  # uint8 (H, W)
+    label: np.ndarray  # float32 (H, W) in [0, 1]
+    path: str
+    # crop > 1 only: the reference opens the source again and resizes it
+    # with PIL's default filter (bicubic) before cutting the grid
+    # (data.py:99-102), so the grid source is not the NEAREST eval image
+    crop_image: np.ndarray | None = None  # float32 (H, W, 3) in [0, 1]
+    crop_gray: np.ndarray | None = None  # uint8 (H, W)
+    # the image is exactly the gray replicated (a grayscale source): the
+    # batched eval then sends uint8 gray to the device instead of f32 RGB
+    gray_exact: bool = False
+
+
+def build_eval_samples(eval_dataset_path: str, image_size: int, crop: int = 1) -> list[EvalSample]:
+    """build_eval_loader (data.py:282-306): images/ and labels/ subfolders,
+    NEAREST resize to the square image_size. With crop > 1 the bicubic grid
+    source of AIP_Croped_Labeled_Dataset (data.py:97-122) is loaded too."""
+    images = sorted(glob(eval_dataset_path + "/images/*"))
+    labels = sorted(glob(eval_dataset_path + "/labels/*"))
+    assert len(images) == len(labels), f"{len(images)} images vs {len(labels)} labels"
+    out = []
+    for ip, lp in zip(images, labels):
+        rgb = load_rgb_resized(ip, (image_size, image_size))
+        gray = load_gray_resized(ip, (image_size, image_size))
+        lab = Image.open(lp).convert("L").resize((image_size, image_size), Image.Resampling.NEAREST)
+        crop_rgb = crop_gray = None
+        if crop > 1:
+            crop_rgb = load_rgb_resized(ip, (image_size, image_size), Image.Resampling.BICUBIC)
+            # the reference's crop > 1 gray is channel 0 of the re-assembled
+            # crops replicated to RGB (eval.py:161-166), not a luma; the f32
+            # /255 * 255 round trip is exact in uint8, so it is the R plane
+            crop_gray = np.round(crop_rgb[..., 0] * 255.0).astype(np.uint8)
+        gray_exact = bool(
+            np.array_equal(rgb[..., 0], rgb[..., 1])
+            and np.array_equal(rgb[..., 1], rgb[..., 2])
+            and np.array_equal(np.round(rgb[..., 0] * 255.0).astype(np.uint8), gray)
+        )
+        out.append(EvalSample(rgb, gray, np.asarray(lab, np.float32) / 255.0, ip,
+                              crop_rgb, crop_gray, gray_exact))
+    return out
 
 
 def random_resized_crop(img: Image.Image, rng: np.random.Generator, out_size: int,

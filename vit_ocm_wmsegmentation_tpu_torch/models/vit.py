@@ -8,7 +8,10 @@ reference ``.pth`` loads with ``load_state_dict`` once
 submodules only hold parameters: the forward is written with the port's
 functional layers and kernels.
 
-Inference path (:func:`cls_attention_grid`): patch embed as patchify + one
+Inference path (:func:`cls_attention_grid`, and the analysis API below
+it: :func:`forward_features`, :func:`get_intermediate_layers`,
+:func:`get_intermediate_feat`, :func:`query_attention_rows`,
+:func:`last_block_key_features`): patch embed as patchify + one
 matmul; blocks 0..L-2 with the attention kernel and the fused MLP kernels,
 where each block's MLP kernel also emits the next block's normalized input
 (the JAX package's cross-layer "LN-out" route) and the last of them takes
@@ -300,14 +303,15 @@ def _attention(blk, cfg: ViTConfig, h, int8):
                         quant=int8 is not None, int8=int8)
 
 
-def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes()):
-    """Blocks [0, hi) on the inference routes. On "lnout" each block's MLP
-    kernel emits the next block's normalized input z, so only block 0's LN1
-    runs on its own, and block hi-1 takes the plain fused MLP; on "kernel"
-    every block runs LN1 and the fused MLP kernel; on "none", and on "kernel"
-    with int8, the stock MLP (:func:`mlp_forward`)."""
+def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes(), lo: int = 0):
+    """Blocks [lo, hi) on the inference routes (the JAX package's
+    ``_scan_blocks(lo, hi)``). On "lnout" each block's MLP kernel emits the
+    next block's normalized input z, so only block lo's LN1 runs on its own,
+    and block hi-1 takes the plain fused MLP, so that no z leaks past hi; on
+    "kernel" every block runs LN1 and the fused MLP kernel; on "none", and
+    on "kernel" with int8, the stock MLP (:func:`mlp_forward`)."""
     cfg = model.cfg
-    if hi <= 0:
+    if hi <= lo:
         return tok
     b, n, d = tok.shape
     q8 = int8_weights(model) if routes.quant == "int8" else None
@@ -316,9 +320,9 @@ def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes()):
         return q8[i] if q8 is not None else None
 
     if routes.mlp == "lnout":
-        h = tnn.layer_norm(tok, model.blocks[0].norm1.weight, model.blocks[0].norm1.bias,
-                           cfg.ln_eps)
-        for i in range(hi):
+        first = model.blocks[lo].norm1
+        h = tnn.layer_norm(tok, first.weight, first.bias, cfg.ln_eps)
+        for i in range(lo, hi):
             blk = model.blocks[i]
             tok = tok + _attention(blk, cfg, h, int8_of(i))
             rows = tok.reshape(b * n, d)
@@ -331,7 +335,7 @@ def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes()):
                 rows = fm.fused_mlp_block(rows, *_mlp_args(blk), cfg.ln_eps)
             tok = rows.reshape(b, n, d)
         return tok
-    for i in range(hi):
+    for i in range(lo, hi):
         blk = model.blocks[i]
         h = tnn.layer_norm(tok, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
         tok = tok + _attention(blk, cfg, h, int8_of(i))
@@ -419,8 +423,126 @@ def cls_attention_grid(model: ViT, x, routes: InferRoutes = InferRoutes()):
     cfg = model.cfg
     b, hgt, wdt, _ = x.shape
     gh, gw = hgt // cfg.patch_size, wdt // cfg.patch_size
-    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1, routes)
-    last = model.blocks[cfg.depth - 1]
-    h = tnn.layer_norm(tok, last.norm1.weight, last.norm1.bias, cfg.ln_eps)
+    h, last = _last_block_input(model, x, routes)
     row = att.cls_row_attention(h, last.attn.qkv.weight, last.attn.qkv.bias, cfg.num_heads)
     return row[:, :, 1:].reshape(b, cfg.num_heads, gh, gw)
+
+
+# ---------------------------------------------------------------------------
+# The analysis API (vision_transformer.py:211-256 of the reference): the
+# blocks before the ones a function reads run through run_blocks, so on the
+# inference routes' kernels
+# ---------------------------------------------------------------------------
+
+
+def _final_norm(model: ViT, tok):
+    return tnn.layer_norm(tok, model.norm.weight, model.norm.bias, model.cfg.ln_eps)
+
+
+def _last_block_input(model: ViT, x, routes: InferRoutes):
+    """LN1 of the last block over the tokens blocks [0, depth-1) give."""
+    cfg = model.cfg
+    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1, routes)
+    last = model.blocks[cfg.depth - 1]
+    return tnn.layer_norm(tok, last.norm1.weight, last.norm1.bias, cfg.ln_eps), last
+
+
+@torch.inference_mode()
+def forward_features(model: ViT, x, routes: InferRoutes = InferRoutes()):
+    """Every block and the final LayerNorm: (B, H, W, 3) -> (B, N+1, D)
+    (the reference's forward_feats, :218-223)."""
+    tok = run_blocks(model, prepare_tokens(model, x), model.cfg.depth, routes)
+    return _final_norm(model, tok)
+
+
+@torch.inference_mode()
+def forward_cls(model: ViT, x, routes: InferRoutes = InferRoutes()):
+    """The CLS embedding (B, D), the reference's ``forward`` (:211-216)."""
+    return forward_features(model, x, routes)[:, 0]
+
+
+@torch.inference_mode()
+def get_intermediate_layers(model: ViT, x, n: int = 1, routes: InferRoutes = InferRoutes()):
+    """The final-normed tokens of the last n blocks (:248-256), stacked
+    (n, B, N+1, D). Blocks [0, depth-n) run as one span of run_blocks, then
+    each of the last n as a span of its own, so on "lnout" the last block of
+    every span takes the plain fused MLP kernel."""
+    cfg = model.cfg
+    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - n, routes)
+    outs = []
+    for i in range(cfg.depth - n, cfg.depth):
+        tok = run_blocks(model, tok, i + 1, routes, lo=i)
+        outs.append(_final_norm(model, tok))
+    return torch.stack(outs)
+
+
+@torch.inference_mode()
+def get_intermediate_feat(model: ViT, x, n: int = 1, routes: InferRoutes = InferRoutes()):
+    """The reference's get_intermediate_feat (:225-237): for the last n
+    blocks, (feats (n, B, N+1, D) final-normed, attns (n, B, h, N+1, N+1)
+    materialized probabilities, qkvs (n, 3, B, h, N+1, head_dim)). Blocks
+    [0, depth-n) take the inference routes; the last n the stock
+    materialized attention (ops.attention.mha) and the stock MLP, as the
+    JAX package computes them outside its kernels."""
+    cfg = model.cfg
+    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - n, routes)
+    feats, attns, qkvs = [], [], []
+    for i in range(cfg.depth - n, cfg.depth):
+        blk = model.blocks[i]
+        a = blk.attn
+        h = tnn.layer_norm(tok, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
+        y, attn, qkv = att.mha(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
+                               cfg.num_heads, return_attn=True)
+        tok = tok + y
+        tok = tok + mlp_forward(blk, cfg, tok)
+        feats.append(_final_norm(model, tok))
+        attns.append(attn)
+        qkvs.append(qkv)
+    return torch.stack(feats), torch.stack(attns), torch.stack(qkvs)
+
+
+@torch.inference_mode()
+def get_last_selfattention(model: ViT, x, routes: InferRoutes = InferRoutes()):
+    """The last block's materialized attention (B, h, N+1, N+1) (:239-246)."""
+    return get_intermediate_feat(model, x, 1, routes)[1][0]
+
+
+def _qk_rows(h, weight, bias, part):
+    """One third of the qkv projection (part 0 = q, 1 = k) of h: the
+    product accumulated in f32 and rounded to h's dtype, then its bias, as
+    the JAX package adds it."""
+    d = h.shape[-1]
+    y = (h.float() @ weight[part * d : (part + 1) * d].float().T).to(h.dtype)
+    return y + bias[part * d : (part + 1) * d].to(h.dtype) if bias is not None else y
+
+
+@torch.inference_mode()
+def query_attention_rows(model: ViT, x, queries, routes: InferRoutes = InferRoutes()):
+    """Last-block attention rows of the query tokens ``queries`` (a
+    sequence or int tensor of Q token indices), (B, h, Q, N+1), without the
+    N x N matrix: softmax(q[queries] K^T / sqrt(d)) in f32, in h's dtype
+    (the region-query and query-grid analysis modes,
+    analyse_attention.py:183-247)."""
+    cfg = model.cfg
+    h, last = _last_block_input(model, x, routes)
+    idx = torch.as_tensor(queries, dtype=torch.long, device=h.device)
+    q = _qk_rows(h[:, idx], last.attn.qkv.weight, last.attn.qkv.bias, 0)
+    k = _qk_rows(h, last.attn.qkv.weight, last.attn.qkv.bias, 1)
+    b, nq, _ = q.shape
+    hd = cfg.head_dim
+    q = q.reshape(b, nq, cfg.num_heads, hd).permute(0, 2, 1, 3)
+    k = k.reshape(b, k.shape[1], cfg.num_heads, hd).permute(0, 2, 1, 3)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd**-0.5
+    return torch.softmax(logits, dim=-1).to(h.dtype)
+
+
+@torch.inference_mode()
+def last_block_key_features(model: ViT, x, routes: InferRoutes = InferRoutes()):
+    """The last block's per-patch key vectors, (B, gh, gw, D): the
+    k-means feature-clustering method's input (eval.py:186-202), CLS row
+    dropped."""
+    cfg = model.cfg
+    b, hgt, wdt, _ = x.shape
+    h, last = _last_block_input(model, x, routes)
+    k = _qk_rows(h, last.attn.qkv.weight, last.attn.qkv.bias, 1)
+    return k[:, 1:].reshape(b, hgt // cfg.patch_size, wdt // cfg.patch_size, cfg.embed_dim)

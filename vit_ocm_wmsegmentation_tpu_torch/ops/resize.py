@@ -9,6 +9,8 @@ is two matmuls with those (out, in) tables.
   indices clamped at the border (positional-embedding interpolation).
 * cv2 ``resize(..., INTER_LINEAR)``: 2-tap bilinear at
   ``(dst+0.5)*in/out - 0.5``, no antialiasing (attention smoothing).
+* torch ``F.interpolate(mode='nearest', scale_factor=p)``: exact block
+  repetition (attention upsampling, utils.py:234).
 """
 
 from __future__ import annotations
@@ -66,8 +68,33 @@ def _apply_separable(x, my: np.ndarray, mx: np.ndarray):
     return torch.einsum("ow,...hw->...ho", mx, y)
 
 
+def resize_bicubic_torch(x, out_hw, scale_hw=None):
+    """Bicubic resize of (..., H, W) as torch F.interpolate computes it.
+    ``scale_hw`` is the explicit scale_factor pair; None derives it from the
+    sizes (torch's behaviour when size= is passed)."""
+    h, w = x.shape[-2], x.shape[-1]
+    oh, ow = out_hw
+    sh, sw = scale_hw if scale_hw is not None else (oh / h, ow / w)
+    return _apply_separable(x, bicubic_matrix(h, oh, sh), bicubic_matrix(w, ow, sw))
+
+
 def resize_linear_cv2(x, out_hw):
     """cv2.resize INTER_LINEAR equivalent on (..., H, W) float tensors."""
     h, w = x.shape[-2], x.shape[-1]
     oh, ow = out_hw
     return _apply_separable(x, linear_matrix(h, oh), linear_matrix(w, ow))
+
+
+def upsample_nearest(x, factor: int):
+    """Exact block-repeat upsample of (..., H, W): torch nearest x factor."""
+    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
+
+
+def smooth_attention(attn_grid, patch_size: int, out_hw):
+    """The reference's attention smoothing (eval.py:140-171) as one resize:
+    nearest x patch_size, cv2 linear / patch_size down, cv2 linear up to
+    out_hw. The nearest-up then linear-down pair is an exact identity (the
+    2-tap sample at p*i + (p-1)/2 lands inside one repeated block), so the
+    chain is one bilinear upsample of the (..., gh, gw) grid."""
+    del patch_size  # folded away; kept for the call sites' clarity
+    return resize_linear_cv2(attn_grid, out_hw)

@@ -7,7 +7,8 @@ blends overlapping tiles with an iterative linear ramp
 (sw_processing.py:113-149); since that blend is linear in the tile values,
 the stitched mosaic is ``sum_ij v_i(y) h_j(x) tile_ij`` with 1D profiles
 simulated once per geometry in float64, and the overlap-add runs as k x k
-shifted block adds (window = k * stride).
+shifted block adds (window = k * stride). The crop > 1 eval path's grid
+concats (:func:`concat_crops`, :func:`concat_crops_overlap`) close it.
 """
 
 from __future__ import annotations
@@ -137,3 +138,48 @@ def restitch_u8(img_u8, window: int, stride: int, chunk_px: int = 1 << 24):
         hpass = th[img_u8[r0:r1].long(), cols[None, :]]
         out[r0:r1] = tv[hpass.long(), rows[:, None]]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Grid concat (utils.py:304-317) and the //2-averaged overlap concat
+# (utils.py:319-347) of the crop > 1 eval and analysis paths
+# ---------------------------------------------------------------------------
+
+
+def concat_crops(crops):
+    """(T, h, w) crops of a row-major square grid -> (sqrt(T)*h, sqrt(T)*w)."""
+    t, h, w = crops.shape
+    g = int(np.sqrt(t))
+    if g * g != t:
+        raise ValueError(f"{t} crops do not make a square grid")
+    return crops.reshape(g, g, h, w).permute(0, 2, 1, 3).reshape(g * h, g * w)
+
+
+def _half(x):
+    """x // 2 with numpy's floor semantics for integers and floats alike."""
+    return torch.div(x, 2, rounding_mode="floor")
+
+
+def concat_crops_overlap(crops, stride: int):
+    """utils.py concat_crops_overlap: neighbours overlap by 2 * stride and
+    the overlap is a // 2 + b // 2 (floor division, for floats too). The
+    literal iterative algorithm: the floor makes it non-linear."""
+    t = crops.shape[0]
+    g = int(np.sqrt(t))
+    ov = stride * 2
+    rows = []
+    for i in range(g):
+        horiz = crops[i * g]
+        for j in range(1, g):
+            right = crops[i * g + j]
+            overlap = _half(horiz[:, -ov:]) + _half(right[:, :ov])
+            horiz = torch.cat([horiz[:, :-ov], overlap, right[:, ov:]], dim=1)
+        rows.append(horiz)
+    vert = rows[0]
+    for i in range(1, g):
+        if i == g - 1:
+            vert = torch.cat([vert, rows[i][ov:, :]], dim=0)
+        else:
+            top = _half(vert[-ov:, :]) + _half(rows[i][:ov, :])
+            vert = torch.cat([vert[:-ov, :], top, rows[i][ov:, :]], dim=0)
+    return vert

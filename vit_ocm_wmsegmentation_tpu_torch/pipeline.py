@@ -1,7 +1,11 @@
-"""Sliding-window mosaic segmentation: uint8 mosaic -> attention -> mask.
+"""Attention segmentation pipelines: image -> attention -> mask.
 
-Counterpart of the mosaic pipeline of ``vit_ocm_wmsegmentation_tpu/
-pipeline.py`` (the reference's sw_processing.py rebuilt): one batched tile
+Counterpart of ``vit_ocm_wmsegmentation_tpu/pipeline.py``. The single-image
+functions (:func:`attention_map_rgb`, :func:`attention_map_single`,
+:func:`attention_heads`, :func:`segment_single`) are the eval path's crop 1
+chain (eval.py:135-202): last-block CLS attention, head average, optional
+median filter, bilinear smoothing, thresholds. The mosaic pipeline (the
+reference's sw_processing.py rebuilt) is one batched tile
 gather, the ViT over the tile batch, per-tile min-max normalization and
 bilinear smoothing, the ramp-blended overlap-add stitch, and the
 multiplicative Otsu threshold. Everything runs on the device of the input
@@ -17,7 +21,8 @@ import torch
 from .models import vit
 from .ops import stitch as st
 from .ops import threshold as th
-from .ops.resize import resize_linear_cv2
+from .ops.filters import median_filter
+from .ops.resize import resize_linear_cv2, smooth_attention, upsample_nearest
 
 # tiles per ViT call: bounds the per-block (T, N, 3D) qkv temporaries for
 # large mosaics; the 1152^2 mosaic's 49 tiles run as one batch
@@ -57,12 +62,57 @@ def cast_params(model, dtype):
 
 def head_average_attention(model, x, median_size=1, routes=vit.InferRoutes()):
     """(B, H, W, 3) -> (B, gh, gw): CLS attention grid averaged over heads
-    in the compute dtype (eval.py:142-144), on the inference ``routes``
-    (models.vit.InferRoutes). Only median_size=1 (no median filter) is
-    ported."""
-    if median_size != 1:
-        raise NotImplementedError("median_size > 1 is not ported yet")
-    return vit.cls_attention_grid(model, x, routes).mean(dim=1)
+    in the compute dtype, with the optional median filter (eval.py:142-144),
+    on the inference ``routes`` (models.vit.InferRoutes).
+
+    The reference median-filters the nearest x patch upsampled map, and the
+    /patch downsample after it samples 2 taps at block centres (eval.py:169).
+    For size 1 that chain is the identity on the grid; for size > 1 it is
+    replicated: the upsampled map filtered, then resampled back to the grid
+    with the cv2 2-tap kernel."""
+    avg = vit.cls_attention_grid(model, x, routes).mean(dim=1)
+    if median_size > 1:
+        gh, gw = avg.shape[-2:]
+        up = median_filter(upsample_nearest(avg, model.cfg.patch_size), median_size)
+        avg = resize_linear_cv2(up, (gh, gw))
+    return avg
+
+
+@torch.inference_mode()
+def attention_map_rgb(model, x, median_size=1, routes=vit.InferRoutes()):
+    """The eval path's crop 1 attention chain (eval.py:135-171) for float
+    RGB input (B, H, W, 3) in [0, 1]: the smoothed attention map (B, H, W)
+    in f32. The grids leave the ViT in f32 whatever its compute dtype, so
+    smoothing and thresholds downstream are the same in bf16."""
+    _, h, w, _ = x.shape
+    with exact_matmuls():
+        avg = head_average_attention(model, x, median_size, routes).float()
+        return smooth_attention(avg, model.cfg.patch_size, (h, w))
+
+
+def attention_map_single(model, img_u8, median_size=1, routes=vit.InferRoutes()):
+    """:func:`attention_map_rgb` for a batch of grayscale uint8 images
+    (B, H, W), fed to the ViT in float32."""
+    return attention_map_rgb(model, to_model_input(img_u8), median_size, routes)
+
+
+@torch.inference_mode()
+def attention_heads(model, x, routes=vit.InferRoutes()):
+    """Per-head CLS attention maps at image resolution, (B, h, H, W): the
+    nearest x patch maps analyse_attention saves as attn-head{j}.png
+    (compute_attention, utils.py:229-235)."""
+    with exact_matmuls():
+        grids = vit.cls_attention_grid(model, x, routes)
+    return upsample_nearest(grids, model.cfg.patch_size)
+
+
+@torch.inference_mode()
+def segment_single(model, img_u8, method="ours", median_size=1, routes=vit.InferRoutes()):
+    """The eval step of the thresholding methods for (B, H, W) uint8
+    images: ((B, H, W) uint8 {0, 255} masks, (B, H, W) f32 attention)."""
+    which = {"ours": 0, "otsu": 1, "heatmap_threshold": 2}[method]
+    attn = attention_map_single(model, img_u8, median_size, routes)
+    return th.threshold_ours(img_u8, attn)[which], attn
 
 
 def validate_window_geometry(window: int, stride: int) -> None:
