@@ -71,11 +71,17 @@ and then, failing on the first phase that fails:
    f32 and AMP bf16: the first step's loss and grad norm against the plain
    route, the loss against phase 4's default route, 4 launches of each of
    the route's kernels, ms/step, images/s, peak memory, the loss after 14
-   steps;
+   steps; then the same on the MLP remat routes (TRAIN.MLP_REMAT none, gelu
+   and gelu+ln: the plain MLP around the attention kernels, which launch 4
+   times each), and their peak memories side by side;
 5. runs the MIM CLI ``mim.main`` on 32 synthetic PNGs for 2 epochs, then
    for 3 into the same output, which must resume at epoch 2 with the
    optimizer state; then one epoch with the three opt-in routes in
-   ``--opts``, on their kernels;
+   ``--opts``, on their kernels; one epoch with ``--eval_dataset_path`` (phase
+   10's labeled set), ``--wandb 1`` and ``--roi_masking True`` (the eval
+   metrics in the log, the W&B scalars and six mask panels on disk); one
+   epoch with ``DATA.DEVICE_AUG True``; and the seconds a batch of the host
+   loader and of the device loader;
 6. runs ``segment_mosaic_streamed`` (the gigapixel path) with ViT-S/8 at
    full width: (a) on an 8192^2 synthetic OCM-like mosaic in bf16 (3844
    tiles in 62 bands) against ``segment_mosaic``, mask agreement >= 0.999,
@@ -120,7 +126,15 @@ and then, failing on the first phase that fails:
    mask Dice >= 0.99 on the threshold methods in f32, bf16 vs f32 pooled
    Dice on ours at most 0.01 below the plain route's own; images/s of a batch of 8 through the batched step
    in bf16 and f32 (CUDA events), its launches and peak device memory;
-11. prints the per-kernel JSON line, then the result line
+11. runs the attention-analysis CLI ``analyse_attention.main`` with ViT-S/8
+   at full width on a seeded 384^2 PNG of the synthetic OCM mosaic, in f32
+   and bf16: ``--save_feature --region_query True --query_analysis True
+   --save_query True`` (every output file, the launches of its four ViT
+   calls), ``--crop 4`` (one call on 4 tiles), ``--quant int8`` (the int8
+   GEMM and its quantizer 22 times each); the kernel route's masks against
+   the plain route's (Dice >= 0.99 in f32); seconds an image by the host
+   clock and by CUDA events;
+12. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -219,6 +233,9 @@ MIM_ROUTES = {
     "MLP_REMAT kernel+gp": ({"mlp_save_gp": True}, _ATTN + _GP),
     "all three": ({"ln_qkv": True, "attn_save_p": True, "mlp_save_gp": True}, _LNQKV + _SAVEP + _GP),
 }
+# the MLP remat routes: the plain MLP (cuBLAS products) around the default
+# attention kernels, which launch 4 times each a step
+REMAT_ROUTES = {f"MLP_REMAT {m}": ({"mlp": m}, _ATTN) for m in ("none", "gelu", "gelu+ln")}
 ROUTE_OPTS = ["TRAIN.LN_QKV", "kernel", "TRAIN.ATTN_SAVE_P", "on", "TRAIN.MLP_REMAT", "kernel+gp"]
 STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 3844 tiles
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
@@ -238,6 +255,14 @@ EVAL_BF16_MARGIN = 0.01
 # the kernels of the eval path (--quant int8 adds the int8 GEMM and its quantizer)
 EVAL_PATH = ("attention_qkv", "fused_mlp_block_lnout", "fused_mlp_block", "int8_dot",
              "quantize_rows")
+# phase 11: one analyse_single call with --save_feature, --region_query,
+# --query_analysis runs the ViT 4 times (the CLS attention, the key features,
+# the region queries, the query grid), each a mosaic call's launches on one
+# image; --crop 4 once on 4 tiles; --quant int8 once, the int8 GEMM and its
+# quantizer on each block's qkv and proj products
+ANALYSIS_LAUNCHES = {"all": {k: 4 * v for k, v in MOSAIC_LAUNCHES.items()},
+                     "crop 4": MOSAIC_LAUNCHES,
+                     "int8": INT8_LAUNCHES["auto"]}
 # (wrapper, dtype tag) -> (what, call): a PyTorch call timed beside a kernel
 # as a control, not the same function (phase 1)
 CONTROLS = {}
@@ -1069,7 +1094,8 @@ def _mim_inputs():
 def _mim_route_run(what, tag, model0, x, mask, routes, launched, default_loss=None):
     """One route in one dtype: the first step against the plain route (and
     against the default route's loss), the launches of one step, then 13
-    more steps timed. Returns (first loss, launch counts, ms/step)."""
+    more steps timed. Returns (first loss, launch counts, ms/step, peak
+    device memory in bytes)."""
     import torch
 
     from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
@@ -1116,12 +1142,12 @@ def _mim_route_run(what, tag, model0, x, mask, routes, launched, default_loss=No
           f"peak device memory {peak / 2**30:.3f} GiB, loss after 14 steps {lsum:.6f}")
     del model, step
     torch.cuda.empty_cache()
-    return loss, counts, ms
+    return loss, counts, ms, peak
 
 
 def phase_mim():
     """The MIM train step at full width, f32 and AMP bf16, default routes.
-    Returns {tag: (first loss, launch counts, ms/step)}."""
+    Returns {tag: (first loss, launch counts, ms/step, peak bytes)}."""
     from vit_ocm_wmsegmentation_tpu_torch.models.vit import TrainRoutes
 
     x, mask, model0 = _mim_inputs()
@@ -1130,19 +1156,26 @@ def phase_mim():
 
 
 def phase_mim_routes(default):
-    """The MIM train step on each opt-in kernel route, against the plain
-    route and phase 4's default route. Returns {(route, tag): counts}."""
+    """The MIM train step on each opt-in kernel route and each MLP remat
+    route, against the plain route and phase 4's default route; the remat
+    routes' peak memories side by side. Returns {(route, tag): counts}."""
     from vit_ocm_wmsegmentation_tpu_torch.models.vit import TrainRoutes
 
     x, mask, model0 = _mim_inputs()
-    launches = {}
-    for route, (fields, launched) in MIM_ROUTES.items():
+    launches, peaks = {}, {}
+    for route, (fields, launched) in {**MIM_ROUTES, **REMAT_ROUTES}.items():
         for tag in ("f32", "bf16"):
-            loss, launches[(route, tag)], ms = _mim_route_run(
+            loss, launches[(route, tag)], ms, peaks[(route, tag)] = _mim_route_run(
                 f"MIM step, {route}", tag, model0, x, mask, TrainRoutes(**fields), launched,
                 default[tag][0])
             print(f"  MIM step, {route} [{tag}]: {ms / default[tag][2]:.3f}x the default route's "
                   f"{default[tag][2]:.2f} ms/step")
+    for tag in ("f32", "bf16"):
+        gib = [peaks[(r, tag)] / 2**30 for r in REMAT_ROUTES]
+        order = "holds" if gib[0] >= gib[1] >= gib[2] else "does not hold"
+        print(f"  MLP remat routes [{tag}] peak device memory, none / gelu / gelu+ln: "
+              f"{gib[0]:.3f} / {gib[1]:.3f} / {gib[2]:.3f} GiB (default route "
+              f"{default[tag][3] / 2**30:.3f}); none >= gelu >= gelu+ln {order}")
     return launches
 
 
@@ -1191,6 +1224,154 @@ def phase_mim_cli():
         want = {name: 8 for name in MIM_ROUTES["all three"][1]}  # 4 blocks x 2 steps
         if len(hist) != 1 or not np.isfinite(hist).all() or counts != want:
             raise AssertionError(f"the routes' epoch: losses {hist}, launches {counts} != {want}")
+        _mim_cli_remainders(src, args[:-4], tmp)
+
+
+def _mim_cli_remainders(src, args, tmp):
+    """One epoch with --eval_dataset_path (phase 10's labeled set), --wandb 1
+    and --roi_masking True; one with DATA.DEVICE_AUG; the seconds a batch
+    of the host loader and of the device loader."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import mim
+    from vit_ocm_wmsegmentation_tpu_torch.data.datasets import (build_simmim_device_loader,
+                                                                build_simmim_loader)
+
+    ev_root, log_dir = os.path.join(tmp, "evalset"), os.path.join(tmp, "ev_log")
+    _write_eval_set(ev_root)
+    t0 = time.perf_counter()
+    _, hist = mim.main(args + ["--output", os.path.join(tmp, "ev_out"), "--output_dir", log_dir,
+                               "--epochs", "1", "--eval_dataset_path", ev_root, "--wandb", "1",
+                               "--roi_masking", "True"])
+    log = "".join(open(f).read() for f in glob.glob(os.path.join(log_dir, "*.txt")))
+    scalars = [json.loads(line) for line in open(os.path.join(log_dir, "wandb_offline.jsonl"))]
+    panels = sorted(f for f in os.listdir(os.path.join(log_dir, "wandb_images", "step0"))
+                    if f.startswith("Masks_"))
+    # the eval's scalars: a line an image (running averages), then the epoch's
+    dice = [x["Dice"] for x in scalars if "Dice" in x]
+    print(f"  1 epoch with --eval_dataset_path ({EVAL_N} labeled {EVAL_SIZE}^2 images), --wandb 1, "
+          f"--roi_masking True in {time.perf_counter() - t0:.2f} s (host clock): losses {hist}, "
+          f"eval Dice {dice[-1]:.5f}, {len(scalars)} W&B scalar lines, mask panels {panels}")
+    if not (len(hist) == 1 and np.isfinite(hist).all() and log.count("Acc_average") == 1
+            and len(dice) == EVAL_N + 1 and 0.0 <= dice[-1] <= 1.0 and len(panels) == 6
+            and any("train_loss" in x for x in scalars)):
+        raise AssertionError("the MIM CLI's eval / W&B / ROI run wrote the wrong outputs")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    _, hist = mim.main(args + ["--output", os.path.join(tmp, "da_out"), "--output_dir",
+                               os.path.join(tmp, "da_log"), "--epochs", "1",
+                               "--opts", "DATA.DEVICE_AUG", "True"])
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print(f"  1 epoch with DATA.DEVICE_AUG True in {time.perf_counter() - t0:.2f} s (host "
+          f"clock), losses {hist}, launches {counts}")
+    want = {name: 2 * n for name, n in MIM_LAUNCHES.items()}  # 2 steps
+    if len(hist) != 1 or not np.isfinite(hist).all() or counts != want:
+        raise AssertionError(f"the DEVICE_AUG epoch: losses {hist}, launches {counts} != {want}")
+
+    loaders = {"host": build_simmim_loader(src, MIM_BATCH, MIM_SIZE, 16, 8, 0.5, seed=0),
+               "device": build_simmim_device_loader(src, MIM_BATCH, MIM_SIZE, 16, 8, 0.5, seed=0,
+                                                    device="cuda")}
+    for name, loader in loaders.items():
+        for _ in loader.epoch(0):  # decode, cache and (device) upload once
+            pass
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 0
+        for epoch in (1, 2):
+            for img, mask in loader.epoch(epoch):
+                torch.as_tensor(img).to("cuda")
+                torch.as_tensor(mask).to("cuda")
+                n += 1
+        torch.cuda.synchronize()
+        print(f"  {name} loader: {(time.perf_counter() - t0) / n * 1e3:.2f} ms a batch of "
+              f"{MIM_BATCH} {MIM_SIZE}^2 images on the card (host clock, {n} batches)")
+
+
+def phase_analysis():
+    """The attention-analysis CLI at full width (ViT-S/8, 384^2) in f32 and
+    bf16: every mode's files and launches, the kernel route's masks against
+    the plain route's, seconds an image."""
+    import contextlib
+    import io
+
+    import torch
+    from PIL import Image
+
+    from vit_ocm_wmsegmentation_tpu_torch import analyse_attention as an
+    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+
+    gh = EVAL_SIZE // 8
+    rate = 10  # --query_rate's default: a 4 x 4 grid of queries on 48 x 48 patches
+    want_files = {"img.png", "attn-average.png", "result.png", "OTSU_th_average.png",
+                  "OTSU_th_original.png", "weighted_iamge_attention.png",
+                  "heatmap_otsu_attention.png", "temp.png", "YEN_th.png",
+                  "attn-average-queried.png", "attn-average-queried-median.png",
+                  "attn-average-queried-threshold/OTSU_th_average.png"}
+    want_files |= {f"attn-head{j}.png" for j in range(6)}
+    want_files |= {f"features/{f}.png" for f in range(1, 384)}
+    want_files |= {f"analysis/attn-average-{i * gh * rate + j * rate}.png"
+                   for i in range(gh // rate) for j in range(gh // rate)}
+    masks = ("OTSU_th_average.png", "OTSU_th_original.png", "heatmap_otsu_attention.png",
+             "attn-average-queried-threshold/OTSU_th_average.png")
+
+    def files(root):
+        return {os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs}
+
+    def read(path):
+        return np.asarray(Image.open(path).convert("L"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img = os.path.join(tmp, "tile.png")
+        Image.fromarray(eval_pieces(1, EVAL_SIZE, seed=1)[0][0]).save(img)
+        base = ["--image_path", img, "--device", "cuda"]
+        runs = {"all": ["--save_feature", "1", "--region_query", "True", "--query_analysis",
+                        "True", "--save_query", "True"],
+                "crop 4": ["--crop", "4"], "int8": ["--quant", "int8"]}
+        failed = []
+        for tag, flags in (("f32", []), ("bf16", ["--bf16", "1"])):
+            for name, extra in runs.items():
+                out = os.path.join(tmp, f"{tag}_{name.replace(' ', '')}")
+                torch.cuda.synchronize()
+                reset_counts()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                with contextlib.redirect_stdout(io.StringIO()):  # a line a file written
+                    an.main(base + ["--output_dir", out] + flags + extra)
+                end.record()
+                end.synchronize()
+                wall, ev_s = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+                counts = {k: v for k, v in launch_counts().items() if v}
+                got = files(os.path.join(out, "tile"))
+                queries = sum(f.startswith("queries/") for f in got)
+                print(f"  analyse_attention [{tag}] {' '.join(extra)}: {wall:.2f} s an image "
+                      f"(host clock), {ev_s:.2f} s (CUDA events), {len(got)} files, "
+                      f"{queries} region queries, launches {counts}")
+                if counts != ANALYSIS_LAUNCHES[name]:
+                    failed.append(f"launches [{tag}, {name}] {counts} != {ANALYSIS_LAUNCHES[name]}")
+                if name == "all" and not (want_files <= got and queries >= 1):
+                    failed.append(f"files [{tag}, all]: missing {sorted(want_files - got)[:5]}, "
+                                  f"{queries} region queries")
+                if name == "crop 4" and "croped_4/OTSU_th_average.png" not in got:
+                    failed.append(f"files [{tag}, crop 4]")
+        # the kernel route's masks against the plain route's, f32; bf16 against f32
+        reset_counts()
+        with plain_route(), contextlib.redirect_stdout(io.StringIO()):
+            an.main(base + ["--output_dir", os.path.join(tmp, "plain")] + runs["all"][2:])
+        if any(launch_counts().values()):
+            failed.append("the plain route launched a kernel")
+        for m in masks:
+            d_plain = dice(read(os.path.join(tmp, "f32_all", "tile", m)),
+                           read(os.path.join(tmp, "plain", "tile", m)))
+            d_bf16 = dice(read(os.path.join(tmp, "bf16_all", "tile", m)),
+                          read(os.path.join(tmp, "f32_all", "tile", m)))
+            print(f"  {m}: kernel vs plain route [f32] Dice {d_plain:.5f} (gate >= 0.99), "
+                  f"bf16 vs f32 Dice {d_bf16:.5f}")
+            if not d_plain >= 0.99:
+                failed.append(f"{m}: kernel vs plain Dice {d_plain:.5f}")
+        if failed:
+            raise AssertionError(f"analysis CLI gates failed: {failed}")
 
 
 def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, nbytes,
@@ -1846,7 +2027,10 @@ def main():
     print("phase 10: the labeled eval path at full width")
     phase_eval(models)
     took("phase 10")
-    print(f"phases 1-10: {time.perf_counter() - phases:.1f} s (host clock)")
+    print("phase 11: the attention-analysis CLI at full width")
+    phase_analysis()
+    took("phase 11")
+    print(f"phases 1-11: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():

@@ -224,11 +224,6 @@ def test_mask_generator_and_loader_batches_equal_jax(tmp_path):
             np.testing.assert_array_equal(jm, tm)
 
 
-def test_roi_masking_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="roi_masking"):
-        build_simmim_loader(str(tmp_path), 2, 32, 8, 8, 0.5, roi_masking=True)
-
-
 def test_mim_cli_trains_and_resumes_on_cpu(tmp_path):
     """Two epochs, then a third into the same output: the second call
     resumes at epoch 2 with the optimizer state (AdamW steps continue)."""
@@ -249,12 +244,10 @@ def test_mim_cli_trains_and_resumes_on_cpu(tmp_path):
 def test_mim_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--image_path", str(tmp_path), "--device", "cpu", "--output", str(tmp_path / "o"),
             "--output_dir", str(tmp_path / "l")]
-    with pytest.raises(NotImplementedError, match="wandb"):
-        mim.main(base + ["--wandb", "1"])
-    with pytest.raises(NotImplementedError, match="eval_dataset_path"):
-        mim.main(base + ["--eval_dataset_path", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="PP_STAGES"):
         mim.main(base + ["--opts", "TRAIN.PP_STAGES", "2"])
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        mim.main(base + ["--opts", "TRAIN.FSDP", "True"])
 
 
 def test_remat_keeps_gradients():

@@ -353,12 +353,6 @@ def test_train_routes_rejects_unknown_values(key, value):
         train_routes(cfg)
 
 
-@pytest.mark.parametrize("mlp", ["none", "gelu", "gelu+ln"])
-def test_xla_remat_routes_are_not_ported(mlp):
-    with pytest.raises(NotImplementedError, match="'none', 'gelu', 'gelu\\+ln' are not ported"):
-        train_routes(_routes_cfg(mlp))
-
-
 def test_mim_cli_trains_one_epoch_on_every_route(tmp_path):
     src = _write_images(tmp_path / "imgs", 8)
     args = ["--image_path", src, "--image_size", "32", "--mask_patch_size", "8",
@@ -370,10 +364,3 @@ def test_mim_cli_trains_one_epoch_on_every_route(tmp_path):
     assert len(hist) == 1 and np.isfinite(hist).all()
     log = "".join(p.read_text() for p in (tmp_path / "log").rglob("*.txt"))
     assert "MLP_REMAT=kernel+gp LN_QKV=kernel ATTN_SAVE_P=True" in log
-
-
-def test_mim_cli_refuses_the_xla_remat_routes(tmp_path):
-    args = ["--image_path", str(tmp_path), "--device", "cpu", "--output", str(tmp_path / "o"),
-            "--output_dir", str(tmp_path / "l"), "--opts", "TRAIN.MLP_REMAT", "gelu"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mim.main(args)

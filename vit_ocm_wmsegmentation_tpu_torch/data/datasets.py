@@ -9,9 +9,12 @@ bicubic resize it cuts its grid from (data.py:97-122). Training:
 RandomResizedCrop(scale=(0.67, 1), ratio=(3/4, 4/3)) + random
 horizontal and vertical flips + ToTensor, plus the MaskGenerator, drawn from
 one numpy ``Generator`` per (seed, epoch) in the same order, so one seed
-gives the same batches as the JAX package's loader. Batches are numpy
-arrays; the trainer moves them to the device. ROI-restricted masking is not
-ported (it needs ``ops/morphology.get_rois``).
+gives the same batches as the JAX package's loader, with the optional
+ROI-restricted masking (the mask kept only on the connected components of
+the image's foreground, ``ops/morphology.get_rois``). Batches are numpy
+arrays; the trainer moves them to the device. :class:`DeviceAugLoader`
+(DATA.DEVICE_AUG) keeps the decoded sources on the device as uint8 and runs
+the whole transform there (``data/device_aug.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from glob import glob
 from typing import Iterator
 
 import numpy as np
+import torch
 from PIL import Image
 
 from .mask_generator import MaskGenerator
@@ -126,10 +130,8 @@ class SimMIMTransform:
 
     def __init__(self, img_size: int, mask_patch_size: int, model_patch_size: int,
                  mask_ratio: float, roi_masking: bool = False):
-        if roi_masking:
-            raise NotImplementedError("roi_masking is not ported yet (it needs the connected-"
-                                      "component ROIs of ops/morphology.get_rois)")
         self.img_size = img_size
+        self.roi_masking = roi_masking
         self.mask_generator = MaskGenerator(img_size, mask_patch_size, model_patch_size, mask_ratio)
 
     def __call__(self, img: Image.Image, rng: np.random.Generator):
@@ -138,7 +140,24 @@ class SimMIMTransform:
             img = img.transpose(Image.Transpose.FLIP_LEFT_RIGHT)
         if rng.random() < 0.5:
             img = img.transpose(Image.Transpose.FLIP_TOP_BOTTOM)
-        return np.asarray(img, dtype=np.float32) / 255.0, self.mask_generator(rng)
+        mask = self.mask_generator(rng)
+        if self.roi_masking:
+            mask = self._restrict_to_rois(img, mask)
+        return np.asarray(img, dtype=np.float32) / 255.0, mask
+
+    @staticmethod
+    def _restrict_to_rois(img: Image.Image, mask: np.ndarray) -> np.ndarray:
+        """The mask on the ROIs of the gray > 10 foreground only (the ROI
+        labels resized to the mask grid, order 0), kept as it was where that
+        leaves nothing masked."""
+        from ..ops.morphology import get_rois
+
+        gray = np.asarray(img.convert("L"))
+        rois = get_rois(np.where(gray > 10, 255, 0).astype(np.uint8))
+        ys = (np.arange(mask.shape[0]) * rois.shape[0] / mask.shape[0]).astype(int)
+        xs = (np.arange(mask.shape[1]) * rois.shape[1] / mask.shape[1]).astype(int)
+        new_mask = mask * (rois[np.ix_(ys, xs)] != 0).astype(mask.dtype)
+        return new_mask if new_mask.sum() != 0 else mask
 
 
 def build_simmim_loader(image_path: str, batch_size: int, img_size: int, mask_patch_size: int,
@@ -147,6 +166,99 @@ def build_simmim_loader(image_path: str, batch_size: int, img_size: int, mask_pa
     transform = SimMIMTransform(img_size, mask_patch_size, model_patch_size, mask_ratio, roi_masking)
     return Loader(list_images(image_path), transform, batch_size, seed=seed, drop_last=drop_last,
                   cache_images=cache_images)
+
+
+def build_simmim_device_loader(image_path: str, batch_size: int, img_size: int,
+                               mask_patch_size: int, model_patch_size: int, mask_ratio: float,
+                               seed: int = 0, drop_last: bool = True,
+                               device="cuda") -> "DeviceAugLoader":
+    """The DATA.DEVICE_AUG loader: the host decodes, the device augments.
+    ROI masking needs host connected components: the host loader does it."""
+    return DeviceAugLoader(list_images(image_path), batch_size, img_size, mask_patch_size,
+                           model_patch_size, mask_ratio, seed=seed, drop_last=drop_last,
+                           device=device)
+
+
+class DeviceAugLoader:
+    """The dataset resident on the device as uint8 and the SimMIM transform
+    run there (``data/device_aug.simmim_augment``).
+
+    Every source is decoded once, at the size of the first readable image
+    (others are PIL-bilinear-resized to it, where the reference crops each
+    at its own size); grayscale sources (OCM tiles) are kept as one channel.
+    A set larger than ``max_resident_bytes`` stays on the host and each
+    batch's uint8 sources are sent to the device. Yields (images (B, S, S,
+    3) float32, masks (B, g, g) int32) on the device; the order is a numpy
+    permutation per (seed, epoch), the augmentation draws from a
+    ``torch.Generator`` on the device seeded per (seed, epoch, batch), so
+    an epoch is deterministic."""
+
+    def __init__(self, paths, batch_size, img_size, mask_patch_size, model_patch_size,
+                 mask_ratio, seed=0, drop_last=True, device="cuda", max_resident_bytes=4 << 30):
+        self.paths = list(paths)
+        self.batch_size = batch_size
+        self.img_size = img_size
+        self.mask_patch_size = mask_patch_size
+        self.model_patch_size = model_patch_size
+        self.mask_ratio = mask_ratio
+        self.seed = seed
+        self.drop_last = drop_last
+        self.device = torch.device(device)
+        self.max_resident_bytes = max_resident_bytes
+        self._src = None  # (N, H, W[, 3]) uint8, on the device or the host
+        self._n: int | None = None
+
+    def _ensure_sources(self):
+        if self._n is not None:
+            return
+        arrs, canonical, all_gray = [], None, True
+        for p in self.paths:
+            try:
+                img = Image.open(p).convert("RGB")
+            except Exception as e:
+                print(f"Error reading image: {p} ({e}); skipping")
+                continue
+            if canonical is None:
+                canonical = img.size
+            elif img.size != canonical:
+                img = img.resize(canonical, Image.Resampling.BILINEAR)
+            a = np.asarray(img, dtype=np.uint8)
+            all_gray = all_gray and bool(np.array_equal(a[..., 0], a[..., 1])
+                                         and np.array_equal(a[..., 1], a[..., 2]))
+            arrs.append(a)
+        self._n = len(arrs)
+        if not arrs:
+            return
+        src = np.stack(arrs)
+        if all_gray:
+            src = np.ascontiguousarray(src[..., 0])
+        src = torch.from_numpy(src)
+        self._src = src.to(self.device) if src.nbytes <= self.max_resident_bytes else src
+
+    def __len__(self):
+        self._ensure_sources()
+        n = self._n // self.batch_size
+        if not self.drop_last and self._n % self.batch_size:
+            n += 1
+        return max(n, 0)
+
+    def epoch(self, epoch: int):
+        from .device_aug import simmim_augment
+
+        self._ensure_sources()
+        n = self._n
+        order = np.random.default_rng((self.seed, epoch)).permutation(n)
+        stop = n - n % self.batch_size if self.drop_last else n
+        gen = torch.Generator(device=self.device)
+        for batch_idx, s0 in enumerate(range(0, stop, self.batch_size)):
+            idx = torch.from_numpy(order[s0 : s0 + self.batch_size])
+            batch = self._src[idx.to(self._src.device)].to(self.device)
+            gen.manual_seed(int(np.random.SeedSequence((self.seed, epoch, batch_idx))
+                                .generate_state(1, np.uint64)[0] >> 1))
+            yield simmim_augment(batch, gen, out_size=self.img_size,
+                                 mask_patch_size=self.mask_patch_size,
+                                 model_patch_size=self.model_patch_size,
+                                 mask_ratio=self.mask_ratio)
 
 
 class Loader:

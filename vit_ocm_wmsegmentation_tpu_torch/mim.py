@@ -8,8 +8,14 @@ and config keys (``--opts KEY VALUE`` last), plus ``--device`` (default
 ``--device cpu``). ``--opts AMP_OPT_LEVEL O1`` trains in bf16 with f32
 master weights. Checkpoints ``ckpt_epoch_<n>`` go to the templated
 ``cfg.OUTPUT``; with TRAIN.AUTO_RESUME (the default) a second call into the
-same output resumes from the newest. Not ported yet, and refused:
-``--wandb``, ``--eval_dataset_path``, ``--roi_masking``.
+same output resumes from the newest. ``--wandb`` writes the scalars and the
+per-epoch mask panels to files under ``--output_dir``
+(``utils/wandb_shim.py``; no network), ``--eval_dataset_path`` scores the
+encoder on a labeled set after every epoch (``evaluation.validate`` with
+``--method``'s config key, ``--crop``, ``--median_filter``),
+``--roi_masking`` masks only the image's foreground ROIs, and ``--opts
+DATA.DEVICE_AUG True`` runs the augmentation on the device (the host loader
+is kept, with a warning, under ``--roi_masking``).
 """
 
 from __future__ import annotations
@@ -21,11 +27,13 @@ import random
 import numpy as np
 import torch
 
-from .data.datasets import build_simmim_loader
+from . import evaluation
+from .data.datasets import build_eval_samples, build_simmim_device_loader, build_simmim_loader
 from .sw_processing import resolve_device
 from .train.mim_trainer import train_mim
 from .utils.config import get_config
 from .utils.logger import create_logger
+from .utils.wandb_shim import get_wandb
 
 
 def parse_option(argv=None):
@@ -65,10 +73,6 @@ def main(argv=None):
     """Train; returns (model, per-epoch mean losses)."""
     args, cfg = parse_option(argv)
     device = resolve_device(args.device)
-    if cfg.WANDB:
-        raise NotImplementedError("--wandb is not ported yet")
-    if cfg.eval_dataset_path:
-        raise NotImplementedError("--eval_dataset_path (per-epoch evaluation) is not ported yet")
     logger = create_logger(cfg.DATA.OUTPUT_DIR, name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
     # the reference's seeding (utils.py:21-27); the model's init draws from
     # its own generator seeded with cfg.SEED
@@ -76,12 +80,36 @@ def main(argv=None):
     os.environ["PYTHONHASHSEED"] = str(cfg.SEED)
     np.random.seed(cfg.SEED)
     torch.manual_seed(cfg.SEED)
-    loader = build_simmim_loader(
-        cfg.DATA.IMAGE_PATH, cfg.DATA.BATCH_SIZE, cfg.DATA.IMG_SIZE, cfg.DATA.MASK_PATCH_SIZE,
-        cfg.MODEL.PATCH_SIZE, cfg.DATA.MASK_RATIO, roi_masking=bool(cfg.roi_masking),
-        seed=cfg.SEED)
+    wandb, use_wandb = get_wandb(bool(cfg.WANDB), output_dir=cfg.DATA.OUTPUT_DIR)
+    if use_wandb:
+        wandb.init(project="mim", name=f"{cfg.TAG}_{cfg.DATA.IMG_SIZE}_{cfg.DATA.BATCH_SIZE}B",
+                   config=dict(cfg))
+
+    device_aug = bool(cfg.DATA.DEVICE_AUG) and not cfg.roi_masking
+    if cfg.DATA.DEVICE_AUG and not device_aug:
+        logger.warning("DATA.DEVICE_AUG ignored: roi_masking needs host CC labeling, "
+                       "falling back to the host augmentation loader")
+    build = build_simmim_device_loader if device_aug else build_simmim_loader
+    extra = {"device": device} if device_aug else {"roi_masking": bool(cfg.roi_masking)}
+    loader = build(cfg.DATA.IMAGE_PATH, cfg.DATA.BATCH_SIZE, cfg.DATA.IMG_SIZE,
+                   cfg.DATA.MASK_PATCH_SIZE, cfg.MODEL.PATCH_SIZE, cfg.DATA.MASK_RATIO,
+                   seed=cfg.SEED, **extra)
     logger.info(f"Creating model:{cfg.MODEL.NAME}/{cfg.MODEL.PATCH_SIZE}")
-    return train_mim(cfg, loader, device=device, logger=logger)
+
+    eval_fn = None
+    if cfg.eval_dataset_path:
+        samples = build_eval_samples(cfg.eval_dataset_path, cfg.DATA.IMG_SIZE, crop=int(cfg.crop))
+
+        def eval_fn(encoder, epoch):
+            evaluation.validate(encoder, samples, method=cfg.method, crop=int(cfg.crop),
+                                median_size=int(cfg.median_filter), logger=logger,
+                                wandb=wandb if use_wandb else None, epoch=epoch)
+
+    out = train_mim(cfg, loader, eval_fn, device=device, logger=logger, use_wandb=use_wandb,
+                    wandb=wandb if use_wandb else None)
+    if use_wandb:
+        wandb.finish()
+    return out
 
 
 if __name__ == "__main__":

@@ -28,7 +28,10 @@ backward kernel (``MLP_REMAT="kernel"``), optionally under
 ``torch.utils.checkpoint``. :class:`TrainRoutes` selects the opt-in kernel
 routes the JAX package's ``set_train_kernel_modes`` sets as module globals:
 the saved-P attention backward, the gelu / gelu' residuals of the MLP
-block, and LN1 fused into the qkv projection.
+block, and LN1 fused into the qkv projection; and the MLP remat routes
+``MLP_REMAT`` "none", "gelu" and "gelu+ln", which the JAX package computes
+in XLA, not in a kernel: the plain MLP (:func:`mlp_remat`), the three
+differing only in what the backward keeps from the forward.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import math
 from functools import partial
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -347,6 +351,73 @@ def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes(), lo
     return tok
 
 
+MLP_REMAT_MODES = ("none", "gelu", "gelu+ln")
+
+
+def _mlp_stock(x, scale, bias, w1, b1, w2, b2, eps):
+    """LN2 -> fc1 -> GELU -> fc2 of rows x (R, D), without the residual: the
+    JAX package's ``_mlp_forward`` in the compute dtype (library products
+    with f32 accumulation, exact-erf GELU)."""
+    h = F.layer_norm(x, (x.shape[-1],), scale, bias, eps)
+    return F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2)
+
+
+class _MLPRemat(torch.autograd.Function):
+    """:func:`_mlp_stock` with a backward that keeps less: h1 = fc1(ln2(x))
+    and LayerNorm's row statistics always, ln2(x) unless ``drop_ln``; never
+    gelu(h1), which the backward recomputes from h1 (and ln2(x) from x with
+    ``drop_ln``). The backward runs the same library operations as stock
+    autograd of :func:`_mlp_stock` (gelu_backward, the products of linear's
+    backward, native_layer_norm_backward)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, drop_ln):
+        d = x.shape[-1]
+        h, mean, rstd = torch.native_layer_norm(x, (d,), scale, bias, eps)
+        h1 = F.linear(h, w1, b1)
+        y = F.linear(F.gelu(h1), w2, b2)
+        ctx.save_for_backward(x, scale, bias, w1, w2, mean, rstd, h1, None if drop_ln else h)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, w1, w2, mean, rstd, h1, h = ctx.saved_tensors
+        d = x.shape[-1]
+        if h is None:  # "gelu+ln": ln2(x) again, the same bits as the forward's
+            h = torch.native_layer_norm(x, (d,), scale, bias, ctx.eps)[0]
+        g = F.gelu(h1)
+        dg = dy @ w2
+        dw2, db2 = dy.T @ g, dy.sum(0)
+        del g
+        dh1 = torch.ops.aten.gelu_backward(dg, h1)
+        del dg
+        dh = dh1 @ w1
+        dw1, db1 = dh1.T @ h, dh1.sum(0)
+        del dh1
+        dx, dscale, dbias = torch.ops.aten.native_layer_norm_backward(
+            dh, x, (d,), mean, rstd, scale, bias, [True, True, True])
+        return dx, dscale, dbias, dw1, db1, dw2, db2, None, None
+
+
+def mlp_remat(x, scale, bias, w1, b1, w2, b2, eps, mode):
+    """The MLP branch of rows x (R, D), without the residual, on an MLP
+    remat route (the JAX package's ``_mlp_forward`` under ``_MLP_POLICIES``,
+    vit.py:415-456), the weights in nn.Linear's layouts:
+
+    * "none": stock autograd, which keeps ln2(x), h1 and gelu(h1);
+    * "gelu": gelu(h1) is not kept, the backward recomputes it from h1;
+    * "gelu+ln": ln2(x) is not kept either, recomputed from x.
+
+    The three compute the same function and, on one device, the same
+    gradients; only the memory the backward holds differs."""
+    if mode == "none":
+        return _mlp_stock(x, scale, bias, w1, b1, w2, b2, eps)
+    if mode not in ("gelu", "gelu+ln"):
+        raise ValueError(f"MLP remat mode {mode!r} not in {MLP_REMAT_MODES}")
+    return _MLPRemat.apply(x, scale, bias, w1, b1, w2, b2, eps, mode == "gelu+ln")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainRoutes:
     """The training path's opt-in kernel routes (the JAX package's
@@ -358,11 +429,22 @@ class TrainRoutes:
     * ln_qkv: LN1 fused into the qkv projection (:func:`ln_qkv_attention`,
       LN_QKV="kernel");
     * attn_save_p: the attention forward saves P and 1/denominator, its
-      backward reads them instead of recomputing exp (ATTN_SAVE_P="on")."""
+      backward reads them instead of recomputing exp (ATTN_SAVE_P="on");
+    * mlp: "kernel", or an MLP remat route ("none", "gelu", "gelu+ln") in
+      place of the fused MLP kernels (mlp_save_gp then has no effect)."""
 
     mlp_save_gp: bool = False
     ln_qkv: bool = False
     attn_save_p: bool = False
+    # the MLP branch: "kernel" (the fused MLP kernels, the default) or one
+    # of the JAX package's XLA remat routes, "none", "gelu" or "gelu+ln"
+    # (:func:`mlp_remat`)
+    mlp: str = "kernel"
+
+    def __post_init__(self):
+        if self.mlp not in ("kernel",) + MLP_REMAT_MODES:
+            raise ValueError(f"TrainRoutes.mlp {self.mlp!r} not in "
+                             f"{('kernel',) + MLP_REMAT_MODES}")
 
 
 def ln_qkv_attention(blk, cfg: ViTConfig, x, save_p: bool = False):
@@ -395,6 +477,9 @@ def block_forward_train(blk, cfg: ViTConfig, x, routes: TrainRoutes = TrainRoute
         y = fa.mha_flash(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, cfg.num_heads,
                          prefer_folded=True, save_p=routes.attn_save_p)
     x = x + y
+    if routes.mlp != "kernel":
+        return x + mlp_remat(x.reshape(b * n, d), *_mlp_args(blk), cfg.ln_eps,
+                             routes.mlp).reshape(b, n, d)
     out = fm.fused_mlp_block_trainable(x.reshape(b * n, d), *_mlp_args(blk), cfg.ln_eps,
                                        routes.mlp_save_gp)
     return out.reshape(b, n, d)

@@ -1,10 +1,12 @@
-"""Image writers of the serving CLI.
+"""Image writers of the CLIs.
 
 Counterpart of ``vit_ocm_wmsegmentation_tpu/cli.py``'s ``create_dir``,
-``viridis_lut`` and ``imsave_fast``, plus the on-device quantization of an
-attention map to viridis table indices (``sw_processing.py:195``). The
-viridis table is kept here as bytes: the port does not depend on
-matplotlib, and a test holds the table byte-equal to matplotlib's.
+``viridis_lut``, ``imsave_fast``, ``imsave`` and ``save_threshold_outputs``,
+plus the on-device quantization of an attention map to viridis table
+indices (``sw_processing.py:195``). The port does not depend on matplotlib:
+the viridis table is kept here as bytes and the gray one is computed, and
+:func:`imsave` applies matplotlib's own rules for ``plt.imsave``; tests hold
+the tables and the rules byte-equal to matplotlib's.
 """
 
 from __future__ import annotations
@@ -44,6 +46,10 @@ _VIRIDIS_HEX = (
     "f6e61ff8e621fae622fde724"
 )
 VIRIDIS = np.frombuffer(bytes.fromhex(_VIRIDIS_HEX), np.uint8).reshape(256, 3)
+# matplotlib's "gray" at 256 levels as bytes: its table i / 255 truncated
+# after the product by 255, so 24 levels land one below i
+GRAY = np.repeat((np.linspace(0.0, 1.0, 256) * 255).astype(np.uint8)[:, None], 3, axis=1)
+_CMAPS = {None: VIRIDIS, "viridis": VIRIDIS, "gray": GRAY}
 
 
 def create_dir(path: str):
@@ -71,3 +77,64 @@ def imsave_fast(fname: str, arr_u8, cmap=None):
     else:
         im = Image.fromarray(VIRIDIS[arr_u8])
     im.save(fname, format="PNG", compress_level=1)
+
+
+def _lut_index(arr):
+    """matplotlib's 256-level index of a colormapped 2-D array (its
+    Normalize, then the colormap's float lookup): floor((x - min) / (max -
+    min) * 256) clipped to 255, in float32 (float64 for float64 data), and 0
+    everywhere for a constant array."""
+    a = arr if arr.dtype == torch.float64 else arr.float()
+    lo, hi = a.min(), a.max()
+    if bool(hi == lo):
+        return torch.zeros(a.shape, dtype=torch.uint8, device=a.device)
+    return torch.clamp(torch.floor((a - lo) / (hi - lo) * 256.0), 0, 255).to(torch.uint8)
+
+
+def imsave(fname: str, arr, cmap=None):
+    """``plt.imsave(fname, arr, format="png", cmap=cmap)`` without
+    matplotlib: an RGBA PNG whatever the extension, pixel for pixel
+    matplotlib's. A 2-D array (float, integer or bool, a tensor on any
+    device or a numpy array) is min-max normalized and colormapped (viridis
+    by default, or "gray"); an (H, W, 3) float image in [0, 1] is written as
+    uint8(x * 255), truncated, and a uint8 one as it is."""
+    t = torch.as_tensor(arr) if not isinstance(arr, torch.Tensor) else arr
+    if t.ndim == 2:
+        if cmap not in _CMAPS:
+            raise ValueError(f"imsave: colormap {cmap!r} not in {sorted(map(str, _CMAPS))}")
+        rgb = _CMAPS[cmap][_lut_index(t).cpu().numpy()]
+    elif t.ndim == 3 and t.shape[-1] == 3:
+        if t.dtype == torch.uint8:
+            rgb = t.cpu().numpy()
+        else:
+            x = t if t.dtype == torch.float64 else t.float()
+            if bool(x.max() > 1) or bool(x.min() < 0):
+                raise ValueError("Floating point image RGB values must be in the 0..1 range.")
+            rgb = (x * 255).to(torch.uint8).cpu().numpy()
+    else:
+        raise ValueError(f"imsave: an (H, W) or (H, W, 3) array, not {tuple(t.shape)}")
+    rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    # zlib level 1: the same pixels as matplotlib's level-6 file, written faster
+    Image.fromarray(np.ascontiguousarray(rgba), mode="RGBA").save(fname, format="PNG",
+                                                                 compress_level=1)
+    print(f"{fname} saved.")
+
+
+def save_threshold_outputs(output_directory: str, img_u8, attention, name: str | None = None):
+    """The reference threshold()'s files (utils.py:83-115) for a uint8 gray
+    image and its attention map, both (H, W) tensors on one device: the
+    blend (result.png, weighted_iamge_attention.png), the three Otsu masks
+    and the quantized attention (temp.png). Returns the three masks."""
+    blend_u8, attn_u8 = th.blend_ours(img_u8, attention)
+    masks = th.threshold_ours(img_u8, attention)
+    imsave(os.path.join(output_directory, "result.png"), blend_u8)
+    subdir = ""
+    if name is not None:
+        subdir = name + "/"
+        create_dir(os.path.join(output_directory, subdir))
+    imsave(os.path.join(output_directory, subdir, "OTSU_th_average.png"), masks[0], cmap="gray")
+    imsave(os.path.join(output_directory, "OTSU_th_original.png"), masks[1], cmap="gray")
+    imsave(os.path.join(output_directory, "weighted_iamge_attention.png"), blend_u8, cmap="gray")
+    imsave(os.path.join(output_directory, "heatmap_otsu_attention.png"), masks[2], cmap="gray")
+    imsave(os.path.join(output_directory, "temp.png"), attn_u8)
+    return masks
