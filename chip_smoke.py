@@ -35,7 +35,9 @@ and then, failing on the first phase that fails:
    cuBLAS (a GEMM-only reference: fc1 and fc2 at the
    mosaic's and the MIM step's rows, the backward's four products at the MIM
    step's); the mosaic kernels
-   at the 49-tile mosaic's shapes, the training kernels at the MIM step's,
+   at the 49-tile mosaic's shapes, the training kernels at the MIM step's
+   and, in f32, at the finetune step's (phase 12: attention at head dim 64,
+   (18, 2305, 64), the MLP block at 6915 rows),
    the histogram on a 32768^2 uint8 image, a view of it 3 bytes in, 2^24 +
    67 pixels of two values and two skewed buffers (2^30 zeros, ~90 % bin 0;
    counts exactly equal to the twin's; timed on the first and the skewed
@@ -134,7 +136,30 @@ and then, failing on the first phase that fails:
    GEMM and its quantizer 22 times each); the kernel route's masks against
    the plain route's (Dice >= 0.99 in f32); seconds an image by the host
    clock and by CUDA events;
-12. prints the per-kernel JSON line, then the result line
+12. runs the supervised flows at their CLIs' defaults: the finetune step
+   (ViT-S/8 at depth 12, 384^2, batch 3, the 2-layer decoder, f32), its
+   first loss on the kernel route against the plain route (rtol 1e-5) and
+   its gradients against a float64 plain route, tensor by tensor at each
+   one's own scale: the encoder's from the float64 step's gradient at the
+   encoder's output (at most 1e-5 or FT_GRAD_RATIO times the f32 plain
+   route's distance), the decoder's from the whole step (1e-4 or
+   FT_GRAD_RATIO times), with the decoder's ReLU gates that rounding flips
+   against float64 counted; the launches of a step (12 of rows 5,
+   6, 3h and 8), of an eval forward (12 / 11 / 1 of rows 1-3) and of a PGT
+   teacher batch (11 / 10 / 1), the teacher's masks against the plain
+   route's (Dice >= 0.99), ms a step by CUDA events and peak memory of the
+   finetune, UNet (512^2, batch 8) and PGT steps; then ``finetune``,
+   ``unet`` and ``pgt`` through ``python -m`` at once on 202 synthetic
+   labeled 512^2 PNGs for one or two epochs (every split non-empty): each
+   exits 0, saves its best model, writes a triptych a test image and prints
+   metrics in [0, 1];
+13. trains Swin-Tiny (224^2, batch 8, gradient accumulation 4) in f32 and
+   AMP bf16: ms an optimizer step by CUDA events, peak memory, AMP logits
+   against f32; runs ``allen_train --amp`` through ``python -m`` on a
+   synthetic imagefolder (checkpoint, history.json); holds a DINO head over
+   multi-crop ViT-S/8 CLS features and three LARS steps on the card against
+   the CPU (within 1e-5);
+14. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -486,6 +511,72 @@ def _kernel_cases(tag, dtype, gen):
         8 * rows * dm * hid, (3 * rows * dm + rows * hid) * isz + w_bytes + 2 * dm * hid * 4)
     cases.update(_route_cases(tag, dtype, isz, tol, (q, k, v, do), (xm, dom, mlp), randn))
     return cases
+
+
+def phase_finetune_kernels(gen):
+    """The finetune step's training kernels (phase 12) against their plain
+    twins at that step's own shapes, f32: the attention forward and backward
+    at (3 images x 6 heads, 2305 tokens, head dim 64), the head-dim-64
+    template instances the MIM step (head dim 128) does not run, and the MLP
+    block's h1 forward and backward at 3 x 2305 rows. Rows of the kernels
+    line without their launches, which phase 12 counts."""
+    import torch
+    import torch.nn.functional as F
+
+    fa, fm = _modules()["fa"], _modules()["fm"]
+    dev = torch.device("cuda")
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std + mean
+
+    b, heads, n, hd, dm, hid = FT_BATCH, 6, TOKENS, 64, 384, 1536
+    bh, rows, isz = b * heads, b * TOKENS, 4
+    q, k, v, do = (randn(bh, n, hd) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+
+    def check_fwd(g, w):
+        err = _compare("flash_attention (finetune)", "f32", g[0], w[0], F32_TOL)
+        _compare("flash_attention lse (finetune)", "f32", g[1], w[1], LSE_TOL["f32"])
+        return err
+
+    sdpa_in = [t.unflatten(0, (b, heads)).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
+    x, dx = randn(rows, dm), randn(rows, dm)
+    mlp = (randn(dm, std=0.1, mean=1.0), randn(dm, std=0.1), randn(hid, dm, std=dm ** -0.5),
+           randn(hid, std=0.1), randn(dm, hid, std=hid ** -0.5), randn(dm, std=0.1))
+    _, h1 = fm.fused_mlp_block_h1(x, *mlp)
+    s, bb, w1, _, w2, _ = mlp
+    w_bytes = 2 * dm * hid * isz
+    cases = {
+        "flash_attention": (
+            lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+            check_fwd, lambda: F.scaled_dot_product_attention(*sdpa_in),
+            4 * bh * n * n * hd, 4 * bh * n * hd * isz + bh * n * 4),
+        "flash_attention_bwd": (
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do),
+            lambda g, w: _compare("flash_attention_bwd (finetune)", "f32", g, w, GRAD_TOL["f32"]),
+            lambda: torch.autograd.grad(sdpa_out, sdpa_in, do.unflatten(0, (b, heads)),
+                                        retain_graph=True),
+            10 * bh * n * n * hd, 8 * bh * n * hd * isz + bh * n * 4),
+        "fused_mlp_block_h1": (
+            lambda: fm.fused_mlp_block_h1(x, *mlp),
+            lambda: fm.fused_mlp_block_plain(x, *mlp, want_h1=True),
+            lambda g, w: _compare("fused_mlp_block_h1 (finetune)", "f32", g, w, F32_TOL), None,
+            4 * rows * dm * hid, (2 * rows * dm + rows * hid) * isz + w_bytes),
+        "fused_mlp_bwd": (
+            lambda: fm.fused_mlp_bwd(x, dx, h1, s, bb, w1, w2),
+            lambda: fm.fused_mlp_bwd_plain(x, dx, h1, s, bb, w1, w2),
+            lambda g, w: _compare("fused_mlp_bwd (finetune)", "f32", g, w, GRAD_TOL["f32"]), None,
+            8 * rows * dm * hid, (3 * rows * dm + rows * hid) * isz + w_bytes + 2 * dm * hid * 4),
+    }
+    result = []
+    for name, case in cases.items():
+        _, sources, replaces = KERNELS[name]
+        result.append(_timed_row(f"{name}[f32 finetune]", sources["f32"], replaces, "f32", *case))
+    torch.cuda.empty_cache()
+    return result
 
 
 def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
@@ -1961,6 +2052,403 @@ def phase_probe_clis():
     return launches
 
 
+# phase 12: the supervised flows at their CLIs' defaults. The finetune step
+# runs the training kernels once a block (12 blocks); its eval forward and
+# the PGT teacher the inference routes (the teacher's last block is the CLS
+# row). The UNet runs cuDNN convolutions and no kernel of the port.
+FT_SIZE, FT_BATCH, UNET_SIZE, UNET_BATCH = 384, 3, 512, 8
+SUP_N = 202  # PGT's validation and test sets start at image 200 (PGT.py:161-165)
+FT_TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd": 12, "fused_mlp_block_h1": 12,
+                     "fused_mlp_bwd": 12}
+FT_EVAL_LAUNCHES = {"attention_qkv": 12, "fused_mlp_block_lnout": 11, "fused_mlp_block": 1}
+# the finetune step's f32 gradients, each tensor at its own scale (its
+# largest float64 gradient): the kernel route's distance from the float64
+# plain route may be at most this many times the f32 plain route's, or
+# F32_TOL (the encoder, from one upstream gradient) / GRAD_TOL["f32"] (the
+# decoder, whole step). BatchNorm cancels the gradient of the conv bias
+# before it (0 up to rounding), so that tensor is held at the largest
+# gradient's scale
+FT_GRAD_RATIO = 2.0
+FT_BN_CANCELLED = ("two_layer_decoder.0.bias",)
+# phase 13: Swin-Tiny at 224^2, batch 8, gradient accumulation 4
+SWIN_SIZE, SWIN_BATCH, SWIN_ACCUM, ALLEN_CLASSES, ALLEN_PER_CLASS = 224, 8, 4, 4, 12
+_METRICS_LINE = re.compile(r"Jaccard: ([\d.]+) - F1: ([\d.]+) - Recall: ([\d.]+) - "
+                           r"Precision: ([\d.]+) - Acc: ([\d.]+) - ROC-AUC : ([\d.]+)")
+
+
+def _launched_once(what, fn, want):
+    """Launch counts of one fn() call, which must equal ``want`` (every
+    other kernel 0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    print(f"  {what} launches: {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != {want}")
+    return counts
+
+
+def _write_sup_sets(root):
+    """SUP_N labeled 512^2 PNGs (pieces of the synthetic OCM mosaic with
+    their blob labels) in <root>/pgt; <root>/ft and <root>/unet link the
+    first 72 and 32, so that every split of finetune (50/20/2), unet (25/5/2)
+    and PGT (200/2/2) holds images."""
+    from PIL import Image
+
+    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
+
+    pieces, labels = eval_pieces(SUP_N, UNET_SIZE, seed=2)
+    for sub, arrays in (("images", pieces), ("labels", labels)):
+        os.makedirs(os.path.join(root, "pgt", sub))
+        for i, a in enumerate(arrays):
+            Image.fromarray(a).save(os.path.join(root, "pgt", sub, f"{i:03d}.png"))
+    for name, n in (("ft", 72), ("unet", 32)):
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(root, name, sub))
+            for i in range(n):
+                os.symlink(os.path.join(root, "pgt", sub, f"{i:03d}.png"),
+                           os.path.join(root, name, sub, f"{i:03d}.png"))
+
+
+def _start_cli(module, argv, cwd):
+    """Start python -m vit_ocm_wmsegmentation_tpu_torch.<module> argv in cwd."""
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", f"vit_ocm_wmsegmentation_tpu_torch.{module}", *argv]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=cwd, env=env)
+    return proc, time.perf_counter(), module, argv, cwd
+
+
+def _finish_cli(started, want_files=()):
+    """Wait for a :func:`_start_cli` process: it exits 0 and writes
+    want_files (relative to its cwd). Returns its stdout."""
+    proc, t0, module, argv, cwd = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    print(f"  python -m ...{module} {' '.join(argv)}: exit {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for ln in out.strip().splitlines()[-6:]:
+        print(f"    {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} failed:\n{err[-3000:]}")
+    missing = [f for f in want_files if not os.path.exists(os.path.join(cwd, f))]
+    if missing:
+        raise AssertionError(f"{module}: missing {missing}")
+    return out
+
+
+def _check_metrics(module, out, n_results, results_dir):
+    """The printed test metrics are finite and in [0, 1]; the results
+    folder holds one triptych per test image."""
+    m = _METRICS_LINE.findall(out)
+    vals = [float(v) for v in m[-1]] if m else []
+    if len(vals) != 6 or not all(0.0 <= v <= 1.0 for v in vals):
+        raise AssertionError(f"{module}: test metrics {m}")
+    losses = [float(v) for v in re.findall(r"Train Loss: ([-\d.naif]+)", out)]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"{module}: train losses {losses}")
+    got = len(os.listdir(results_dir))
+    if got != n_results:
+        raise AssertionError(f"{module}: {got} triptychs in {results_dir}, want {n_results}")
+    print(f"  {module}: test metrics {vals}, train losses {losses}")
+
+
+def _finetune_grad_check(model0, x, y):
+    """The finetune step's first loss and gradients on the kernel route
+    against the plain route and a float64 plain route (profile_grad64's
+    float64_twins: the twins sum in float64), each gradient tensor at its
+    own scale, its largest float64 gradient (FT_BN_CANCELLED at the largest
+    of all). The whole step's f32 gradients carry, on either route, the
+    decoder's ReLU gates that rounding flips against float64: a flipped gate
+    moves a gradient by an amount of its own size, not of the rounding's, so
+    the whole step is held by its loss (rtol 1e-5), its gradient norm (rtol
+    1e-4) and the decoder's tensors. The encoder, where the port's kernels
+    run, is held by its backward from one upstream gradient, the float64
+    step's at the encoder's output, on all three routes: there the kernel
+    route's distance from float64 may be at most FT_GRAD_RATIO times the
+    plain route's or F32_TOL, tensor by tensor."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_ocm_wmsegmentation_tpu_torch import nn as tnn
+    from vit_ocm_wmsegmentation_tpu_torch.models import probing
+    from vit_ocm_wmsegmentation_tpu_torch.ops.metrics import dice_loss
+    from vit_ocm_wmsegmentation_tpu_torch.profile_grad64 import float64_twins
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
+
+    names = [n for n, _ in model0.named_parameters()]
+    n_enc = len(list(model0.encoder.parameters()))
+    assert names[:n_enc] == [f"encoder.{n}" for n, _ in model0.encoder.named_parameters()]
+
+    def step(model, x, y):
+        z = probing.encode(model.encoder, x, True)
+        loss = dice_loss(probing.decode(model, z, True), y)
+        dz, *grads = torch.autograd.grad(loss, [z] + list(model.parameters()))
+        return float(loss.detach()), z.detach(), dz, grads
+
+    def pre_relu(model, z):  # the decoder's BatchNorm output, running statistics untouched
+        conv, bn = model.two_layer_decoder[0], copy.deepcopy(model.two_layer_decoder[1])
+        return tnn.batch_norm(F.conv2d(tnn.nchw(z), conv.weight, conv.bias, padding=1), bn, True)
+
+    def encoder_grads(model, x, dz):
+        z = probing.encode(model.encoder, x, True)
+        return torch.autograd.grad(z, list(model.encoder.parameters()), dz)
+
+    loss, z, _, grads = step(model0, x, y)
+    with plain_training_route():
+        ploss, pz, _, pgrads = step(model0, x, y)
+    with plain_training_route(), float64_twins():
+        m64 = copy.deepcopy(model0).double()
+        loss64, z64, dz64, g64 = step(m64, x.double(), y.double())
+        gates64 = pre_relu(m64, z64) > 0
+        flips = [int(((pre_relu(m64, zz.double()) > 0) != gates64).sum()) for zz in (z, pz)]
+        del m64
+    enc = encoder_grads(model0, x, dz64.float())
+    with plain_training_route():
+        penc = encoder_grads(model0, x, dz64.float())
+
+    top = max(float(g.abs().max()) for g in g64)
+    scales = [top if n in FT_BN_CANCELLED else float(w.abs().max()) for n, w in zip(names, g64)]
+
+    def dist(gs, ws, sc):
+        return [float((g.double() - w.double()).abs().max()) / max(c, 1e-300)
+                for g, w, c in zip(gs, ws, sc)]
+
+    # the whole step, every tensor; the encoder from the float64 upstream gradient
+    ek, ep, ekp = dist(grads, g64, scales), dist(pgrads, g64, scales), dist(grads, pgrads, scales)
+    fk, fp = dist(enc, g64[:n_enc], scales), dist(penc, g64[:n_enc], scales)
+    gn = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads])))
+    pgn = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in pgrads])))
+    print(f"  finetune first step [f32]: loss {loss:.7f} (plain {ploss:.7f}, float64 "
+          f"{loss64:.7f}), grad norm {gn:.6f} (plain {pgn:.6f}); {len(names)} gradient "
+          f"tensors, each at its own scale ({', '.join(FT_BN_CANCELLED)} at the largest "
+          f"gradient's, {top:.4e}); decoder ReLU gates that differ from float64's: kernel "
+          f"route {flips[0]}, plain route {flips[1]} of {gates64.numel()}")
+    wk = max(range(n_enc), key=lambda i: ek[i])
+    wp = max(range(n_enc), key=lambda i: ep[i])
+    wkp = max(range(n_enc), key=lambda i: ekp[i])
+    print(f"    whole step, encoder (not gated): |kernel - float64| up to {ek[wk]:.3e} "
+          f"({names[wk]}), |plain - float64| up to {ep[wp]:.3e} ({names[wp]}); kernel vs plain "
+          f"beyond {GRAD_TOL['f32']:g}: {sum(e > GRAD_TOL['f32'] for e in ekp[:n_enc])} of "
+          f"{n_enc} tensors, up to {ekp[wkp]:.3e} ({names[wkp]})")
+    allowed = [max(FT_GRAD_RATIO * p, GRAD_TOL["f32"]) for p in ep]
+    failed = [names[i] for i in range(n_enc, len(names)) if not ek[i] <= allowed[i]]
+    for i in range(n_enc, len(names)):
+        print(f"    whole step, {names[i]}: |kernel - float64| {ek[i]:.3e}, |plain - float64| "
+              f"{ep[i]:.3e} (gate: max({FT_GRAD_RATIO:g} x plain, {GRAD_TOL['f32']:g}))")
+    allowed = [max(FT_GRAD_RATIO * p, F32_TOL) for p in fp]
+    failed += [names[i] for i in range(n_enc) if not fk[i] <= allowed[i]]
+    print(f"    encoder backward from the float64 upstream gradient, gate |kernel - float64| <= "
+          f"max({FT_GRAD_RATIO:g} x |plain - float64|, {F32_TOL:g}); |kernel - float64| up to "
+          f"{max(fk):.3e}, |plain - float64| up to {max(fp):.3e}; the closest to the gate "
+          "(|kernel - float64| / allowed, kernel, plain):")
+    for i in sorted(range(n_enc), key=lambda i: -fk[i] / allowed[i])[:6]:
+        print(f"      {names[i]}: {fk[i] / allowed[i]:.3f}; {fk[i]:.3e} {fp[i]:.3e}")
+    if not (np.isfinite(loss) and abs(loss - ploss) <= 1e-5 * abs(ploss)
+            and abs(gn - pgn) <= 1e-4 * abs(pgn) and not failed):
+        raise AssertionError(f"finetune step disagrees with the plain route: {failed}")
+
+
+def phase_supervised():
+    """The finetune, PGT and UNet flows at their CLIs' defaults (finetune:
+    ViT-S/8 at depth 12, 384^2, batch 3, the 2-layer decoder, f32; UNet
+    512^2, batch 8; PGT 384^2, batch 3): the first finetune step's loss on
+    the kernel route against the plain route (rtol 1e-5) and its gradients
+    against float64 per tensor (FT_GRAD_RATIO), the launches of
+    a training step, an eval forward and a teacher batch, ms a step by CUDA
+    events and peak memory, the teacher's masks against the plain route's
+    (Dice >= 0.99); then the three CLIs through python -m at once on SUP_N
+    synthetic labeled images for one or two epochs. Returns the launches of
+    one finetune training step."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.models import probing, unet, vit
+    from vit_ocm_wmsegmentation_tpu_torch.pipeline import exact_matmuls
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.profile_supervised import seg_batch
+    from vit_ocm_wmsegmentation_tpu_torch.train import supervised as sup
+
+    x, y = seg_batch(FT_BATCH, FT_SIZE, 1, "cuda")
+    cfg = probing.finetune_vit_config(FT_SIZE, 8)
+    with exact_matmuls():
+        # (a) finetune: the first step's loss and gradients, kernel vs plain route
+        model0 = probing.init(cfg, torch.Generator().manual_seed(0), layer_num=2, device="cuda")
+        _finetune_grad_check(model0, x, y)
+        model = copy.deepcopy(model0)
+        del model0
+        train_step, eval_step = sup.make_seg_step(probing.apply, model,
+                                                  sup.make_adam(model, 1e-4))
+        ft_launches = _launched_once("finetune train step [f32]",
+                                     lambda: train_step(x, y, 1e-4), FT_TRAIN_LAUNCHES)
+        _launched_once("finetune eval forward [f32]", lambda: eval_step(x, y), FT_EVAL_LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: train_step(x, y, 1e-4), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        ems = cuda_ms(lambda: eval_step(x, y), iters=5, warmup=1)
+        print(f"  finetune [f32, batch {FT_BATCH}, {FT_SIZE}^2]: {ms:.2f} ms/step, eval "
+              f"{ems:.2f} ms/batch, peak device memory {peak / 2**30:.3f} GiB")
+        del model, train_step, eval_step
+        torch.cuda.empty_cache()
+
+        # (b) the PGT teacher: masks against the plain route's, launches, ms
+        teacher = vit.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+        masks = sup.teacher_pseudo_labels(teacher, x)
+        with plain_route():
+            pmasks = sup.teacher_pseudo_labels(teacher, x)
+        d = dice(masks.cpu().numpy(), pmasks.cpu().numpy())
+        fg = float(masks.mean())
+        print(f"  PGT teacher [f32]: kernel vs plain masks Dice {d:.5f} (gate 0.99), "
+              f"foreground {fg:.3f}")
+        if d < 0.99 or not 0.0 < fg < 1.0:
+            raise AssertionError(f"teacher masks: Dice {d}, foreground {fg}")
+        _launched_once("PGT teacher batch [f32]", lambda: sup.teacher_pseudo_labels(teacher, x),
+                       MOSAIC_LAUNCHES)
+        tms = cuda_ms(lambda: sup.teacher_pseudo_labels(teacher, x), iters=5, warmup=1)
+
+        # (c) the UNet student: the UNet CLI's step (512^2, batch 8) and PGT's
+        student = unet.init(torch.Generator().manual_seed(0), "cuda")
+        ustep, _ = sup.make_seg_step(unet.apply, student, sup.make_adam(student, 1e-4))
+        ux, uy = seg_batch(UNET_BATCH, UNET_SIZE, 3, "cuda")
+        _launched_once("UNet train step [f32]", lambda: ustep(ux, uy, 1e-4), {})
+        torch.cuda.reset_peak_memory_stats()
+        ums = cuda_ms(lambda: ustep(ux, uy, 1e-4), iters=5, warmup=1)
+        upeak = torch.cuda.max_memory_allocated()
+        pms = cuda_ms(lambda: ustep(x, sup.teacher_pseudo_labels(teacher, x), 1e-4), iters=5,
+                      warmup=1)
+        print(f"  UNet [f32, batch {UNET_BATCH}, {UNET_SIZE}^2]: {ums:.2f} ms/step, peak device "
+              f"memory {upeak / 2**30:.3f} GiB; PGT [batch {FT_BATCH}, {FT_SIZE}^2]: teacher "
+              f"{tms:.2f} ms/batch, teacher + student step {pms:.2f} ms")
+        del teacher, student, ustep, ux, uy
+        torch.cuda.empty_cache()
+
+    # (d) the three CLIs through python -m
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_sup_sets(os.path.join(tmp, "sets"))
+        print(f"  wrote {SUP_N} labeled {UNET_SIZE}^2 PNGs: {time.perf_counter() - t0:.1f} s")
+        runs = [("finetune", ["--image_path", os.path.join(tmp, "sets", "ft"), "--epochs", "2",
+                              "--ratio", "0.12", "--name", "ft"], "ft", 2),
+                ("unet", ["--image_path", os.path.join(tmp, "sets", "unet"), "--epochs", "1",
+                          "--ratio", "0.32", "--name", "un"], "un", 2),
+                ("pgt", ["--image_path", os.path.join(tmp, "sets", "pgt"), "--epochs", "1",
+                         "--ratio", "0.015", "--name", "pg"], "pg", 2)]
+        # the three at once on the card (each holds a few GiB of its 80 GB)
+        started = [_start_cli(module, argv, tmp) for module, argv, _, _ in runs]
+        for st, (module, _, name, n_test) in zip(started, runs):
+            out = _finish_cli(st, [f"files/{name}/ckpt_epoch_0"])
+            _check_metrics(module, out, n_test, os.path.join(tmp, "results", name))
+    return ft_launches
+
+
+def _write_imagefolder(root):
+    """ALLEN_CLASSES classes of ALLEN_PER_CLASS 256^2 RGB PNGs each: noise
+    around a class-specific brightness and tint."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for c in range(ALLEN_CLASSES):
+        os.makedirs(os.path.join(root, f"class{c}"))
+        base = np.array([40 + 50 * c, 200 - 40 * c, 120], np.float64)
+        for i in range(ALLEN_PER_CLASS):
+            a = np.clip(base + rng.normal(0, 25, (256, 256, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(a).save(os.path.join(root, f"class{c}", f"{i:02d}.png"))
+
+
+def phase_allen_dino():
+    """The Allen classifier: Swin-Tiny at 224^2, batch 8, gradient
+    accumulation 4, in f32 and AMP bf16 (ms a micro-step by CUDA events,
+    peak memory, AMP logits against f32), then the CLI through python -m on
+    a synthetic imagefolder with --amp; then a DINO head over multi-crop
+    ViT-S/8 CLS features (2 x 224^2 and 4 x 96^2 crops) and three LARS steps
+    on the card against the CPU (within 1e-5 of max|CPU|)."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.models import swin, vit
+    from vit_ocm_wmsegmentation_tpu_torch.pipeline import exact_matmuls
+    from vit_ocm_wmsegmentation_tpu_torch.train import classifier as cls
+    from vit_ocm_wmsegmentation_tpu_torch.train import dino
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), dtype=np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, ALLEN_CLASSES, SWIN_BATCH)).cuda()
+    cfg = swin.SwinConfig(num_classes=ALLEN_CLASSES)
+    with exact_matmuls():
+        logits = {}
+        for amp in (False, True):
+            tag = "bf16" if amp else "f32"
+            model = swin.init(cfg, torch.Generator().manual_seed(0), "cuda")
+            opt = cls.AccumulatedAdamW(list(model.parameters()),
+                                       cls.hf_linear_schedule(5e-5, 100), SWIN_ACCUM)
+            step, _ = cls.make_classifier_step(model, opt, amp=amp)
+            with torch.no_grad():
+                logits[tag] = (swin.apply(model, x) if not amp else torch.func.functional_call(
+                    model, {n: p.bfloat16() for n, p in model.named_parameters()},
+                    (x.bfloat16(),))).float()
+            _launched_once(f"Swin micro-step [{tag}]", lambda: step(x, y), {})
+            torch.cuda.reset_peak_memory_stats()
+            # one optimizer step: SWIN_ACCUM micro-steps, the last applying AdamW
+            ms = cuda_ms(lambda: [step(x, y) for _ in range(SWIN_ACCUM)], iters=2, warmup=1)
+            peak = torch.cuda.max_memory_allocated()
+            loss = float(step(x, y))
+            print(f"  Swin-Tiny [{tag}, batch {SWIN_BATCH}, {SWIN_SIZE}^2]: {ms:.2f} ms an "
+                  f"optimizer step of {SWIN_ACCUM} micro-steps "
+                  f"({SWIN_ACCUM * SWIN_BATCH / (ms / 1e3):.1f} images/s), peak device memory "
+                  f"{peak / 2**30:.3f} GiB, loss {loss:.4f}, updates {opt.updates}")
+            if not np.isfinite(loss) or opt.updates != 3:
+                raise AssertionError(f"Swin step [{tag}]: loss {loss}, updates {opt.updates}")
+            del model, opt, step
+            torch.cuda.empty_cache()
+        err, rel, finite = _rel_err(logits["bf16"], logits["f32"])
+        print(f"  Swin-Tiny logits, AMP vs f32: max|d| {err:.3e}, rel {rel:.3e}")
+        if not finite or rel > 5e-2:
+            raise AssertionError(f"Swin AMP logits: rel {rel}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_imagefolder(os.path.join(tmp, "data"))
+        stdout = _finish_cli(_start_cli("allen_train", ["--data_path", os.path.join(tmp, "data"),
+                                                        "--epochs", "2", "--amp"], tmp),
+                             ["swin_allen_output/ckpt_epoch_0", "swin_allen_output/history.json"])
+        hist = json.load(open(os.path.join(tmp, "swin_allen_output", "history.json")))["history"]
+        if len(hist) != 2 or not all(np.isfinite(h["train_loss"]) for h in hist):
+            raise AssertionError(f"allen_train --amp: history {hist}")
+        if "training from scratch" not in stdout:
+            raise AssertionError("allen_train: expected the from-scratch fallback")
+
+    # DINO: the head over multi-crop CLS features, and LARS, card vs CPU
+    backbone = vit.init(vit.VIT_SMALL(patch_size=8), torch.Generator().manual_seed(0), "cuda")
+    head = dino.dino_head_init(384, 65536, generator=torch.Generator().manual_seed(1))
+    crops = [torch.from_numpy(rng.random((2, s, s, 3), dtype=np.float32)) for s in (224, 224)]
+    crops += [torch.from_numpy(rng.random((4, 96, 96, 3), dtype=np.float32))]
+    with exact_matmuls(), torch.no_grad():
+        feats = dino.multi_crop_forward(lambda c: vit.forward_cls(backbone, c), lambda h: h,
+                                        [c.cuda() for c in crops])
+        out = dino.dino_head_apply(head.cuda(), feats)
+        want = dino.dino_head_apply(head.cpu(), feats.cpu())
+        _compare("DINO head", "f32", out.cpu(), want, F32_TOL)
+        ps = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((1536, 384), (1536,))]
+        gs = [[torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)) for p in ps]
+              for _ in range(3)]
+        lrs = dino.cosine_scheduler(0.3, 0.01, 1, 3)
+        results = []
+        for device in ("cuda", "cpu"):
+            params = [torch.nn.Parameter(p.clone().to(device)) for p in ps]
+            opt = dino.LARS(params, weight_decay=0.04)
+            for lr, g in zip(lrs, gs):
+                opt.param_groups[0]["lr"] = float(lr)
+                for p, gi in zip(params, g):
+                    p.grad = gi.to(device)
+                opt.step()
+            results.append([p.detach().cpu() for p in params])
+        _compare("DINO LARS, 3 steps", "f32", results[0], results[1], F32_TOL)
+
 
 def main():
     import torch
@@ -1995,6 +2483,7 @@ def main():
     with pipeline.exact_matmuls():  # the plain twins' f32 matmuls too
         print("phase 1: kernels against their plain twins")
         kernels = phase_kernels()
+        ft_rows = phase_finetune_kernels(torch.Generator(device="cuda").manual_seed(1))
         probe_rows = phase_probe_kernels()
         took("phase 1")
         print("phase 2: segment_mosaic at full width")
@@ -2030,7 +2519,13 @@ def main():
     print("phase 11: the attention-analysis CLI at full width")
     phase_analysis()
     took("phase 11")
-    print(f"phases 1-11: {time.perf_counter() - phases:.1f} s (host clock)")
+    print("phase 12: the finetune, UNet and PGT flows at their CLIs' defaults")
+    ft_launches = phase_supervised()
+    took("phase 12")
+    print("phase 13: the Allen Swin classifier and the DINO components")
+    phase_allen_dino()
+    took("phase 13")
+    print(f"phases 1-13: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():
@@ -2045,6 +2540,8 @@ def main():
             path_launches = route_launches[("all three", tag)][name]
         rows.append({"name": f"{name}[{tag}]", "route": "cuda", "source": CSRC + sources[tag],
                      "replaces": replaces, "launches": path_launches, **r})
+    for r in ft_rows:  # the finetune step's instances of the training kernels
+        rows.append({**r, "launches": ft_launches[r["name"].split("[")[0]]})
     for name, r in probe_rows.items():  # the int8 route's GEMM and the tools/ probes
         if not probe_launches.get(name):
             raise AssertionError(f"{name} was not launched on its path (phases 8-9)")

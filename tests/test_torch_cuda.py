@@ -935,3 +935,71 @@ def test_vit_tiny_eval_kernel_route_matches_plain_route(cuda, monkeypatch, tmp_p
     for a, b in zip(masks, plain):
         a, b = a > 0, b > 0
         assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.99
+
+
+@pytest.mark.parametrize("layer_num", [1, 2])
+def test_finetune_step_kernel_route_matches_plain_route(cuda, layer_num):
+    """One LinearProbing Dice step (ViT-S/8 width at depth 2, 64^2, batch 2,
+    f32): the loss within rtol 1e-5 and every gradient within 1e-4 of
+    max|plain gradient| of the plain route's (the conv bias before the
+    decoder's BatchNorm, whose gradient BatchNorm cancels, within 1e-4 of
+    the largest gradient); the step launches the four
+    training kernels once a block, the eval forward the inference route's."""
+    from vit_ocm_wmsegmentation_tpu_torch.models import probing
+    from vit_ocm_wmsegmentation_tpu_torch.ops.metrics import dice_loss
+    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
+    from vit_ocm_wmsegmentation_tpu_torch.train import supervised as sup
+
+    cfg = vit.ViTConfig(depth=2, pretrain_img_size=64)
+    model = probing.init(cfg, torch.Generator().manual_seed(0), layer_num, device=cuda)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy((rng.random((2, 64, 64, 1)) > 0.5).astype(np.float32)).to(cuda)
+
+    def step():
+        loss = dice_loss(probing.apply(model, x, True), y)
+        return float(loss.detach()), torch.autograd.grad(loss, list(model.parameters()))
+
+    names = ("flash_attention", "flash_attention_bwd", "fused_mlp_block_h1", "fused_mlp_bwd")
+    before = [getattr(fa if n.startswith("flash") else fm, n).launches for n in names]
+    loss, grads = step()
+    after = [getattr(fa if n.startswith("flash") else fm, n).launches for n in names]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+    with plain_training_route():
+        ploss, pgrads = step()
+    assert abs(loss - ploss) <= 1e-5 * abs(ploss)
+    top = max(float(p.abs().max()) for p in pgrads)
+    for (name, _), g, p in zip(model.named_parameters(), grads, pgrads):
+        # BatchNorm cancels the bias of the conv before it: its gradient is
+        # 0 up to rounding, so it is held to the largest gradient's scale
+        scale = top if name == "two_layer_decoder.0.bias" else float(p.abs().max())
+        assert float((g - p).abs().max()) <= 1e-4 * max(scale, 1e-30), name
+    _, eval_step = sup.make_seg_step(probing.apply, model, sup.make_adam(model, 1e-4))
+    before = fa.attention_qkv.launches
+    eval_step(x, y)
+    assert fa.attention_qkv.launches == before + 2
+
+
+def test_teacher_pseudo_labels_kernel_route_matches_plain_route(cuda, monkeypatch):
+    """The PGT teacher (ViT-S/8 width at depth 4, batch 3 of 96^2 pieces of
+    a blob image, f32): masks of the kernel route against the plain route's,
+    Dice >= 0.99, {0, 1} valued; 3 attention, 2 LN-out and 1 plain MLP
+    launches a batch."""
+    from vit_ocm_wmsegmentation_tpu_torch.train import supervised as sup
+
+    teacher = vit.init(vit.ViTConfig(depth=4), torch.Generator().manual_seed(2), cuda)
+    rng = np.random.default_rng(1)
+    yy, xx = np.mgrid[:96, :96]
+    base = ((yy // 24 + xx // 24) % 2 * 0.5 + 0.25)[None, ..., None]
+    x = torch.from_numpy((base + rng.normal(0, 0.1, (3, 96, 96, 3))).clip(0, 1)
+                         .astype(np.float32)).to(cuda)
+    counts = (fa.attention_qkv.launches, fm.fused_mlp_block_lnout.launches,
+              fm.fused_mlp_block.launches)
+    masks = sup.teacher_pseudo_labels(teacher, x)
+    assert (fa.attention_qkv.launches - counts[0], fm.fused_mlp_block_lnout.launches - counts[1],
+            fm.fused_mlp_block.launches - counts[2]) == (3, 2, 1)
+    _plain_vit(monkeypatch)
+    plain = sup.teacher_pseudo_labels(teacher, x)
+    assert set(torch.unique(masks).tolist()) <= {0.0, 1.0}
+    a, b = masks.cpu().numpy() > 0, plain.cpu().numpy() > 0
+    assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.99

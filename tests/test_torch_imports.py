@@ -14,8 +14,12 @@ from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "vit_ocm_wmsegmentation_tpu_torch"
 # the JAX package, and the repository's tools/ (its probes import JAX; the
-# port keeps its own copies under vit_ocm_wmsegmentation_tpu_torch/tools)
-FORBIDDEN = ("jax", "jaxlib", "vit_ocm_wmsegmentation_tpu", "tools")
+# port keeps its own copies under vit_ocm_wmsegmentation_tpu_torch/tools);
+# cv2, transformers and optax, which the card's machine does not have (the
+# port reads images like cv2 in train/supervised.py, and its tests alone
+# build HF models)
+FORBIDDEN = ("jax", "jaxlib", "vit_ocm_wmsegmentation_tpu", "tools", "cv2", "transformers",
+             "optax")
 
 
 def _imported_modules(path):
@@ -41,6 +45,7 @@ def test_import_check_matches_names_exactly():
     assert _forbidden("jax.numpy") and _forbidden("vit_ocm_wmsegmentation_tpu.ops")
     assert not _forbidden("vit_ocm_wmsegmentation_tpu_torch.ops") and not _forbidden("jaxtyping")
     assert _forbidden("tools.probe_dot") and not _forbidden("vit_ocm_wmsegmentation_tpu_torch.tools")
+    assert _forbidden("cv2") and _forbidden("transformers.models") and _forbidden("optax")
     assert list(PORT.rglob("*.py")), "port package not found"
 
 

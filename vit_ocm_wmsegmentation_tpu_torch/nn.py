@@ -1,8 +1,10 @@
 """Functional layers of the port, on tensors, with the JAX package's numerics.
 
 Counterpart of ``vit_ocm_wmsegmentation_tpu/nn.py``: LayerNorm with biased
-variance and f32 statistics, exact-erf GELU, and the patch split whose
-``(ph, pw, c)`` order matches the converted patch-embed weight.
+variance and f32 statistics, exact-erf GELU, the patch split whose
+``(ph, pw, c)`` order matches the converted patch-embed weight, and the
+conv, transposed-conv, BatchNorm and pooling layers of the UNet and the
+probing decoder with torch's default inits.
 """
 
 from __future__ import annotations
@@ -71,3 +73,57 @@ def torch_linear_init(weight, bias, generator=None):
         weight.uniform_(-bound, bound, generator=generator)
         bias.uniform_(-bound, bound, generator=generator)
     return weight, bias
+
+
+# ---------------------------------------------------------------------------
+# Convolutions, BatchNorm and pooling (the JAX package's nn.py:93-230)
+#
+# The models hold nn.Conv2d / nn.ConvTranspose2d / nn.BatchNorm2d in torch's
+# own layouts and compute in NCHW inside (F.conv2d, F.conv_transpose2d,
+# F.max_pool2d, :func:`batch_norm`), NHWC at their boundary as the JAX
+# package's layers take it. A ConvTranspose2d's (Cin, Cout, kh, kw) weight is
+# the JAX package's HWIO kernel spatially flipped:
+# weight = kernel[::-1, ::-1].transpose(2, 3, 0, 1).
+# ---------------------------------------------------------------------------
+
+
+def nchw(x):
+    """(B, H, W, C) -> (B, C, H, W)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x):
+    """(B, C, H, W) -> (B, H, W, C)."""
+    return x.permute(0, 2, 3, 1)
+
+
+def batch_norm(x, bn, train: bool):
+    """nn.BatchNorm2d ``bn`` over dim 1 of an NCHW tensor with the JAX
+    package's numerics: statistics in f32 whatever x's dtype (the running
+    buffers stay f32), the running variance unbiased and the normalization
+    biased, momentum and eps from ``bn`` (0.1, 1e-5). In training the
+    running statistics update in place, as nn.BatchNorm2d's do."""
+    if train:
+        bn.num_batches_tracked.add_(1)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    y = F.batch_norm(x.to(wide), bn.running_mean, bn.running_var, bn.weight.to(wide),
+                     bn.bias.to(wide), train, bn.momentum, bn.eps)
+    return y.to(x.dtype)
+
+
+def conv_init(conv, generator=None):
+    """nn.Conv2d / nn.ConvTranspose2d default init, drawn from ``generator``:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias, where fan_in is
+    the product of the weight's dims after the first. For ConvTranspose2d,
+    whose weight is (Cin, Cout, kh, kw), that is Cout*kh*kw, as torch counts
+    it."""
+    return torch_linear_init(conv.weight, conv.bias, generator)
+
+
+def batch_norm_init(bn):
+    """Scale 1, bias 0, running mean 0, running variance 1, count 0."""
+    with torch.no_grad():
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+    bn.reset_running_stats()
+    return bn

@@ -47,6 +47,14 @@ from .optim import Optimizer, global_norm
 from .schedule import build_schedule
 
 
+def amp_cast(params: dict) -> dict:
+    """The AMP rule: bf16 compute copies of the f32 tensors of ``params``
+    (name -> tensor), other dtypes unchanged. The casts' backward returns
+    the gradients in f32 to the master weights. Shared by the MIM step and
+    the Allen classifier's (train/classifier.py)."""
+    return {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p for n, p in params.items()}
+
+
 def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
                     routes: TrainRoutes = TrainRoutes()):
     """step(x (B, H, W, 3), mask (B, gh, gw)) -> (loss, grad norm), both
@@ -55,8 +63,7 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
     selects the opt-in kernel routes (:func:`train_routes`)."""
     def step(x, mask):
         if amp:
-            live = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-                    for n, p in model.named_parameters()}
+            live = amp_cast(dict(model.named_parameters()))
             loss, _, _ = torch.func.functional_call(model, live,
                                                     (x.to(torch.bfloat16), mask, remat, routes))
         else:
