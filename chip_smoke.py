@@ -159,7 +159,24 @@ and then, failing on the first phase that fails:
    synthetic imagefolder (checkpoint, history.json); holds a DINO head over
    multi-crop ViT-S/8 CLS features and three LARS steps on the card against
    the CPU (within 1e-5);
-14. prints the per-kernel JSON line, then the result line
+14. runs the multi-device paths (parallel/): (a) ``torch.cuda.device_count()``
+   ranks spawned on NCCL, one a card: the collectives on card tensors
+   (all-reduce, all-gather, reduce-scatter, broadcast, and a ring of sends
+   with two or more cards), then ``sw_processing --mesh 1`` on phase 3's
+   three bf16 1152^2 mosaics, masks equal to phase 3's; (b) 2 ranks on
+   cuda:0 over gloo, the collectives staged through host memory (NCCL
+   refuses two ranks on one card): ``parallel.dryrun.dryrun_multichip`` at
+   full width, ViT-S/8 on the 1152^2 mosaic in f32 and bf16 and the
+   streamed 2048^2 mosaic, masks bit-equal to one rank's and attention
+   within 5e-3, and the MIM step at phase 4's geometry with the dry run's
+   ``> 0.5`` mask in f32 and AMP bf16 on DP, FSDP, PP (2 stages, 4
+   microbatches) and data 1 x model 2 (the MIM ViT with 6 heads of 64 there;
+   in f32 also with every masked L1 residual's sign taken from the one-rank
+   step), each against the single-rank step on the card; each rank's launches of
+   rows 1-3, 3h, 5, 6, 8 and 4 on each path (exact counts), the FSDP bytes at
+   rest against one rank's. Two ranks on one card measure correctness, not
+   scaling;
+15. prints the per-kernel JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits non-zero, with no result line, when no CUDA device is available or
@@ -266,6 +283,17 @@ STREAM_SIZE, STREAM_BANDS = 8192, 62  # (8192-384)/128+1 = 62 tiles per axis: 38
 STREAM_LAUNCHES = {**{k: v * STREAM_BANDS for k, v in MOSAIC_LAUNCHES.items()},
                    "histogram_u8_kernel": 1}
 BAND_SIZE = 2048  # 14 tiles per axis: 196 tiles in 14 bands
+# phase 14 (b): each rank's launches on the dry run's paths (2 ranks): the
+# mosaic's 49 tiles pad to 25 a rank, one chunk; each of the 14 bands of the
+# 2048^2 mosaic gives a rank 7 tiles; the step's 4 blocks run on every rank
+# (dp, FSDP) or 2 a stage for each of 4 microbatches (pp); tp takes the
+# stock routes
+MD_LAUNCHES = {"fused mosaic [f32]": MOSAIC_LAUNCHES, "fused mosaic [bf16]": MOSAIC_LAUNCHES,
+               "streamed mosaic [f32]": {**{k: v * 14 for k, v in MOSAIC_LAUNCHES.items()},
+                                         "histogram_u8_kernel": 1},
+               **{f"{mode} [{tag}]": want for tag in ("f32", "bf16") for mode, want in (
+                   ("dp", MIM_LAUNCHES), ("fsdp", MIM_LAUNCHES), ("dp x tp", {}),
+                   ("pp", {k: 2 * v for k, v in MIM_LAUNCHES.items()}))}}
 EVAL_N, EVAL_SIZE = 16, 384  # phase 10's labeled set: 48*48 patches + CLS = TOKENS
 # one get_intermediate_layers(n=4) call: blocks 0-7 as one LN-out span, then
 # each of the last 4 alone (LN1, attention, plain fused MLP)
@@ -941,6 +969,7 @@ def phase_serving(model_bf16):
         print(f"  served 3 mosaics in {time.perf_counter() - t0:.2f} s (host clock)")
         if sorted(masks) != [f"mosaic{i}" for i in range(3)]:
             raise AssertionError(f"served {sorted(masks)}")
+        served = {}
         for name, mask in masks.items():
             path = os.path.join(dst, name, "otsu_sw.jpg")
             if not os.path.isfile(path):
@@ -952,7 +981,113 @@ def phase_serving(model_bf16):
             want, _ = pl.segment_mosaic(model_bf16, gray, WINDOW, STRIDE, dtype=torch.bfloat16)
             if not np.array_equal(want.cpu().numpy(), mask):
                 raise AssertionError(f"{name}: served mask differs from segment_mosaic's")
+            served[name] = mask
     print("  served masks equal segment_mosaic's")
+    return served
+
+
+def _write_served_mosaics(src):
+    """Phase 3's three mosaics, as PNGs in ``src``."""
+    from PIL import Image
+
+    os.makedirs(src)
+    for i in range(3):
+        rng = np.random.default_rng(i + 1)
+        Image.fromarray((rng.random((SIZE, SIZE)) * 255).astype(np.uint8)).save(
+            os.path.join(src, f"mosaic{i}.png"))
+
+
+def _nccl_rank(src, dst):
+    """Phase 14 (a), on each NCCL rank: the collectives on card tensors,
+    then the serving CLI with --mesh 1. Returns (collective results, masks,
+    launches of the serving run)."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import sw_processing as sw
+    from vit_ocm_wmsegmentation_tpu_torch.parallel import mesh as pm
+
+    rank, world = pm.process_rank(), pm.world_size()
+    dev = pm.rank_device()
+    mesh = pm.make_mesh()
+    res = {"device": str(dev), "backend": pm.backend(), "world": world}
+    t = torch.full((4,), float(rank + 1), device=dev)
+    res["all_reduce"] = pm.all_reduce(t.clone(), mesh, "data").cpu()
+    res["all_gather"] = pm.all_gather(torch.full((2, 3), float(rank), device=dev), mesh,
+                                      "data").cpu()
+    res["reduce_scatter"] = pm.reduce_scatter(
+        torch.arange(2.0 * world, device=dev) * (rank + 1), mesh, "data").cpu()
+    res["broadcast"] = pm.broadcast(torch.full((3,), float(rank), device=dev), mesh, "data",
+                                    world - 1).cpu()
+    if world > 1:
+        h = pm.send(torch.full((2,), float(rank), device=dev), mesh, "data", (rank + 1) % world)
+        res["ring"] = pm.recv(torch.empty(2, device=dev), mesh, "data", (rank - 1) % world).cpu()
+        h.wait()
+    torch.cuda.synchronize()
+    reset_counts()
+    masks = sw.main(["--image_path", src, "--output_dir", dst, "--bf16", "1", "--save", "mask",
+                     "--device", "cuda", "--mesh", "1"])
+    torch.cuda.synchronize()
+    return res, masks, {k: v for k, v in launch_counts().items() if v}
+
+
+def phase_multi_device(served):
+    """Phase 14: (a) NCCL, one rank a card; (b) the dry run on 2 gloo ranks
+    sharing cuda:0."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        _write_served_mosaics(src)
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(_nccl_rank, n, src, dst, backend="nccl", threads=None,
+                             timeout_s=600)
+        print(f"  (a) {n} NCCL rank(s), one a card: {time.perf_counter() - t0:.1f} s "
+              f"(host clock, process start included)")
+        for rank, (res, masks, launches) in enumerate(ranks):
+            w = res["world"]
+            want = {"all_reduce": torch.full((4,), w * (w + 1) / 2),
+                    "all_gather": torch.arange(float(w)).repeat_interleave(2)[:, None].expand(
+                        2 * w, 3),
+                    "reduce_scatter": torch.arange(2.0 * w)[2 * rank: 2 * rank + 2] * w * (w + 1)
+                    / 2, "broadcast": torch.full((3,), float(w - 1))}
+            if w > 1:
+                want["ring"] = torch.full((2,), float((rank - 1) % w))
+            for k, v in want.items():
+                if not torch.equal(res[k], v):
+                    raise AssertionError(f"NCCL rank {rank} {k}: {res[k]} != {v}")
+            print(f"  rank {rank} on {res['device']}, backend {res['backend']}, world {w}: "
+                  f"collectives on card tensors equal their sums; serving launches {launches}")
+            want_launches = {k: 3 * v for k, v in MOSAIC_LAUNCHES.items()}
+            if launches != want_launches:
+                raise AssertionError(f"NCCL rank {rank} serving launches {launches} != "
+                                     f"{want_launches}")
+            if sorted(masks) != sorted(served):
+                raise AssertionError(f"NCCL rank {rank} served {sorted(masks)}")
+            for name, mask in masks.items():
+                if not np.array_equal(mask, served[name]):
+                    raise AssertionError(f"NCCL rank {rank}: {name}'s mask differs from phase 3's")
+        print(f"  sw_processing --mesh 1 on {n} NCCL rank(s): the 3 masks equal phase 3's")
+    t0 = time.perf_counter()
+    reports = dryrun.dryrun_multichip(2, "gloo", "cuda:0", full=True, threads=None,
+                                      timeout_s=900)
+    print(f"  (b) dryrun_multichip on 2 gloo ranks sharing cuda:0: "
+          f"{time.perf_counter() - t0:.1f} s (host clock, process start included)")
+    for r in reports:
+        for what, want in MD_LAUNCHES.items():
+            got = {k: v for k, v in r["launches"][what].items() if v}
+            if got != want:
+                raise AssertionError(f"rank {r['rank']} {what}: launches {got} != {want}")
+    single = reports[0]["bytes"]["single [f32]"]
+    for what in ("fsdp [f32]", "fsdp [bf16]"):
+        frac = reports[0]["bytes"][what] / single
+        print(f"  FSDP bytes at rest on rank 0, {what}: {reports[0]['bytes'][what]} of one "
+              f"rank's {single} ({frac:.4f})")
+        if not frac < 0.55:
+            raise AssertionError(f"FSDP {what}: rank 0 holds {frac:.4f} of one rank's bytes")
+    print("  every rank launched each kernel of its paths the expected number of times")
 
 
 def _streamed_call(model, img, dtype, **kw):
@@ -2490,7 +2625,7 @@ def main():
         launches, models = phase_slice()
         took("phase 2")
         print("phase 3: directory serving")
-        phase_serving(models["bf16"])
+        served = phase_serving(models["bf16"])
         took("phase 3")
         print("phase 4: the MIM step at full width")
         mim = phase_mim()
@@ -2525,7 +2660,10 @@ def main():
     print("phase 13: the Allen Swin classifier and the DINO components")
     phase_allen_dino()
     took("phase 13")
-    print(f"phases 1-13: {time.perf_counter() - phases:.1f} s (host clock)")
+    print("phase 14: the multi-device paths")
+    phase_multi_device(served)
+    took("phase 14")
+    print(f"phases 1-14: {time.perf_counter() - phases:.1f} s (host clock)")
 
     rows = []
     for (name, tag), r in kernels.items():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from vit_ocm_wmsegmentation_tpu_torch import build
 from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
 from vit_ocm_wmsegmentation_tpu_torch.models import vit
 from vit_ocm_wmsegmentation_tpu_torch.ops import flash_attention as fa
@@ -33,6 +34,16 @@ def cuda():
         pytest.skip("needs a CUDA device")
     with pl.exact_matmuls():
         yield torch.device("cuda")
+
+
+def test_launch_helper_refuses_another_card_than_the_current(cuda):
+    """Every kernel launch asks build.stream_ptr for its stream; a tensor on
+    another card than the current device is refused before anything runs
+    there (the launchers set attributes on the current device)."""
+    here = torch.cuda.current_device()
+    assert build.stream_ptr(torch.device("cuda", here)) == torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="current CUDA device"):
+        build.stream_ptr(torch.device("cuda", here + 1))
 
 
 def _close(got, want, dtype):

@@ -13,6 +13,7 @@ from vit_ocm_wmsegmentation_tpu.ops import threshold as jth
 from vit_ocm_wmsegmentation_tpu_torch import pipeline as tpl
 from vit_ocm_wmsegmentation_tpu_torch.ops import stitch as tst
 from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as tth
+from vit_ocm_wmsegmentation_tpu_torch.parallel.mesh import make_mesh
 
 from port_helpers import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_pipeline import JCFG, STRIDE, WINDOW, _mosaic, _otsu_of_blend, _weights
@@ -183,12 +184,19 @@ def test_streamed_odd_size_pads():
 
 
 def test_streamed_refuses_unported_options():
+    """single_dispatch (a TPU dispatch) raises; a mesh of one rank, the
+    mesh of a process without a group, leaves canvas and mask unchanged
+    (the sharded path on several ranks: tests/test_torch_parallel.py)."""
     _, model = _weights(52)
     img = _mosaic(0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tpl.segment_mosaic_streamed(model, img, WINDOW, STRIDE, single_dispatch=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tpl.segment_mosaic_streamed(model, img, WINDOW, STRIDE, mesh=object())
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1, "model": 1}
+    want = tpl.segment_mosaic_streamed(model, img, WINDOW, STRIDE)
+    got = tpl.segment_mosaic_streamed(model, img, WINDOW, STRIDE, mesh=mesh)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="band_chunk"):
         tpl.segment_mosaic_streamed(model, img, WINDOW, STRIDE, band_chunk=0)
     with pytest.raises(ValueError, match="multiple of stride"):

@@ -242,12 +242,20 @@ def test_mim_cli_trains_and_resumes_on_cpu(tmp_path):
 
 
 def test_mim_cli_refuses_what_is_not_ported(tmp_path):
-    base = ["--image_path", str(tmp_path), "--device", "cpu", "--output", str(tmp_path / "o"),
-            "--output_dir", str(tmp_path / "l")]
-    with pytest.raises(NotImplementedError, match="PP_STAGES"):
+    """One process: TRAIN.PP_STAGES 2 has no ranks to divide into stages and
+    raises; TRAIN.FSDP has no 'data' axis to shard over and is ignored with
+    a warning in the log, as the JAX trainer does (the multi-rank paths:
+    tests/test_torch_parallel_cli.py)."""
+    src = _write_images(tmp_path / "imgs", 4)
+    base = ["--image_path", src, "--image_size", "32", "--mask_patch_size", "8",
+            "--batch_size", "4", "--epochs", "1", "--warmup_epochs", "0", "--device", "cpu",
+            "--output", str(tmp_path / "o"), "--output_dir", str(tmp_path / "l")]
+    with pytest.raises(ValueError, match="PP_STAGES=2 does not divide 1 ranks"):
         mim.main(base + ["--opts", "TRAIN.PP_STAGES", "2"])
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        mim.main(base + ["--opts", "TRAIN.FSDP", "True"])
+    _, hist = mim.main(base + ["--opts", "TRAIN.FSDP", "True"])
+    assert len(hist) == 1 and np.isfinite(hist).all()
+    logs = "".join(p.read_text() for p in tmp_path.rglob("log_rank0.txt"))
+    assert "TRAIN.FSDP=True ignored: no multi-rank 'data' axis" in logs
 
 
 def test_remat_keeps_gradients():

@@ -7,12 +7,15 @@ lives in ``_build/`` beside this file, named by a hash of the sources and
 flags, so a fresh checkout builds it at first use and later processes reuse
 it. Nothing is built when the package is imported: :func:`library` builds on
 its first call, which only the kernel wrappers make, and only for CUDA
-tensors.
+tensors. Processes started together (the ranks of a process group) serialize
+the build on an ``fcntl`` lock file beside the library: the first builds, the
+others wait and load what it built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -138,11 +141,17 @@ def library():
         seconds = 0.0
         if not os.path.isfile(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            report = _compile([s for s in srcs if s.endswith(".cu")], so)
-            seconds = time.perf_counter() - t0
-            with open(log, "w") as f:
-                f.write(report)
+            with open(so + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                try:
+                    if not os.path.isfile(so):  # else built by the holder before us
+                        t0 = time.perf_counter()
+                        report = _compile([s for s in srcs if s.endswith(".cu")], so)
+                        seconds = time.perf_counter() - t0
+                        with open(log, "w") as f:
+                            f.write(report)
+                finally:
+                    fcntl.flock(lock, fcntl.LOCK_UN)
         ptxas = open(log).read() if os.path.isfile(log) else ""
         build_info.update(seconds=seconds, path=so, ptxas=ptxas)
         _lib = _declare(ctypes.CDLL(so))
@@ -156,4 +165,14 @@ def check(rc: int, what: str):
 
 
 def stream_ptr(device) -> int:
+    """The current stream of ``device``, for a kernel launch. Every launch
+    asks for it, so this is where a launch is refused when the tensors lie
+    on another card than the calling thread's current device: the launchers
+    set their kernels' attributes and query the device on the current one
+    (``parallel.mesh.init_distributed`` sets it for each rank)."""
+    device = torch.device(device)
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise RuntimeError(f"kernel launch on {device} while the current CUDA device is "
+                           f"cuda:{torch.cuda.current_device()}: call "
+                           f"torch.cuda.set_device({device.index}) first")
     return torch.cuda.current_stream(device).cuda_stream

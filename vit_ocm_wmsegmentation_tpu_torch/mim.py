@@ -1,6 +1,7 @@
-"""Masked-image-modeling pretraining of the ViT on OCM patches, on one device.
+"""Masked-image-modeling pretraining of the ViT on OCM patches.
 
     python -m vit_ocm_wmsegmentation_tpu_torch.mim --image_path <dir> [flags]
+    torchrun --nproc_per_node N -m vit_ocm_wmsegmentation_tpu_torch.mim --image_path <dir> [flags]
 
 The port's counterpart of the repository's root ``mim.py``: the same flags
 and config keys (``--opts KEY VALUE`` last), plus ``--device`` (default
@@ -16,6 +17,16 @@ encoder on a labeled set after every epoch (``evaluation.validate`` with
 ``--roi_masking`` masks only the image's foreground ROIs, and ``--opts
 DATA.DEVICE_AUG True`` runs the augmentation on the device (the host loader
 is kept, with a warning, under ``--roi_masking``).
+
+Under torchrun the ranks form one process group (NCCL on the cards, gloo
+with ``--device cpu``) and train together, as the root ``mim.py`` takes
+every device: data parallel over all ranks, each rank drawing the same
+global batch from the same seeded loader and keeping its rows;
+``--opts TRAIN.FSDP True`` shards the parameters and Adam moments over them,
+``TRAIN.PP_STAGES S`` pipelines the block stack over S stages
+(``TRAIN.PP_MICROBATCHES``). Rank 0 logs to the console, writes the
+checkpoints and the W&B files, and runs the eval; every rank writes its
+``log_rank<N>.txt``.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch
 
 from . import evaluation
 from .data.datasets import build_eval_samples, build_simmim_device_loader, build_simmim_loader
+from .parallel.mesh import init_distributed, make_mesh
 from .sw_processing import resolve_device
 from .train.mim_trainer import train_mim
 from .utils.config import get_config
@@ -73,14 +85,17 @@ def main(argv=None):
     """Train; returns (model, per-epoch mean losses)."""
     args, cfg = parse_option(argv)
     device = resolve_device(args.device)
-    logger = create_logger(cfg.DATA.OUTPUT_DIR, name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
+    rank, world = init_distributed("nccl" if device.type == "cuda" else "gloo")
+    logger = create_logger(cfg.DATA.OUTPUT_DIR, dist_rank=rank,
+                           name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
     # the reference's seeding (utils.py:21-27); the model's init draws from
     # its own generator seeded with cfg.SEED
     random.seed(cfg.SEED)
     os.environ["PYTHONHASHSEED"] = str(cfg.SEED)
     np.random.seed(cfg.SEED)
     torch.manual_seed(cfg.SEED)
-    wandb, use_wandb = get_wandb(bool(cfg.WANDB), output_dir=cfg.DATA.OUTPUT_DIR)
+    # every rank knows whether W&B is on; rank 0 alone writes its files
+    wandb, use_wandb = get_wandb(bool(cfg.WANDB) and rank == 0, output_dir=cfg.DATA.OUTPUT_DIR)
     if use_wandb:
         wandb.init(project="mim", name=f"{cfg.TAG}_{cfg.DATA.IMG_SIZE}_{cfg.DATA.BATCH_SIZE}B",
                    config=dict(cfg))
@@ -105,8 +120,9 @@ def main(argv=None):
                                 median_size=int(cfg.median_filter), logger=logger,
                                 wandb=wandb if use_wandb else None, epoch=epoch)
 
-    out = train_mim(cfg, loader, eval_fn, device=device, logger=logger, use_wandb=use_wandb,
-                    wandb=wandb if use_wandb else None)
+    out = train_mim(cfg, loader, eval_fn, device=device, logger=logger,
+                    use_wandb=bool(cfg.WANDB), wandb=wandb if use_wandb else None,
+                    mesh=make_mesh() if world > 1 else None)
     if use_wandb:
         wandb.finish()
     return out

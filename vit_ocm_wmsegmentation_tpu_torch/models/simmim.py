@@ -43,9 +43,10 @@ class SimMIM(nn.Module):
             nn.Conv2d(cfg.embed_dim, cfg.patch_size ** 2 * 3, kernel_size=1),
             nn.PixelShuffle(cfg.patch_size))
 
-    def forward(self, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
+    def forward(self, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes(),
+                pix_count=None):
         """(loss, x_rec, pixel mask) of :func:`mim_loss`."""
-        return mim_loss(self, x, mask, remat, routes)
+        return mim_loss(self, x, mask, remat, routes, pix_count)
 
 
 def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None) -> SimMIM:
@@ -106,17 +107,25 @@ def reconstruct(model: SimMIM, x, mask, remat: bool = False,
     return decode_grid(model, encode(model, x, mask, remat, routes))
 
 
-def masked_l1(x, x_rec, mask, p: int):
+def masked_l1(x, x_rec, mask, p: int, pix_count=None):
     """model.py:71-77's loss: (loss, pixel mask (B, H, W, 1)). The sums run
-    in f32 whatever the compute dtype, as the JAX package reduces them."""
+    in f32 whatever the compute dtype, as the JAX package reduces them.
+    ``pix_count`` (f32, 0-dim) replaces the mask's own pixel sum as the
+    denominator: a rank of a data-parallel step passes the whole batch's,
+    so that the ranks' losses sum to the single-device loss (the global
+    masked mean, whatever each shard's mask count)."""
     pix_mask = mask.repeat_interleave(p, 1).repeat_interleave(p, 2).to(x.dtype)[..., None]
     l1 = (x - x_rec).abs()
-    loss = (l1 * pix_mask).float().sum() / (pix_mask.float().sum() + 1e-5) / 3.0
+    if pix_count is None:
+        pix_count = pix_mask.float().sum()
+    loss = (l1 * pix_mask).float().sum() / (pix_count + 1e-5) / 3.0
     return loss, pix_mask
 
 
-def mim_loss(model: SimMIM, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
-    """(loss, x_rec, pixel mask): masked L1 / mask area / 3."""
+def mim_loss(model: SimMIM, x, mask, remat: bool = False, routes: TrainRoutes = TrainRoutes(),
+             pix_count=None):
+    """(loss, x_rec, pixel mask): masked L1 / mask area / 3 (the area
+    ``pix_count`` when given, :func:`masked_l1`)."""
     x_rec = reconstruct(model, x, mask, remat, routes)
-    loss, pix_mask = masked_l1(x, x_rec, mask, model.cfg.patch_size)
+    loss, pix_mask = masked_l1(x, x_rec, mask, model.cfg.patch_size, pix_count)
     return loss, x_rec, pix_mask

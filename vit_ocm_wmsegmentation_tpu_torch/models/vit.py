@@ -440,6 +440,10 @@ class TrainRoutes:
     # of the JAX package's XLA remat routes, "none", "gelu" or "gelu+ln"
     # (:func:`mlp_remat`)
     mlp: str = "kernel"
+    # tensor parallelism: a parallel.mesh.TensorParallel over the mesh's
+    # 'model' axis, or None; with it every block takes block_forward_tp and
+    # the routes above do not apply
+    tp: object = None
 
     def __post_init__(self):
         if self.mlp not in ("kernel",) + MLP_REMAT_MODES:
@@ -485,17 +489,43 @@ def block_forward_train(blk, cfg: ViTConfig, x, routes: TrainRoutes = TrainRoute
     return out.reshape(b, n, d)
 
 
-def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes = TrainRoutes()):
-    """Every block on the training route, the stream unpadded. ``remat``
-    (TRAIN.USE_CHECKPOINT) recomputes each block's activations in the
-    backward (torch.utils.checkpoint), trading FLOPs for memory; ``routes``
-    selects the opt-in kernel routes."""
-    for blk in model.blocks:
+def block_forward_tp(blk, cfg: ViTConfig, x, tp):
+    """One block under tensor parallelism over ``tp.size`` ranks (the
+    Megatron split of parallel.mesh.vit_param_sharding: this rank holds
+    cfg.num_heads / tp.size heads of qkv and their columns of proj, and
+    its slice of fc1's rows and fc2's columns). The stock routes, as the JAX
+    package takes for tp > 1: the materialized attention of ops/attention.mha
+    and the plain MLP of :func:`_mlp_stock`, each row-split product's partial
+    sums summed over the ranks before its bias and the residual. The fused
+    MLP kernel cannot take the split: fc2's partial sums have to be summed
+    before the residual and the next LayerNorm."""
+    heads = cfg.num_heads // tp.size
+    a, m = blk.attn, blk.mlp
+    h = tp.enter(tnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps))
+    y = att.mha(h, a.qkv.weight, a.qkv.bias, a.proj.weight, torch.zeros_like(a.proj.bias), heads)
+    x = x + (tp.exit(y) + a.proj.bias.to(x.dtype))
+    h = tp.enter(F.layer_norm(x, (x.shape[-1],), blk.norm2.weight, blk.norm2.bias, cfg.ln_eps))
+    y = F.linear(F.gelu(F.linear(h, m.fc1.weight, m.fc1.bias)), m.fc2.weight)
+    return x + (tp.exit(y) + m.fc2.bias.to(x.dtype))
+
+
+def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes = TrainRoutes(),
+                     lo: int = 0, hi: int | None = None):
+    """Blocks [lo, hi) (all by default) on the training route, the stream
+    unpadded. ``remat`` (TRAIN.USE_CHECKPOINT) recomputes each block's
+    activations in the backward (torch.utils.checkpoint), trading FLOPs for
+    memory; ``routes`` selects the opt-in kernel routes, or with
+    ``routes.tp`` the tensor-parallel blocks (:func:`block_forward_tp`)."""
+    if routes.tp is not None:
+        fwd, arg = block_forward_tp, routes.tp
+    else:
+        fwd, arg = block_forward_train, routes
+    for blk in model.blocks[lo:hi]:
         if remat:
-            tok = torch.utils.checkpoint.checkpoint(block_forward_train, blk, model.cfg, tok,
-                                                    routes, use_reentrant=False)
+            tok = torch.utils.checkpoint.checkpoint(fwd, blk, model.cfg, tok, arg,
+                                                    use_reentrant=False)
         else:
-            tok = block_forward_train(blk, model.cfg, tok, routes)
+            tok = fwd(blk, model.cfg, tok, arg)
     return tok
 
 

@@ -10,6 +10,12 @@ gather, the ViT over the tile batch, per-tile min-max normalization and
 bilinear smoothing, the ramp-blended overlap-add stitch, and the
 multiplicative Otsu threshold. Everything runs on the device of the input
 tensors; nothing returns to the host between the gather and the mask.
+
+With a ``mesh`` (parallel.mesh.make_mesh), the tiles of a mosaic, or of a
+band, shard over the mesh's 'data' axis: each rank runs the ViT on its
+share, padded with zero tiles to a multiple of the axis, and the per-tile
+maps are all-gathered, so that every rank stitches and thresholds the same
+maps and returns the same mask, as the JAX package's replicated output is.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from .ops import stitch as st
 from .ops import threshold as th
 from .ops.filters import median_filter
 from .ops.resize import resize_linear_cv2, smooth_attention, upsample_nearest
+from .parallel.mesh import gather_rows, local_rows
 
 # tiles per ViT call: bounds the per-block (T, N, 3D) qkv temporaries for
 # large mosaics; the 1152^2 mosaic's 49 tiles run as one batch
@@ -163,32 +170,45 @@ def _per_tile_attention(model, tiles_u8, window, median_size=1, dtype=torch.floa
     return resize_linear_cv2(g, (window, window))
 
 
+def _tile_maps(model, tiles, window, median_size, dtype, routes, mesh):
+    """:func:`_per_tile_attention` over a tile batch in TILE_CHUNK chunks;
+    with a mesh, this rank's padded share of the tiles, the maps of every
+    rank gathered after (module docstring)."""
+    t = tiles.shape[0]
+    if mesh is not None:
+        tiles = local_rows(tiles, mesh, pad=True)
+    maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
+                                          median_size, dtype, routes)
+                      for i in range(0, tiles.shape[0], TILE_CHUNK)])
+    return maps if mesh is None else gather_rows(maps, mesh, t)
+
+
 @torch.inference_mode()
 def attention_mosaic(model, img_u8, window=384, stride=128, median_size=1,
-                     dtype=torch.float32, routes=vit.InferRoutes()):
+                     dtype=torch.float32, routes=vit.InferRoutes(), mesh=None):
     """Full-mosaic attention map: (H, W) uint8 -> (H, W) float32, the ViT on
-    the inference ``routes`` (models.vit.InferRoutes: --infer_mlp, --quant)."""
+    the inference ``routes`` (models.vit.InferRoutes: --infer_mlp, --quant),
+    the tiles sharded over ``mesh``'s 'data' axis when one is given."""
     validate_window_geometry(window, stride)
     padded, (h, w) = pad_mosaic(img_u8, window, stride)
     tiles = mosaic_tiles(padded, window, stride)
     with exact_matmuls():
-        maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
-                                              median_size, dtype, routes)
-                          for i in range(0, tiles.shape[0], TILE_CHUNK)])
+        maps = _tile_maps(model, tiles, window, median_size, dtype, routes, mesh)
     return st.stitch_blended(maps, window, stride, padded.shape)[:h, :w]
 
 
 @torch.inference_mode()
 def segment_mosaic(model, img_u8, window=384, stride=128, median_size=1,
-                   dtype=torch.float32, exact_stitch=False, routes=vit.InferRoutes()):
+                   dtype=torch.float32, exact_stitch=False, routes=vit.InferRoutes(), mesh=None):
     """Mosaic white-matter mask, the sw_processing.py end-to-end flow.
 
     Returns (mask uint8 {0,255}, attention (H, W) float32). By default the
     threshold reads the original mosaic; ``exact_stitch=True`` reads the
     reference's re-stitched uint8 image instead (ops.stitch.restitch_u8),
     bit-exactly as the reference computes it. ``routes`` selects the ViT's
-    inference routes (models.vit.InferRoutes)."""
-    attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype, routes)
+    inference routes (models.vit.InferRoutes); ``mesh`` shards the tiles
+    (module docstring)."""
+    attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype, routes, mesh)
     timg = img_u8
     if exact_stitch:
         padded, (h, w) = pad_mosaic(img_u8, window, stride)
@@ -209,7 +229,7 @@ DEFAULT_BAND_CHUNK = 8
 
 
 def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, median_size,
-                      dtype, routes=vit.InferRoutes()):
+                      dtype, routes=vit.InferRoutes(), mesh=None):
     """Process the row of tiles starting at mosaic row y0 and add its
     weighted attention strip into the (H, W) f32 canvas ``acc`` in place
     (the torch counterpart of the JAX package's donated canvas).
@@ -218,12 +238,10 @@ def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, media
     wy_row (window,) is this row's vertical blend profile and wx (J, window)
     the horizontal ones, both f32 on the device. As in the JAX package the
     maps are multiplied by wy_row first, then overlap-added with ones on y
-    and wx on x."""
+    and wx on x. With a mesh the row's tiles shard over its 'data' axis."""
     strip = img_dev[y0 : y0 + window]
     tiles = strip.unfold(1, window, stride).permute(1, 0, 2)  # (J, window, window)
-    maps = torch.cat([_per_tile_attention(model, tiles[i : i + TILE_CHUNK], window,
-                                          median_size, dtype, routes)
-                      for i in range(0, tiles.shape[0], TILE_CHUNK)])
+    maps = _tile_maps(model, tiles, window, median_size, dtype, routes, mesh)
     ones = torch.ones((1, window), dtype=torch.float32, device=acc.device)
     band = st.overlap_add(maps * wy_row[None, :, None], ones, wx, window, stride,
                           (window, acc.shape[1]))
@@ -250,14 +268,14 @@ def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1
     (None = DEFAULT_BAND_CHUNK) pass between two ``progress(done, total)``
     calls; canvas and mask do not depend on it. The attention agrees with
     segment_mosaic's to float tolerance (the canvas sums band by band where
-    the fused stitch sums shifted blocks). ``single_dispatch`` and ``mesh``
-    are the JAX package's TPU dispatch and multi-chip options and raise.
-    ``routes`` selects the ViT's inference routes (models.vit.InferRoutes).
-    Returns (mask (H, W) uint8 {0,255}, attention (H, W) float32)."""
+    the fused stitch sums shifted blocks). ``mesh`` shards each band's row of
+    tiles over its 'data' axis; the uint8 mosaic and the f32 canvas stay
+    whole on every rank (module docstring). ``single_dispatch`` is the JAX
+    package's one-dispatch TPU sweep and raises. ``routes`` selects the ViT's
+    inference routes (models.vit.InferRoutes). Returns (mask (H, W) uint8
+    {0,255}, attention (H, W) float32)."""
     if single_dispatch:
         raise NotImplementedError("single_dispatch is not ported yet")
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-device streaming) is not ported yet")
     if band_chunk is None:
         band_chunk = DEFAULT_BAND_CHUNK
     if band_chunk < 1:
@@ -276,7 +294,7 @@ def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1
     with exact_matmuls():
         for r, y0 in enumerate(ys):
             _band_update_impl(model, padded, acc, int(y0), wy[r], wx, window, stride,
-                              median_size, dtype, routes)
+                              median_size, dtype, routes, mesh)
             if progress is not None and ((r + 1) % band_chunk == 0 or r + 1 == len(ys)):
                 progress(r + 1, len(ys))
     attn = acc[:h, :w]

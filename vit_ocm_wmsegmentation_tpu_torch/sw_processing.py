@@ -16,6 +16,13 @@ path (``--streamed``). ``--infer_mlp`` and ``--quant int8`` select the
 ViT's inference routes (models.vit.InferRoutes). The flags follow the repository's root
 ``sw_processing.py`` where they apply. The device is ``--device`` (default
 ``cuda``); a missing device raises, the CPU is taken only when asked for.
+
+Under ``torchrun --nproc_per_node N -m vit_ocm_wmsegmentation_tpu_torch.sw_processing``
+the ranks form one process group (NCCL on the cards, gloo with ``--device
+cpu``) and, with ``--mesh 1`` (the default, as the root flag), each mosaic's
+tiles (each band's row of tiles when streamed) shard over them: every rank
+decodes the same mosaic, runs the ViT on its share and gathers the maps, and
+rank 0 alone writes the files, which equal the one-process CLI's.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from . import pipeline as pl
 from .data.prefetch import prefetch
 from .models import vit
 from .ops import threshold as th
+from .parallel.mesh import describe, init_distributed, is_distributed, make_mesh
 from .train.checkpoint import load_torch_checkpoint
 from .utils.imageio import attention_lut_index, create_dir, imsave_fast
 
@@ -84,6 +92,10 @@ def parse_args(argv=None):
                              "bit-exactly instead of the original image")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on; raises if it is missing")
+    parser.add_argument("--mesh", default=1, type=int,
+                        help="under torchrun, shard each mosaic's tiles (fused) or each band's "
+                             "tile row (streamed) over the group's ranks, masks equal to one "
+                             "process's; 0 = every rank serves alone. Rank 0 writes the files")
     return parser.parse_args(argv)
 
 
@@ -145,6 +157,11 @@ def main(argv=None):
     mosaics (``""`` in single-image mode)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    rank, _ = init_distributed("nccl" if device.type == "cuda" else "gloo")
+    mesh = make_mesh() if args.mesh and is_distributed() else None
+    main_rank = rank == 0
+    if mesh is not None and main_rank:
+        print(f"sharding tiles: {describe(mesh, device)}")
     size = tuple(args.image_size) if len(args.image_size) == 2 else (args.image_size[0],) * 2
     pl.validate_window_geometry(args.window_size, args.stride)
     if args.writers < 0:
@@ -156,6 +173,10 @@ def main(argv=None):
     streamed = streamed_route(args.streamed, size)
     cuda = device.type == "cuda"
 
+    def progress(done, total):
+        if main_rank:
+            print(f"  band {done}/{total} issued", flush=True)
+
     @torch.inference_mode()
     def segment(gray_dev, mask_only):
         """Issue one mosaic's compute; returns its artifacts on the device."""
@@ -163,11 +184,11 @@ def main(argv=None):
             mask, attn = pl.segment_mosaic_streamed(
                 model, gray_dev, args.window_size, args.stride, dtype=dtype,
                 exact_stitch=bool(args.exact_stitch), band_chunk=args.band_chunk, routes=routes,
-                progress=lambda done, total: print(f"  band {done}/{total} issued", flush=True))
+                mesh=mesh, progress=progress)
         else:
             mask, attn = pl.segment_mosaic(model, gray_dev, args.window_size, args.stride,
                                            dtype=dtype, exact_stitch=bool(args.exact_stitch),
-                                           routes=routes)
+                                           routes=routes, mesh=mesh)
         if mask_only:
             return (mask,)
         # the attention leaves the device as uint8 viridis indices
@@ -190,14 +211,16 @@ def main(argv=None):
         if done is not None:
             done.synchronize()
         arrays = [np.asarray(h) for h in hosts]
-        write(out_dir, arrays)
+        if main_rank:
+            write(out_dir, arrays)
         return arrays[0].copy()  # the pinned buffers go back to the allocator
 
     route = "band-streamed" if streamed else "fused"
     if not os.path.isdir(args.image_path):
         gray = torch.from_numpy(decode(args.image_path, size)).to(device)
         mask = write_back(args.output_dir, *to_host(segment(gray, mask_only=False)))
-        print(f"mosaic segmented on {device} ({route}); output in {args.output_dir}")
+        if main_rank:
+            print(f"mosaic segmented on {device} ({route}); output in {args.output_dir}")
         return {"": mask}
 
     paths = sorted(p for p in glob(os.path.join(args.image_path, "*"))
@@ -257,9 +280,10 @@ def main(argv=None):
     if t_first is not None and len(paths) > 1:
         rate = (len(paths) - 1) * mp_one / (time.perf_counter() - t_first)
         steady = f" ({rate:.2f} MP/s in steady state after the first mosaic)"
-    print(f"segmented {len(paths)} mosaics ({len(paths) * mp_one:.2f} MP) on {device} "
-          f"({route}) in {dt:.2f} s = {len(paths) * mp_one / dt:.2f} MP/s, host clock, "
-          f"first mosaic's set-up included{steady}; output in {args.output_dir}")
+    if main_rank:
+        print(f"segmented {len(paths)} mosaics ({len(paths) * mp_one:.2f} MP) on {device} "
+              f"({route}) in {dt:.2f} s = {len(paths) * mp_one / dt:.2f} MP/s, host clock, "
+              f"first mosaic's set-up included{steady}; output in {args.output_dir}")
     return masks
 
 

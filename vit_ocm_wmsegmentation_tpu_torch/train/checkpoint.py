@@ -124,11 +124,20 @@ def save_checkpoint(output_dir: str, epoch: int, model, optimizer=None) -> str:
     (torch.save, written to a temporary name and renamed); without an
     optimizer, {model, epoch} (the supervised trainers' best model, the
     Allen classifier's best checkpoint)."""
+    return write_checkpoint(output_dir, epoch, model.state_dict(),
+                            optimizer.state_dict() if optimizer is not None else None)
+
+
+def write_checkpoint(output_dir: str, epoch: int, model_state: dict, optimizer_state=None,
+                     **extra) -> str:
+    """:func:`save_checkpoint` from state dicts, with ``extra`` entries (a
+    pipeline run's ``pp_stages``); a sharded run's rank 0 writes the states
+    its ranks gathered into the single-device layout."""
     path = os.path.join(output_dir, f"ckpt_epoch_{epoch}")
     os.makedirs(output_dir, exist_ok=True)
-    state = {"model": model.state_dict(), "epoch": epoch}
-    if optimizer is not None:
-        state["optimizer"] = optimizer.state_dict()
+    state = {"model": model_state, "epoch": epoch, **extra}
+    if optimizer_state is not None:
+        state["optimizer"] = optimizer_state
     torch.save(state, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
@@ -145,13 +154,9 @@ def latest_checkpoint(output_dir: str):
     return os.path.join(output_dir, max(cands, key=lambda d: int(d.rsplit("_", 1)[-1])))
 
 
-def restore_checkpoint(path: str, model, optimizer) -> int:
-    """Load a :func:`save_checkpoint` file into model and optimizer (on the
-    model's device); returns its epoch."""
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
-    return int(state["epoch"])
+def read_checkpoint(path: str) -> dict:
+    """A :func:`save_checkpoint` file's dict, tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=False)
 
 
 # ---------------------------------------------------------------------------

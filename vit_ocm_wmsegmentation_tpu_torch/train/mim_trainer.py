@@ -1,4 +1,5 @@
-"""MIM pretraining loop (the reference's mim.py:83-222) on one device.
+"""MIM pretraining loop (the reference's mim.py:83-222), on one device or
+over a process group.
 
 Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
 
@@ -26,13 +27,27 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
   epoch's checkpoint. Batches come as numpy arrays (the host loader) or as
   tensors on the device (``data.datasets.DeviceAugLoader``,
   DATA.DEVICE_AUG). Its library matmuls run under
-  ``pipeline.exact_matmuls()`` (no TF32, f32 reductions of bf16 products).
-
-Not ported yet, and refused: TRAIN.PP_STAGES > 1 and TRAIN.FSDP.
+  ``pipeline.exact_matmuls()`` (no TF32, f32 reductions of bf16 products);
+* over a ``mesh`` (parallel/mesh.py; the MIM CLI makes one under torchrun):
+  every rank draws the same global batch from the same seeded loader and
+  keeps its rows of the 'data' axis, the split of the JAX package's
+  ``batch_sharding`` (the host work is duplicated: ROADMAP later work).
+  :func:`sharded_step` is the one step body of every sharded mode: the loss
+  of the rank's rows over the whole batch's mask area (so the ranks' losses
+  sum to the single-device loss whatever each shard's mask count), its
+  gradients reduced by the rank's ``parallel.mesh.ParamLayout`` (one flat
+  bucketed all-reduce over 'data' for data parallelism; all-gathered
+  parameters and reduce-scattered gradients under TRAIN.FSDP; the Megatron
+  split over 'model'), the global norm summed over the ranks, clip and AdamW
+  on the rank's pieces. TRAIN.PP_STAGES > 1 takes parallel/pp.py's GPipe
+  step on a ('data', 'pipe') mesh over the whole group. Logging, checkpoints
+  (gathered to the plain single-device layout, tagged with ``pp_stages``
+  under pipeline parallelism), W&B files and ``eval_fn`` belong to rank 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import time
 
@@ -41,6 +56,7 @@ import torch
 from ..models import simmim
 from ..models.vit import MLP_REMAT_MODES, TrainRoutes
 from ..ops.metrics import AverageMeter
+from ..parallel import mesh as par
 from ..pipeline import exact_matmuls
 from . import checkpoint as ckpt
 from .optim import Optimizer, global_norm
@@ -55,12 +71,51 @@ def amp_cast(params: dict) -> dict:
     return {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p for n, p in params.items()}
 
 
+def sharded_step(model, optimizer, layout, loss_fn, *, amp: bool = False):
+    """The step of a rank of a mesh: step(x, mask) on the rank's rows ->
+    (loss, grad norm) of the whole batch, the same on every rank.
+    ``loss_fn(live, x, mask, pix_count)`` computes the rank's share of the
+    loss from ``live`` (name -> tensor the forward reads); ``layout``
+    (parallel.mesh.ParamLayout) gathers FSDP pieces for the forward and
+    reduces the gradients. The AMP cast follows the gather, so the bf16
+    copies are of the whole f32 masters."""
+    names, mesh = optimizer.names, layout.mesh
+    p2 = model.cfg.patch_size ** 2
+
+    def step(x, mask):
+        pix = par.all_reduce((mask.sum() * p2).float(), mesh, "data")
+        base = layout.compute_params(model, names)
+        live = amp_cast(base) if amp else base
+        loss = loss_fn(live, x.to(torch.bfloat16) if amp else x, mask, pix)
+        grads = torch.autograd.grad(loss, [base[n] for n in names])
+        grads = layout.reduce_grads(grads, names)
+        gnorm = optimizer.norm(grads)
+        optimizer.step(grads)
+        return par.all_reduce(loss.detach().clone(), mesh, "data"), gnorm
+
+    return step
+
+
 def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
-                    routes: TrainRoutes = TrainRoutes()):
+                    routes: TrainRoutes = TrainRoutes(), layout=None):
     """step(x (B, H, W, 3), mask (B, gh, gw)) -> (loss, grad norm), both
     0-dim f32 tensors on the model's device; updates model and optimizer in
     place (every ACCUMULATION_STEPS-th call applies an update). ``routes``
-    selects the opt-in kernel routes (:func:`train_routes`)."""
+    selects the opt-in kernel routes (:func:`train_routes`). With a
+    ``layout`` (parallel.mesh.ParamLayout of a ('data', 'model') mesh; the
+    model and optimizer hold the rank's pieces) x and mask are the rank's
+    rows and the step is :func:`sharded_step`; a 'model' axis above 1 runs
+    the blocks tensor-parallel (models.vit.block_forward_tp)."""
+    if layout is not None:
+        if layout.mesh.axis_size("model") > 1:
+            routes = dataclasses.replace(routes, tp=par.TensorParallel(layout.mesh))
+
+        def loss_fn(live, x, mask, pix_count):
+            return torch.func.functional_call(model, live, (x, mask, remat, routes),
+                                              {"pix_count": pix_count})[0]
+
+        return sharded_step(model, optimizer, layout, loss_fn, amp=amp)
+
     def step(x, mask):
         if amp:
             live = amp_cast(dict(model.named_parameters()))
@@ -107,14 +162,6 @@ def mlp_remat_name(routes: TrainRoutes) -> str:
     return "kernel+gp" if routes.mlp_save_gp else "kernel+h1"
 
 
-def _refuse_unported(cfg):
-    tr = cfg.TRAIN
-    if int(tr.get("PP_STAGES", 1)) > 1:
-        raise NotImplementedError("TRAIN.PP_STAGES > 1 (pipeline parallelism) is not ported yet")
-    if bool(tr.get("FSDP", False)):
-        raise NotImplementedError("TRAIN.FSDP is not ported yet")
-
-
 def _log_mask_panels(wandb, model, img, mask, epoch):
     """The reference's per-epoch panels (mim.py:204-220): input, mask,
     masked input, reconstruction, masked reconstruction and complete
@@ -148,21 +195,78 @@ def _run_eval(eval_fn, model, epoch):
         model.train(was_training)
 
 
-def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False, wandb=None):
+def _plain_model(model, layout, vit_cfg, device):
+    """The whole model in the single-device layout: ``model`` itself unless
+    the rank holds pieces, else a copy gathered from every rank (a
+    collective: every rank calls it)."""
+    if layout is None or not layout.sharded:
+        return model
+    plain = simmim.SimMIM(vit_cfg).to(device)
+    plain.load_state_dict(layout.full_state(model))
+    return plain
+
+
+def _layout(cfg, model, mesh, pp_stages, fsdp, logger):
+    """This rank's parallel.mesh.ParamLayout over ``mesh`` (None without
+    one), the module sharded in place."""
+    if mesh is None:
+        return None
+    if pp_stages > 1:
+        from ..parallel import pp
+
+        layout = pp.pp_layout(mesh, model)
+    else:
+        layout = par.param_layout(mesh, model, fsdp, int(cfg.TRAIN.get("FSDP_MIN_SHARD", 4096)))
+    if fsdp:
+        logger.info(f"FSDP over mesh {mesh.shape}: params + optimizer moments sharded "
+                    f"over 'data'")
+    layout.shard_module(model)
+    return layout
+
+
+def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False, wandb=None,
+              mesh=None):
     """Pretrain a SimMIM ViT, initialized from cfg.SEED, on ``loader``'s
     batches. ``eval_fn(encoder, epoch)``, when given, runs after each
     epoch's checkpoint on the encoder (a ``models.vit.ViT``); with
     ``use_wandb``, ``wandb`` (utils/wandb_shim) takes the scalars and the
-    per-epoch mask panels. Returns (model, history of per-epoch mean
+    per-epoch mask panels. ``mesh`` (parallel.mesh.make_mesh) trains over
+    its ranks, data parallel, tensor parallel over a 'model' axis, or FSDP
+    with TRAIN.FSDP; TRAIN.PP_STAGES > 1 makes its own ('data', 'pipe')
+    mesh over the whole group. Every rank calls this with the same
+    arguments; ``eval_fn`` and ``wandb`` are used on rank 0 only. Returns
+    (model in the single-device layout, history of per-epoch mean
     losses)."""
     from ..utils.logger import create_logger
 
-    _refuse_unported(cfg)
     routes = train_routes(cfg)
-    logger = logger or create_logger(cfg.OUTPUT, name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
+    main = par.is_main_process()
+    logger = logger or create_logger(cfg.OUTPUT, dist_rank=par.process_rank(),
+                                     name=f"{cfg.MODEL.NAME}_{cfg.MODEL.PATCH_SIZE}")
     logger.info(f"train kernel routes: MLP_REMAT={mlp_remat_name(routes)} "
                 f"LN_QKV={'kernel' if routes.ln_qkv else None} "
                 f"ATTN_SAVE_P={routes.attn_save_p}")
+    pp_stages = int(cfg.TRAIN.get("PP_STAGES", 1))
+    fsdp = bool(cfg.TRAIN.get("FSDP", False))
+    if fsdp and (pp_stages > 1 or mesh is None or mesh.axis_size("data") <= 1):
+        # FSDP shards over the mesh's 'data' axis; pp brings its own mesh and
+        # stage-held state, and one rank has nothing to shard over
+        logger.warning(
+            "TRAIN.FSDP=True ignored: "
+            + ("pipeline parallelism (TRAIN.PP_STAGES>1) already shards state over 'pipe' "
+               "and the two modes do not compose" if pp_stages > 1 else
+               "no multi-rank 'data' axis (single device run)"))
+        fsdp = False
+    micro = 1
+    if pp_stages > 1:
+        from ..parallel import pp
+
+        world = par.world_size()
+        if world % pp_stages:
+            raise ValueError(f"TRAIN.PP_STAGES={pp_stages} does not divide {world} ranks")
+        mesh = pp.make_pp_mesh(data=world // pp_stages, pipe=pp_stages)
+        micro = int(cfg.TRAIN.get("PP_MICROBATCHES", 0)) or pp_stages
+        logger.info(f"pipeline parallelism: mesh={mesh.shape} microbatches={micro}")
     device = torch.device(device)
     vit_cfg = simmim.mim_vit_config(cfg.DATA.IMG_SIZE, cfg.MODEL.PATCH_SIZE)
     model = simmim.init(vit_cfg, torch.Generator().manual_seed(cfg.SEED), device)
@@ -173,20 +277,46 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
         except Exception as e:  # the reference's lenient load
             logger.info(f"could not load pretrained weights: {e}; training from scratch")
 
-    n_iter = len(loader)
-    optimizer = Optimizer(cfg, model, build_schedule(cfg, max(n_iter, 1)))
     start_epoch = cfg.TRAIN.START_EPOCH
     # the reference declares TRAIN.AUTO_RESUME but never reads it
     # (config.py:105); here, as in the JAX package, it resumes the model and
-    # the optimizer state from the newest ckpt_epoch_* in OUTPUT
+    # the optimizer state from the newest ckpt_epoch_* in OUTPUT. Checkpoints
+    # hold the plain single-device layout; a pipeline run's are tagged with
+    # its stage count, and the optimizer state resumes only into a run of the
+    # same count (no tag: 1), else the parameters alone
     resume = ckpt.latest_checkpoint(cfg.OUTPUT) if cfg.TRAIN.AUTO_RESUME else None
-    if resume is not None:
-        start_epoch = ckpt.restore_checkpoint(resume, model, optimizer) + 1
-        logger.info(f"auto-resumed from {resume} at epoch {start_epoch} "
-                    f"(optimizer updates {optimizer.updates})")
+    state = ckpt.read_checkpoint(resume) if resume is not None else None
+    if state is not None:
+        model.load_state_dict(state["model"])
+        start_epoch = int(state["epoch"]) + 1
+    if mesh is not None:
+        logger.info(par.describe(mesh, device))
+    layout = _layout(cfg, model, mesh, pp_stages, fsdp, logger)
+
+    n_iter = len(loader)
+    optimizer = Optimizer(cfg, model, build_schedule(cfg, max(n_iter, 1)))
+    if layout is not None:
+        optimizer.norm = layout.norm_fn(optimizer.names)
+    if state is not None:
+        if "optimizer" in state and int(state.get("pp_stages", 1)) == pp_stages:
+            if layout is None:
+                optimizer.load_state_dict(state["optimizer"])
+            else:
+                layout.load_full_optimizer_state(optimizer, state["optimizer"])
+            logger.info(f"auto-resumed from {resume} at epoch {start_epoch} "
+                        f"(optimizer updates {optimizer.updates})")
+        else:
+            logger.info(f"auto-resumed params from {resume} at epoch {start_epoch} "
+                        f"(stage count or mode changed; optimizer state restarted)")
 
     amp, remat = cfg.AMP_OPT_LEVEL not in ("", "O0"), bool(cfg.TRAIN.USE_CHECKPOINT)
-    step = make_train_step(model, optimizer, amp=amp, remat=remat, routes=routes)
+    if pp_stages > 1:
+        step = pp.make_pp_train_step(model, optimizer, layout, micro, amp=amp, remat=remat,
+                                     routes=routes)
+    else:
+        step = make_train_step(model, optimizer, amp=amp, remat=remat, routes=routes,
+                               layout=layout)
+    data = mesh.axis_size("data") if mesh is not None else 1
     logger.info(f"number of params: {sum(p.numel() for p in model.parameters())}")
     logger.info(f"Start training on {device} (amp={amp}, remat={remat})")
     history, min_loss, consec = [], float("inf"), 0
@@ -209,9 +339,12 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
 
             for idx, (img, mask) in enumerate(loader.epoch(epoch)):
                 lr = optimizer.lr()
-                img, mask = torch.as_tensor(img).to(device), torch.as_tensor(mask).to(device)
+                img, mask = torch.as_tensor(img), torch.as_tensor(mask)
+                if mesh is not None:
+                    img, mask = par.local_rows(img, mesh), par.local_rows(mask, mesh)
+                img, mask = img.to(device), mask.to(device)
                 loss, gnorm = step(img, mask)
-                pending.append((loss, gnorm, img.shape[0]))
+                pending.append((loss, gnorm, img.shape[0] * data))
                 if idx % cfg.PRINT_FREQ == 0:
                     drain()
                     end = time.time()
@@ -222,18 +355,28 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
                         f"time {batch_time.val:.4f} ({batch_time.avg:.4f})\t"
                         f"loss {loss_meter.val:.4f} ({loss_meter.avg:.4f})\t"
                         f"grad_norm {norm_meter.val:.4f} ({norm_meter.avg:.4f})")
-                    if use_wandb:
+                    if use_wandb and main:
                         wandb.log({"epoch": epoch, "train_loss": loss_meter.val,
                                    "train_loss_avg": loss_meter.avg, "lr": lr}, step=epoch)
             drain()
             logger.info(f"EPOCH {epoch} training takes "
                         f"{datetime.timedelta(seconds=int(time.time() - epoch_start))}")
-            if use_wandb and loss_meter.count > 0:
-                _log_mask_panels(wandb, model, img, mask, epoch)
+            panels = use_wandb and loss_meter.count > 0
+            plain = (_plain_model(model, layout, vit_cfg, device)
+                     if panels or eval_fn is not None else model)
+            if panels and main:
+                _log_mask_panels(wandb, plain, img, mask, epoch)
             if epoch % cfg.SAVE_FREQ == 0 or epoch == cfg.TRAIN.EPOCHS - 1:
-                ckpt.save_checkpoint(cfg.OUTPUT, epoch, model, optimizer)
-            if eval_fn is not None:
-                _run_eval(eval_fn, model, epoch)
+                if layout is None:
+                    ckpt.save_checkpoint(cfg.OUTPUT, epoch, model, optimizer)
+                else:
+                    model_state = layout.full_state(model)
+                    opt_state = layout.full_optimizer_state(optimizer)
+                    tag = {"pp_stages": pp_stages} if pp_stages > 1 else {}
+                    if main:
+                        ckpt.write_checkpoint(cfg.OUTPUT, epoch, model_state, opt_state, **tag)
+            if eval_fn is not None and main:
+                _run_eval(eval_fn, plain, epoch)
 
             loss = loss_meter.avg
             history.append(loss)
@@ -247,4 +390,4 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
                             "Stopping training early.")
                 break
     logger.info(f"Training time {datetime.timedelta(seconds=int(time.time() - start_time))}")
-    return model, history
+    return _plain_model(model, layout, vit_cfg, device), history

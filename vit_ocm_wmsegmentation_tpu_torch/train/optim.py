@@ -20,12 +20,27 @@ from __future__ import annotations
 import torch
 
 
+def _no_decay(name: str, ndim: int) -> bool:
+    return ndim <= 1 or name.endswith(".bias")
+
+
 def decay_groups(model):
     """(decay, no_decay) lists of the trainable parameters."""
     decay, no_decay = [], []
     for name, p in model.named_parameters():
         if p.requires_grad:
-            (no_decay if p.ndim <= 1 or name.endswith(".bias") else decay).append(p)
+            (no_decay if _no_decay(name, p.ndim) else decay).append(p)
+    return decay, no_decay
+
+
+def decay_names(named_shapes):
+    """(decay, no_decay) lists of names from (name, shape) pairs: the
+    groups, in an Optimizer's order, of a module whose parameters have those
+    shapes. A sharded rank decides from the whole tensor's name and shape
+    (parallel.mesh.ParamLayout), not from its piece's."""
+    decay, no_decay = [], []
+    for name, shape in named_shapes:
+        (no_decay if _no_decay(name, len(shape)) else decay).append(name)
     return decay, no_decay
 
 
@@ -37,11 +52,15 @@ def global_norm(grads):
 class Optimizer:
     """AdamW/SGD with the weight-decay groups, global-norm clipping, the
     per-update schedule and gradient accumulation. :meth:`step` takes one
-    micro-batch's gradients, aligned with :attr:`params`."""
+    micro-batch's gradients, aligned with :attr:`params` (named
+    :attr:`names`). :attr:`norm` computes the global norm the clip reads:
+    a sharded rank sets ``parallel.mesh.ParamLayout.norm_fn(names)``, which
+    sums over the ranks that hold the pieces."""
 
     def __init__(self, cfg, model, schedule):
         tr = cfg.TRAIN
         decay, no_decay = decay_groups(model)
+        name_of = {id(p): n for n, p in model.named_parameters()}
         groups = [{"params": decay, "weight_decay": tr.WEIGHT_DECAY},
                   {"params": no_decay, "weight_decay": 0.0}]
         name = tr.OPTIMIZER.NAME.lower()
@@ -54,6 +73,8 @@ class Optimizer:
         else:
             raise ValueError(f"unknown optimizer {name!r}")
         self.params = decay + no_decay
+        self.names = [name_of[id(p)] for p in self.params]
+        self.norm = global_norm
         self.schedule = schedule
         self.clip = tr.CLIP_GRAD
         self.k = max(int(tr.ACCUMULATION_STEPS), 1)
@@ -83,7 +104,7 @@ class Optimizer:
             # max_norm / norm where norm >= max_norm, else 1, without a
             # device-to-host sync (a branch on the norm would stall the step)
             grads = [g.float() for g in grads]
-            torch._foreach_mul_(grads, torch.clamp(self.clip / global_norm(grads), max=1.0))
+            torch._foreach_mul_(grads, torch.clamp(self.clip / self.norm(grads), max=1.0))
         lr = self.lr()
         for group in self.opt.param_groups:
             group["lr"] = lr

@@ -111,8 +111,7 @@ def default_config() -> CfgNode:
                 "IMAGE_PATH": "",
                 "OUTPUT_DIR": "",
                 # extension of the JAX package (not in the reference tree):
-                # its device-side SimMIM transform; not ported, the port's
-                # MIM raises when it is set
+                # its device-side SimMIM transform (data/device_aug.py)
                 "DEVICE_AUG": False,
             },
             "MODEL": {
@@ -154,9 +153,10 @@ def default_config() -> CfgNode:
                 "MLP_REMAT": "auto",
                 "LN_QKV": "auto",
                 "ATTN_SAVE_P": "auto",
-                # the JAX package's GPipe pipeline parallelism and FSDP;
-                # not ported, the port's MIM raises for PP_STAGES > 1 and
-                # FSDP
+                # GPipe pipeline parallelism over PP_STAGES stages
+                # (parallel/pp.py; microbatches 0 = one a stage) and FSDP
+                # over the ranks' 'data' axis (parallel/mesh.py), both under
+                # torchrun (train/mim_trainer.train_mim)
                 "PP_STAGES": 1,
                 "PP_MICROBATCHES": 0,
                 "FSDP": False,
