@@ -1,0 +1,3 @@
+"""device_idle of the AMP SimMIM cell: benchmark.readers.device_idle."""
+
+from benchmark.readers import device_idle as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""mfu of the fused 1152^2 cell: benchmark.readers.serve_mfu."""
+
+from benchmark.readers import serve_mfu as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""mfu of the AMP SimMIM cell: benchmark.readers.train_mfu."""
+
+from benchmark.readers import train_mfu as read  # noqa: F401
