@@ -1,0 +1,3 @@
+"""aug_dev_ms of the float32 SimMIM cell: benchmark.program_spans.aug_dev_ms."""
+
+from benchmark.program_spans import aug_dev_ms as read  # noqa: F401

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ..utils.profiling import annotate
 from .mask_generator import MaskGenerator
 
 
@@ -191,7 +192,10 @@ class DeviceAugLoader:
     3) float32, masks (B, g, g) int32) on the device; the order is a numpy
     permutation per (seed, epoch), the augmentation draws from a
     ``torch.Generator`` on the device seeded per (seed, epoch, batch), so
-    an epoch is deterministic."""
+    an epoch is deterministic. Under a profiler the epoch's set-up and each
+    batch run inside a ``data.device_aug`` span (utils.profiling), closed
+    before the batch is yielded, so that the consumer's work between two
+    batches stays outside it."""
 
     def __init__(self, paths, batch_size, img_size, mask_patch_size, model_patch_size,
                  mask_ratio, seed=0, drop_last=True, device="cuda", max_resident_bytes=4 << 30):
@@ -245,20 +249,23 @@ class DeviceAugLoader:
     def epoch(self, epoch: int):
         from .device_aug import simmim_augment
 
-        self._ensure_sources()
-        n = self._n
-        order = np.random.default_rng((self.seed, epoch)).permutation(n)
-        stop = n - n % self.batch_size if self.drop_last else n
-        gen = torch.Generator(device=self.device)
+        with annotate("data.device_aug"):
+            self._ensure_sources()
+            n = self._n
+            order = np.random.default_rng((self.seed, epoch)).permutation(n)
+            stop = n - n % self.batch_size if self.drop_last else n
+            gen = torch.Generator(device=self.device)
         for batch_idx, s0 in enumerate(range(0, stop, self.batch_size)):
-            idx = torch.from_numpy(order[s0 : s0 + self.batch_size])
-            batch = self._src[idx.to(self._src.device)].to(self.device)
-            gen.manual_seed(int(np.random.SeedSequence((self.seed, epoch, batch_idx))
-                                .generate_state(1, np.uint64)[0] >> 1))
-            yield simmim_augment(batch, gen, out_size=self.img_size,
-                                 mask_patch_size=self.mask_patch_size,
-                                 model_patch_size=self.model_patch_size,
-                                 mask_ratio=self.mask_ratio)
+            with annotate("data.device_aug"):
+                idx = torch.from_numpy(order[s0 : s0 + self.batch_size])
+                batch = self._src[idx.to(self._src.device)].to(self.device)
+                gen.manual_seed(int(np.random.SeedSequence((self.seed, epoch, batch_idx))
+                                    .generate_state(1, np.uint64)[0] >> 1))
+                out = simmim_augment(batch, gen, out_size=self.img_size,
+                                     mask_patch_size=self.mask_patch_size,
+                                     model_patch_size=self.model_patch_size,
+                                     mask_ratio=self.mask_ratio)
+            yield out
 
 
 class Loader:

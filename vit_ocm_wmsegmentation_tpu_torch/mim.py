@@ -16,7 +16,8 @@ encoder on a labeled set after every epoch (``evaluation.validate`` with
 ``--method``'s config key, ``--crop``, ``--median_filter``),
 ``--roi_masking`` masks only the image's foreground ROIs, and ``--opts
 DATA.DEVICE_AUG True`` runs the augmentation on the device (the host loader
-is kept, with a warning, under ``--roi_masking``).
+is kept, with a warning, under ``--roi_masking``). ``--trace_dir DIR`` writes
+a ``torch.profiler`` Chrome trace of steps 2-5 to ``DIR/trace.json``.
 
 Under torchrun the ranks form one process group (NCCL on the cards, gloo
 with ``--device cpu``) and train together, as the root ``mim.py`` takes
@@ -77,6 +78,10 @@ def parse_option(argv=None):
     parser.add_argument("--early_stopping", default=False, type=bool)
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on; raises if it is missing")
+    parser.add_argument("--trace_dir", default="", type=str,
+                        help="write a torch.profiler Chrome trace of training steps 2-5, with "
+                             "the step's and the loader's spans, to DIR/trace.json; rank 0 "
+                             "traces")
     args = parser.parse_args(argv)
     return args, get_config(args)
 
@@ -122,7 +127,7 @@ def main(argv=None):
 
     out = train_mim(cfg, loader, eval_fn, device=device, logger=logger,
                     use_wandb=bool(cfg.WANDB), wandb=wandb if use_wandb else None,
-                    mesh=make_mesh() if world > 1 else None)
+                    mesh=make_mesh() if world > 1 else None, trace_dir=args.trace_dir)
     if use_wandb:
         wandb.finish()
     return out

@@ -52,6 +52,7 @@ from ..ops import fused_mlp as fm
 from ..ops import ln_linear as lnl
 from ..ops import quant as qz
 from ..ops.resize import bicubic_matrix
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -534,13 +535,15 @@ def cls_attention_grid(model: ViT, x, routes: InferRoutes = InferRoutes()):
     """Last-block CLS-row attention as a patch grid: (B, H, W, 3) ->
     (B, h, gh, gw), i.e. attn[:, :, 0, 1:] of the reference's last block
     (utils.py:229-233), without any N x N matrix. ``routes`` selects the
-    inference routes of blocks 0..L-2; the CLS row is never quantized."""
-    cfg = model.cfg
-    b, hgt, wdt, _ = x.shape
-    gh, gw = hgt // cfg.patch_size, wdt // cfg.patch_size
-    h, last = _last_block_input(model, x, routes)
-    row = att.cls_row_attention(h, last.attn.qkv.weight, last.attn.qkv.bias, cfg.num_heads)
-    return row[:, :, 1:].reshape(b, cfg.num_heads, gh, gw)
+    inference routes of blocks 0..L-2; the CLS row is never quantized. Runs
+    inside the span ``vit.cls_attention_grid`` (utils.profiling)."""
+    with annotate("vit.cls_attention_grid"):
+        cfg = model.cfg
+        b, hgt, wdt, _ = x.shape
+        gh, gw = hgt // cfg.patch_size, wdt // cfg.patch_size
+        h, last = _last_block_input(model, x, routes)
+        row = att.cls_row_attention(h, last.attn.qkv.weight, last.attn.qkv.bias, cfg.num_heads)
+        return row[:, :, 1:].reshape(b, cfg.num_heads, gh, gw)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ band, shard over the mesh's 'data' axis: each rank runs the ViT on its
 share, padded with zero tiles to a multiple of the axis, and the per-tile
 maps are all-gathered, so that every rank stitches and thresholds the same
 maps and returns the same mask, as the JAX package's replicated output is.
+
+Under a profiler a mosaic runs inside one top span,
+``pipeline.segment_mosaic`` or ``pipeline.segment_mosaic_streamed``, that
+holds host code alone; its work runs under the leaves ``pipeline.tiles``,
+``pipeline.tile_maps`` (``vit.cls_attention_grid`` inside it),
+``pipeline.stitch`` and ``pipeline.threshold``, the streamed path's
+``pipeline.tile_maps`` and ``pipeline.stitch`` inside one ``pipeline.band``
+a tile row (utils.profiling).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from .ops import threshold as th
 from .ops.filters import median_filter
 from .ops.resize import resize_linear_cv2, smooth_attention, upsample_nearest
 from .parallel.mesh import gather_rows, local_rows
+from .utils.profiling import annotate
 
 # tiles per ViT call: bounds the per-block (T, N, 3D) qkv temporaries for
 # large mosaics; the 1152^2 mosaic's 49 tiles run as one batch
@@ -190,11 +199,13 @@ def attention_mosaic(model, img_u8, window=384, stride=128, median_size=1,
     the inference ``routes`` (models.vit.InferRoutes: --infer_mlp, --quant),
     the tiles sharded over ``mesh``'s 'data' axis when one is given."""
     validate_window_geometry(window, stride)
-    padded, (h, w) = pad_mosaic(img_u8, window, stride)
-    tiles = mosaic_tiles(padded, window, stride)
-    with exact_matmuls():
+    with annotate("pipeline.tiles"):
+        padded, (h, w) = pad_mosaic(img_u8, window, stride)
+        tiles = mosaic_tiles(padded, window, stride)
+    with exact_matmuls(), annotate("pipeline.tile_maps"):
         maps = _tile_maps(model, tiles, window, median_size, dtype, routes, mesh)
-    return st.stitch_blended(maps, window, stride, padded.shape)[:h, :w]
+    with annotate("pipeline.stitch"):
+        return st.stitch_blended(maps, window, stride, padded.shape)[:h, :w]
 
 
 @torch.inference_mode()
@@ -208,13 +219,15 @@ def segment_mosaic(model, img_u8, window=384, stride=128, median_size=1,
     bit-exactly as the reference computes it. ``routes`` selects the ViT's
     inference routes (models.vit.InferRoutes); ``mesh`` shards the tiles
     (module docstring)."""
-    attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype, routes, mesh)
-    timg = img_u8
-    if exact_stitch:
-        padded, (h, w) = pad_mosaic(img_u8, window, stride)
-        timg = st.restitch_u8(padded, window, stride)[:h, :w]
-    mask, _, _ = th.threshold_multiplicative(timg, attn)
-    return mask, attn
+    with annotate("pipeline.segment_mosaic"):
+        attn = attention_mosaic(model, img_u8, window, stride, median_size, dtype, routes, mesh)
+        with annotate("pipeline.threshold"):
+            timg = img_u8
+            if exact_stitch:
+                padded, (h, w) = pad_mosaic(img_u8, window, stride)
+                timg = st.restitch_u8(padded, window, stride)[:h, :w]
+            mask, _, _ = th.threshold_multiplicative(timg, attn)
+        return mask, attn
 
 
 # ---------------------------------------------------------------------------
@@ -239,13 +252,15 @@ def _band_update_impl(model, img_dev, acc, y0, wy_row, wx, window, stride, media
     the horizontal ones, both f32 on the device. As in the JAX package the
     maps are multiplied by wy_row first, then overlap-added with ones on y
     and wx on x. With a mesh the row's tiles shard over its 'data' axis."""
-    strip = img_dev[y0 : y0 + window]
-    tiles = strip.unfold(1, window, stride).permute(1, 0, 2)  # (J, window, window)
-    maps = _tile_maps(model, tiles, window, median_size, dtype, routes, mesh)
-    ones = torch.ones((1, window), dtype=torch.float32, device=acc.device)
-    band = st.overlap_add(maps * wy_row[None, :, None], ones, wx, window, stride,
-                          (window, acc.shape[1]))
-    acc[y0 : y0 + window] += band
+    with annotate("pipeline.tile_maps"):
+        strip = img_dev[y0 : y0 + window]
+        tiles = strip.unfold(1, window, stride).permute(1, 0, 2)  # (J, window, window)
+        maps = _tile_maps(model, tiles, window, median_size, dtype, routes, mesh)
+    with annotate("pipeline.stitch"):
+        ones = torch.ones((1, window), dtype=torch.float32, device=acc.device)
+        band = st.overlap_add(maps * wy_row[None, :, None], ones, wx, window, stride,
+                              (window, acc.shape[1]))
+        acc[y0 : y0 + window] += band
 
 
 @torch.inference_mode()
@@ -281,25 +296,31 @@ def segment_mosaic_streamed(model, img_u8, window=384, stride=128, median_size=1
     if band_chunk < 1:
         raise ValueError(f"band_chunk must be >= 1, got {band_chunk}")
     validate_window_geometry(window, stride)
-    dev = next(model.parameters()).device
-    img = torch.as_tensor(img_u8).to(dev)
-    padded, (h, w) = pad_mosaic(img, window, stride)
-    ys = st.tile_starts(padded.shape[0], window, stride)
-    # the blend profiles go to the device once, not once a band
-    wy = torch.as_tensor(st.blend_profiles_1d(len(ys), window, stride), dtype=torch.float32,
-                         device=dev)
-    wx = torch.as_tensor(st.blend_profiles_1d(len(st.tile_starts(padded.shape[1], window, stride)),
-                                              window, stride), dtype=torch.float32, device=dev)
-    acc = torch.zeros(padded.shape, dtype=torch.float32, device=dev)
-    with exact_matmuls():
-        for r, y0 in enumerate(ys):
-            _band_update_impl(model, padded, acc, int(y0), wy[r], wx, window, stride,
-                              median_size, dtype, routes, mesh)
-            if progress is not None and ((r + 1) % band_chunk == 0 or r + 1 == len(ys)):
-                progress(r + 1, len(ys))
-    attn = acc[:h, :w]
-    timg = img if not exact_stitch else st.restitch_u8(padded, window, stride)[:h, :w]
-    return _threshold_mult_streamed(timg, attn), attn
+    with annotate("pipeline.segment_mosaic_streamed"):
+        with annotate("pipeline.tiles"):
+            dev = next(model.parameters()).device
+            img = torch.as_tensor(img_u8).to(dev)
+            padded, (h, w) = pad_mosaic(img, window, stride)
+            ys = st.tile_starts(padded.shape[0], window, stride)
+            # the blend profiles go to the device once, not once a band
+            wy = torch.as_tensor(st.blend_profiles_1d(len(ys), window, stride),
+                                 dtype=torch.float32, device=dev)
+            wx = torch.as_tensor(
+                st.blend_profiles_1d(len(st.tile_starts(padded.shape[1], window, stride)),
+                                     window, stride), dtype=torch.float32, device=dev)
+            acc = torch.zeros(padded.shape, dtype=torch.float32, device=dev)
+            wy_rows = wy.unbind(0)
+        with exact_matmuls():
+            for r, y0 in enumerate(ys):
+                with annotate("pipeline.band"):
+                    _band_update_impl(model, padded, acc, int(y0), wy_rows[r], wx, window,
+                                      stride, median_size, dtype, routes, mesh)
+                if progress is not None and ((r + 1) % band_chunk == 0 or r + 1 == len(ys)):
+                    progress(r + 1, len(ys))
+        with annotate("pipeline.threshold"):
+            attn = acc[:h, :w]
+            timg = img if not exact_stitch else st.restitch_u8(padded, window, stride)[:h, :w]
+            return _threshold_mult_streamed(timg, attn), attn
 
 
 def _blend_u8(timg, attn):

@@ -9,8 +9,9 @@ stride 128. Prints the card's name and power limit, then:
 
 * for bf16 and f32 (weight seed 0): the device time of each kernel in one
   torch.profiler run of ``segment_mosaic``, that run's wall time and idle
-  share (1 - kernel time / wall), and a stage split timed with CUDA events
-  without the profiler;
+  share (1 - the union of the device operations' intervals / wall), and the
+  device time launched under each of the pipeline's spans (utils.profiling)
+  in the same run;
 * for each weight seed: chip_smoke.py's two bf16 mask gates (Dice of the
   bf16 mask against the f32 mask, and of the kernel route against the plain
   route in bf16), with the last block's CLS row rounded to the compute dtype
@@ -20,9 +21,13 @@ stride 128. Prints the card's name and power limit, then:
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import copy
+import json
+import os
 import subprocess
+import tempfile
 import time
 from unittest import mock
 
@@ -35,13 +40,13 @@ from . import pipeline as pl
 from .ops import flash_attention as fa
 from .ops import fused_mlp as fm
 from .ops import quant as qz
-from .ops import stitch as st
-from .ops import threshold as th
-from .ops.resize import resize_linear_cv2
 from .sw_processing import load_model
 
 SIZE, WINDOW, STRIDE = 1152, 384, 128
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# Chrome-trace categories of the device's operations and of their launches
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def dice(a, b):
@@ -60,30 +65,78 @@ def plain_route():
         yield
 
 
-def stage_split(model, img, dtype):
-    """CUDA-event times (ms) of the pipeline's stages, one mosaic."""
-    names = ["gather+input", "ViT", "normalize+resize", "stitch", "threshold"]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-    with torch.inference_mode(), pl.exact_matmuls():
-        ev[0].record()
-        padded, (h, w) = pl.pad_mosaic(img, WINDOW, STRIDE)
-        x = pl.to_model_input(pl.mosaic_tiles(padded, WINDOW, STRIDE), dtype)
-        ev[1].record()
-        g = pl.head_average_attention(model, x).float()
-        ev[2].record()
-        g = resize_linear_cv2(th.min_max_normalize(g, dims=(-2, -1)) * 255.0, (WINDOW, WINDOW))
-        ev[3].record()
-        attn = st.stitch_blended(g, WINDOW, STRIDE, padded.shape)[:h, :w]
-        ev[4].record()
-        th.threshold_multiplicative(img, attn)
-        ev[5].record()
-    torch.cuda.synchronize()
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+def innermost_span(spans, ts):
+    """Name of the innermost of ``spans`` ((start, end, name), sorted, on
+    one thread; nested or disjoint) that holds ``ts``, or None."""
+    for start, end, name in reversed(spans[: bisect.bisect_right(spans, (ts, float("inf"), ""))]):
+        if end >= ts:
+            return name
+    return None
+
+
+def device_ops(trace: dict):
+    """[(name, start us, end us, span)] of every device operation (kernel,
+    copy, set) of a Chrome trace (``export_chrome_trace``'s JSON), in order
+    of start; ``span`` is the innermost ``record_function`` span on the
+    launching thread when the launch ran (matched through the correlation
+    id)."""
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    spans, launches = {}, {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ts = float(e["ts"])
+            spans.setdefault(e.get("tid"), []).append((ts, ts + float(e["dur"]), e["name"]))
+        elif e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = (e.get("tid"), float(e["ts"]))
+    for v in spans.values():
+        v.sort()
+    out = []
+    for e in events:
+        if e.get("cat") in DEVICE_CATS:
+            ts = float(e["ts"])
+            launch = launches.get(e.get("args", {}).get("correlation"))
+            span = innermost_span(spans.get(launch[0], []), launch[1]) if launch else None
+            out.append((e.get("name", ""), ts, ts + float(e.get("dur", 0.0)), span))
+    return sorted(out, key=lambda op: op[1])
+
+
+def chrome_trace(prof) -> dict:
+    """The Chrome trace of a finished torch.profiler run, as JSON."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
+    finally:
+        os.remove(path)
+
+
+def union_ms(intervals):
+    """Milliseconds of the union of (start us, end us) intervals: two that
+    overlap (operations on two streams) count once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def span_device_ms(ops):
+    """{span: device ms of the union of the operations launched under it}
+    of :func:`device_ops`' list, the spans in order of their first operation."""
+    by_span = {}
+    for _, start, end, span in ops:
+        by_span.setdefault(span or "outside_spans", []).append((start, end))
+    return {span: union_ms(iv) for span, iv in by_span.items()}
 
 
 def kernel_table(prof, wall, top=16):
     """Print the device time of each kernel in a torch.profiler run of
-    ``wall`` ms, its idle share and the ``top`` kernels."""
+    ``wall`` ms, its idle share (1 - the union of the device operations'
+    intervals / wall) and the ``top`` kernels. Returns :func:`device_ops`'
+    list."""
     # kernels only: CPU ranges (aten ops, autograd Functions) and their GPU
     # annotations (the optimizer step) carry their kernels' time too
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -91,13 +144,15 @@ def kernel_table(prof, wall, top=16):
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                    and e.self_device_time_total > 0),
                   reverse=True)
-    busy = sum(r[0] for r in rows)
+    ops = device_ops(chrome_trace(prof))
+    busy = union_ms((start, end) for _, start, end, _ in ops)
     ours = sum(r[0] for r in rows if "vitocm::" in r[2])
-    print(f"  wall {wall:.3f} ms under the profiler, device kernel time {busy:.3f} ms "
+    print(f"  wall {wall:.3f} ms under the profiler, device busy {busy:.3f} ms "
           f"({ours:.3f} ms in the port's kernels), idle share {1 - busy / wall:.4f}, "
           f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:top]:
         print(f"    {ms:9.3f} ms x{count:4d}  {key[:100]}")
+    return ops
 
 
 def profile_mosaic(model, img, dtype):
@@ -109,10 +164,9 @@ def profile_mosaic(model, img, dtype):
         pl.segment_mosaic(model, img, WINDOW, STRIDE, dtype=dtype)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernel_table(prof, wall)
-    split = stage_split(model, img, dtype)
-    print("  stages (CUDA events, no profiler): "
-          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split.items()))
+    split = span_device_ms(kernel_table(prof, wall))
+    print("  device ms by span (the same run): "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in split.items()))
 
 
 def gates(seeds, img, dev):

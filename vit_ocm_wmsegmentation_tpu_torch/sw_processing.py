@@ -16,6 +16,8 @@ path (``--streamed``). ``--infer_mlp`` and ``--quant int8`` select the
 ViT's inference routes (models.vit.InferRoutes). The flags follow the repository's root
 ``sw_processing.py`` where they apply. The device is ``--device`` (default
 ``cuda``); a missing device raises, the CPU is taken only when asked for.
+``--trace_dir DIR`` writes a ``torch.profiler`` Chrome trace of the second
+mosaic, with the pipeline's spans, to ``DIR/trace.json``.
 
 Under ``torchrun --nproc_per_node N -m vit_ocm_wmsegmentation_tpu_torch.sw_processing``
 the ranks form one process group (NCCL on the cards, gloo with ``--device
@@ -44,6 +46,7 @@ from .models import vit
 from .ops import threshold as th
 from .parallel.mesh import describe, init_distributed, is_distributed, make_mesh
 from .train.checkpoint import load_torch_checkpoint
+from .utils import profiling
 from .utils.imageio import attention_lut_index, create_dir, imsave_fast
 
 _IMAGE_EXT = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
@@ -96,6 +99,10 @@ def parse_args(argv=None):
                         help="under torchrun, shard each mosaic's tiles (fused) or each band's "
                              "tile row (streamed) over the group's ranks, masks equal to one "
                              "process's; 0 = every rank serves alone. Rank 0 writes the files")
+    parser.add_argument("--trace_dir", default="", type=str,
+                        help="write a torch.profiler Chrome trace of the second mosaic (of the "
+                             "only one, if there is one) to DIR/trace.json, with the pipeline's "
+                             "spans; rank 0 traces")
     return parser.parse_args(argv)
 
 
@@ -206,6 +213,14 @@ def main(argv=None):
         done.record()
         return hosts, done
 
+    def issue(i, gray_dev, mask_only):
+        """Issue mosaic ``i``'s compute and its copies to the host; the
+        traced mosaic of --trace_dir inside utils.profiling.trace."""
+        if args.trace_dir and main_rank and i == traced:
+            with profiling.trace(args.trace_dir):
+                return to_host(segment(gray_dev, mask_only))
+        return to_host(segment(gray_dev, mask_only))
+
     def write_back(out_dir, hosts, done):
         """Writer thread: wait for the copies, encode, return the mask."""
         if done is not None:
@@ -216,9 +231,10 @@ def main(argv=None):
         return arrays[0].copy()  # the pinned buffers go back to the allocator
 
     route = "band-streamed" if streamed else "fused"
+    traced = 0
     if not os.path.isdir(args.image_path):
         gray = torch.from_numpy(decode(args.image_path, size)).to(device)
-        mask = write_back(args.output_dir, *to_host(segment(gray, mask_only=False)))
+        mask = write_back(args.output_dir, *issue(0, gray, mask_only=False))
         if main_rank:
             print(f"mosaic segmented on {device} ({route}); output in {args.output_dir}")
         return {"": mask}
@@ -227,6 +243,7 @@ def main(argv=None):
                    if p.lower().endswith(_IMAGE_EXT))
     if not paths:
         raise SystemExit(f"no images found in {args.image_path}")
+    traced = min(1, len(paths) - 1)
     mask_only = args.save == "mask"
     upload = torch.cuda.Stream(device) if cuda else None
 
@@ -259,12 +276,12 @@ def main(argv=None):
                 pending.popleft().result()
 
         try:
-            for name, gray, ready in items:
+            for i, (name, gray, ready) in enumerate(items):
                 if ready is not None:
                     stream = torch.cuda.current_stream(device)
                     stream.wait_event(ready)
                     gray.record_stream(stream)  # not reused before the compute is done
-                inflight.append((name, *to_host(segment(gray, mask_only))))
+                inflight.append((name, *issue(i, gray, mask_only)))
                 if len(inflight) > 1:
                     submit(*inflight.popleft())
                     if t_first is None:

@@ -47,6 +47,7 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import time
@@ -58,6 +59,8 @@ from ..models.vit import MLP_REMAT_MODES, TrainRoutes
 from ..ops.metrics import AverageMeter
 from ..parallel import mesh as par
 from ..pipeline import exact_matmuls
+from ..utils import profiling
+from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from .optim import Optimizer, global_norm
 from .schedule import build_schedule
@@ -105,7 +108,10 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
     ``layout`` (parallel.mesh.ParamLayout of a ('data', 'model') mesh; the
     model and optimizer hold the rank's pieces) x and mask are the rank's
     rows and the step is :func:`sharded_step`; a 'model' axis above 1 runs
-    the blocks tensor-parallel (models.vit.block_forward_tp)."""
+    the blocks tensor-parallel (models.vit.block_forward_tp). Under a
+    profiler the one-device step runs inside a ``mim.step`` span, its work
+    under ``mim.forward``, ``mim.backward`` and ``mim.optimizer``
+    (utils.profiling)."""
     if layout is not None:
         if layout.mesh.axis_size("model") > 1:
             routes = dataclasses.replace(routes, tp=par.TensorParallel(layout.mesh))
@@ -117,16 +123,21 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
         return sharded_step(model, optimizer, layout, loss_fn, amp=amp)
 
     def step(x, mask):
-        if amp:
-            live = amp_cast(dict(model.named_parameters()))
-            loss, _, _ = torch.func.functional_call(model, live,
-                                                    (x.to(torch.bfloat16), mask, remat, routes))
-        else:
-            loss, _, _ = model(x, mask, remat, routes)
-        grads = torch.autograd.grad(loss, optimizer.params)
-        gnorm = global_norm(grads)
-        optimizer.step(grads)
-        return loss.detach(), gnorm
+        with annotate("mim.step"):
+            with annotate("mim.forward"):
+                if amp:
+                    live = amp_cast(dict(model.named_parameters()))
+                    loss, _, _ = torch.func.functional_call(
+                        model, live, (x.to(torch.bfloat16), mask, remat, routes))
+                else:
+                    loss, _, _ = model(x, mask, remat, routes)
+            with annotate("mim.backward"):
+                grads = torch.autograd.grad(loss, optimizer.params)
+                loss = loss.detach()
+            with annotate("mim.optimizer"):
+                gnorm = global_norm(grads)
+                optimizer.step(grads)
+            return loss, gnorm
 
     return step
 
@@ -224,8 +235,12 @@ def _layout(cfg, model, mesh, pp_stages, fsdp, logger):
     return layout
 
 
+# the first and last step (from 1) that train_mim's ``trace_dir`` traces
+TRACED_STEPS = (2, 5)
+
+
 def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False, wandb=None,
-              mesh=None):
+              mesh=None, trace_dir=""):
     """Pretrain a SimMIM ViT, initialized from cfg.SEED, on ``loader``'s
     batches. ``eval_fn(encoder, epoch)``, when given, runs after each
     epoch's checkpoint on the encoder (a ``models.vit.ViT``); with
@@ -234,7 +249,10 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
     its ranks, data parallel, tensor parallel over a 'model' axis, or FSDP
     with TRAIN.FSDP; TRAIN.PP_STAGES > 1 makes its own ('data', 'pipe')
     mesh over the whole group. Every rank calls this with the same
-    arguments; ``eval_fn`` and ``wandb`` are used on rank 0 only. Returns
+    arguments; ``eval_fn`` and ``wandb`` are used on rank 0 only. With a
+    ``trace_dir``, rank 0 writes a Chrome trace of the steps TRACED_STEPS
+    (the loader's batches included) to ``trace_dir/trace.json``
+    (utils.profiling.trace). Returns
     (model in the single-device layout, history of per-epoch mean
     losses)."""
     from ..utils.logger import create_logger
@@ -321,7 +339,8 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
     logger.info(f"Start training on {device} (amp={amp}, remat={remat})")
     history, min_loss, consec = [], float("inf"), 0
     start_time = time.time()
-    with exact_matmuls():
+    n_steps = 0
+    with exact_matmuls(), contextlib.ExitStack() as tracing:
         for epoch in range(start_epoch, cfg.TRAIN.EPOCHS):
             loss_meter, norm_meter, batch_time = AverageMeter(), AverageMeter(), AverageMeter()
             epoch_start = end = time.time()
@@ -358,6 +377,12 @@ def train_mim(cfg, loader, eval_fn=None, *, device, logger=None, use_wandb=False
                     if use_wandb and main:
                         wandb.log({"epoch": epoch, "train_loss": loss_meter.val,
                                    "train_loss_avg": loss_meter.avg, "lr": lr}, step=epoch)
+                n_steps += 1
+                if trace_dir and main:
+                    if n_steps == TRACED_STEPS[0] - 1:
+                        tracing.enter_context(profiling.trace(trace_dir))
+                    elif n_steps == TRACED_STEPS[1]:
+                        tracing.close()
             drain()
             logger.info(f"EPOCH {epoch} training takes "
                         f"{datetime.timedelta(seconds=int(time.time() - epoch_start))}")
