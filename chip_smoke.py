@@ -24,7 +24,8 @@ and then, failing on the first phase that fails:
    both backward routes) and the f32 MLP kernels (the forward in every
    instance the launcher builds, the backward's dx and weight kernels) FFMA
    and cp.async (LDGSTS) and no tensor-core instruction (no TF32); the
-   histogram bulk copies (UBLKCP) and shared-memory atomics (ATOMS);
+   histogram bulk copies (UBLKCP) and shared-memory atomics (ATOMS); and
+   that ptxas honoured every setmaxnreg of those kernels (no warning C7508);
 1. holds each kernel against its plain PyTorch twin on the card at the
    shapes its main path gives it, in float32 and bfloat16 (outputs within
    1e-5 / 1e-2 of max|twin|, gradients within 1e-4 / 2e-2), and times the
@@ -725,9 +726,11 @@ def _route_cases(tag, dtype, isz, tol, attn, mlp_in, randn):
 
 def check_kernel_builds():
     """Phase 0's report on the kernels of SASS_CHECKS: ptxas' registers,
-    spills and shared memory, which must show no spill, and their SASS
-    (cuobjdump of the built library), which must hold the wanted opcodes and
-    none of the forbidden ones, in as many instances as listed."""
+    spills and shared memory, which must show no spill and no setmaxnreg
+    that ptxas ignored (C7508: the warpgroups would keep the launch's
+    registers), and their SASS (cuobjdump of the built library), which must
+    hold the wanted opcodes and none of the forbidden ones, in as many
+    instances as listed."""
     from vit_ocm_wmsegmentation_tpu_torch import build
 
     def kernel_of(fn):
@@ -736,6 +739,12 @@ def check_kernel_builds():
     entry, reported = None, set()
     for line in build.build_info["ptxas"].splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)", line)
+        if "C7508" in line:  # names its function, or falls in the entry's report
+            named = re.search(r"function '(\S+?)'", line)
+            fn = named.group(1) if named else entry
+            if fn is None or kernel_of(fn):
+                raise AssertionError(f"ptxas ignored a setmaxnreg of {fn or 'a kernel'}: "
+                                     f"{line.strip()}")
         if m:
             entry = m.group(1) if kernel_of(m.group(1)) else None
         elif entry and ("Used" in line or "spill" in line):

@@ -120,14 +120,20 @@ def test_mlp_kernels_match_plain(cuda, dtype, rows, d, h):
     assert _bit_equal((out,), (fm.fused_mlp_block(*args),))
 
 
-@pytest.mark.parametrize("b,heads,d", [(2, 6, 64), (3, 2, 128)])
-@pytest.mark.parametrize("n", [1, 63, 65, 130, 2305])
+@pytest.mark.parametrize("n,b,heads,d",
+                         [(n, b, h, d) for n in (1, 63, 65, 130, 2305)
+                          for b, h, d in ((2, 6, 64), (3, 2, 128))]
+                         + [(72, 2, 6, 64), (73, 2, 6, 64), (2305, 8, 6, 64), (1, 1, 1, 64),
+                            (2305, 62, 6, 64)])
 def test_attention_wgmma_kernel_matches_plain(cuda, n, b, heads, d):
     """The bf16 flat layout's wgmma kernel (csrc/attention_qkv_wgmma.cu) at
     ragged n: one key, one past and one short of the 64-key tile and of the
     128-row CTA, the mosaic's 2305; B * heads above 1, rows = n (keys
     never masked inside the tensor) and rows = n + 7 (keys n .. n + 6
-    masked)."""
+    masked). At head dim 64 a last tile of at most 8 keys takes its own
+    products (n = 72 the last to, 73 the first not to); a batch of 8 and the
+    streamed band's 62 tiles at the mosaic's 2305 rows, and one head of one
+    key."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     for rows in (n, n + 7):
         qkv = torch.randn(b, rows, 3 * heads * d, generator=gen, device=cuda)
@@ -174,7 +180,9 @@ def _digests(dev):
     training and inference attention, the bf16 MLP training forwards and the
     f32 saved-P forward are drawn (their inputs keep the draws of the others
     in place) but neither computed nor kept. Last, LN -> qkv in bf16,
-    forward and backward, and its f32 forward at the MIM step's rows."""
+    forward and backward, and its f32 forward at the MIM step's rows; then
+    the bf16 attention at head dim 64 at the mosaic's flat shape and folded
+    with its lse."""
     import hashlib
 
     rng = np.random.default_rng(6)
@@ -223,6 +231,14 @@ def _digests(dev):
     x = t(36880, d, dtype=torch.float32, std=2.0, mean=0.5)  # the MIM step's rows, f32
     w = t(k, d, dtype=torch.float32, std=d ** -0.5)
     keep("ln_linear[f32]", (lnl.ln_linear(x, *ln, w, t(k, dtype=torch.float32, std=0.1)),))
+    # the bf16 attention at head dim 64 where each CTA of the persistent grid
+    # walks many units: the mosaic's flat call, all keys and keys masked past
+    # n, then the folded call with its lse at 48 heads of 2305 rows
+    qkv = t(49, 2305, 3 * 6 * 64, std=0.5)
+    keep("attention_qkv_mosaic[bf16]",
+         (fa.attention_qkv(qkv, 6, 2305), fa.attention_qkv(qkv, 6, 2250)))
+    q, k, v = (t(48, 2305, 64) for _ in range(3))
+    keep("flash_attention_d64[bf16]", fa.flash_attention(q, k, v))
     torch.cuda.synchronize()
     return out
 
@@ -266,14 +282,18 @@ def _digests(dev):
 # splits, ln_part by reduce_rows). flash_attention_savep[bf16] reproduces
 # across the move of the bf16 saved-P forward from mma.sync to the wgmma
 # kernel of attention_savep_wgmma.cu: at this shape the new kernel gives the
-# old one's bits.
+# old one's bits. attention_qkv_mosaic[bf16] and flash_attention_d64[bf16]
+# are of the build before the head dim 64 wgmma attention took a last key
+# tile of at most 8 keys alone (scores over those 8, one k-step of P V): the
+# tile's other keys are masked, their P is 0, so the bits stay.
 RECORDED_DIGESTS = {
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
     "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",
     "attention_qkv[bf16]": "c4f9a35a81b9f958", "fused_mlp_block_lnout[bf16]": "a24e075aa7885564",
     "flash_attention[bf16]": "3703a3532406f758", "flash_attention_bwd[bf16]": "3c44288015fabea3",
     "flash_attention_savep[bf16]": "a5417dca59721aa5", "ln_linear[bf16]": "29adf4aba5a9fd62",
-    "ln_linear_bwd[bf16]": "54c13a7204f0a705", "ln_linear[f32]": "bbc401ebaae4650c"}
+    "ln_linear_bwd[bf16]": "54c13a7204f0a705", "ln_linear[f32]": "bbc401ebaae4650c",
+    "attention_qkv_mosaic[bf16]": "695fa6db6a774e0d", "flash_attention_d64[bf16]": "e04128ce28fe033b"}
 
 
 def test_kernels_left_in_place_reproduce_their_recorded_outputs(cuda):
@@ -299,13 +319,14 @@ def _close_grad(got, want, dtype):
                                     (2, 65, 128), (3, 127, 64), (2, 128, 128), (2, 192, 64),
                                     (3, 257, 128), (2, 257, 64), (48, 2305, 128), (2, 31, 128),
                                     (2, 32, 128), (2, 33, 128), (3, 63, 64), (2, 96, 128),
-                                    (2, 97, 64), (2, 255, 64), (2, 256, 128), (1, 385, 128)])
+                                    (2, 97, 64), (2, 255, 64), (2, 256, 128), (1, 385, 128),
+                                    (2, 65, 64), (18, 2305, 64)])
 def test_flash_attention_kernels_match_plain(cuda, dtype, bh, n, d):
     """Around the tiles of the bf16 wgmma kernels (64 keys or queries a tile,
     128 queries or keys a CTA), of the f32 ones (forward and dq: 128 queries
     a CTA, key tiles of 64 at d = 64 and 32 at d = 128; dk/dv: 64 keys a
-    CTA, query tiles of 64 at d = 64 and 32 at d = 128) and at the MIM
-    step's (48, 2305, 128)."""
+    CTA, query tiles of 64 at d = 64 and 32 at d = 128), at the MIM
+    step's (48, 2305, 128) and the finetune step's (18, 2305, 64)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     q, k, v, do = (torch.randn(bh, n, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
     before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)

@@ -39,13 +39,39 @@
 // their max skips the rescale of O, a x 1), and O += P V with P as the
 // register A operand and V read MN-major from shared memory. Two CTAs fit an
 // SM at D = 64 (66 KB of shared memory, 96 registers a thread), so one
-// warpgroup's softmax overlaps another's products. What holds it back is the
-// softmax's instruction count, not the copies: on an H100, sharing each K/V
-// tile between the CTAs of a cluster by TMA multicast (fewer L2 reads) made
-// the flat call slower, as did 4 stages, 3 or 4 consumer warpgroups a CTA,
-// and issuing the next tile's S before this tile's softmax: at D = 64 it
-// leaves one CTA an SM, and at D = 128, one CTA an SM already, the folded
-// call ran slower with it too.
+// warpgroup's softmax overlaps another's products. At D = 64 a last key tile
+// of at most 8 keys (the mosaic's 2305 = 36 x 64 + 1) runs alone: S over 8
+// keys (m64n8k16) and one k-step of P V; its other keys are masked, so their
+// P is 0 and they add 0 to the row sums and nothing to O, and the bits are
+// those of the whole tile (2-3 % off the flat call at the mosaic's shape).
+//
+// Where the time goes at D = 64 (the flat call at the mosaic's shape, H100 at
+// its 700 W limit, ~1.78 GHz): ~830 clocks of an SM per warpgroup-tile (64
+// rows x 64 keys) against ~256 of tensor cores, ~270 of SFU (34 MUFU a
+// thread) and ~520 of issue (~16 instructions an element: expf's 9, the max,
+// the bf16 pack, the unpacked row sums, the zeroed S). No single unit bounds
+// it: exp as ex2.approx (40 % fewer softmax instructions) took 12 % off, and
+// packing P without F2FP nothing. What holds it is the latency of each
+// warpgroup's S -> softmax -> P.V chain, hidden only by the other three
+// consumer warpgroups of the SM; two CTAs keep their warpgroups' phases apart,
+// where warpgroups sharing one K/V ring fall into step. Slower on an H100, all
+// with the same bits: sharing each K/V tile between the CTAs of a cluster by
+// TMA multicast; 4 stages; 3 or 4 consumer warpgroups a CTA; a producer
+// warpgroup giving the consumers its registers (setmaxnreg) so that each
+// warpgroup's softmax runs under its own products, with two score tiles (S(t
+// + 1) and P(t - 1).V(t - 1) under the softmax of tile t: 2 warpgroups at 240
+// registers, +11 %; at 160 ptxas serializes the wgmma for want of registers)
+// or with S(t + 1) and P(t).V(t) issued together (3 warpgroups at 160: +1-3
+// %; 4 at 112 spill: +7 %); the same with a ping-pong of two warpgroups by
+// named barriers (+12 %), with P staged in shared memory for two CTAs an SM
+// at 104 registers (+6-10 %), with Q in registers (+5-12 %), and with
+// 128-key score tiles (+3 %); a persistent grid of one or two CTAs an SM
+// walking the units in a fixed order (+2-5 % against the same kernel on the
+// hardware's grid); one consumer warpgroup a CTA, three or four CTAs an SM
+// (+0-6 %); and skipping the softmax of a warp whose rows all lie past N
+// (it spills at the 96 registers two CTAs an SM allow: +10 %). At D = 128,
+// one CTA an SM already, issuing the next tile's S before this tile's
+// softmax ran slower too.
 
 #include <math.h>
 #include <stdint.h>
@@ -157,6 +183,59 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 64][32], const uint32_t 
   wgmma_commit();
 }
 
+// A last tile of at most 8 keys (k0 .. n - 1) at D = 64, with the arithmetic
+// of softmax_tile and issue_pv on the whole tile: its keys at or past n are
+// masked, so their P is 0, they add 0 to the row sums and nothing to O.
+// S over 8 keys (m64n8k16), P.V over the first 16 (one k-step), waited for.
+__device__ __forceinline__ void last_tile_k8(float (&o)[32], const unsigned char* qw,
+                                             const unsigned char* st, int k0, int n, int t4,
+                                             float& m0, float& m1, float& l0, float& l1) {
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};  // rows g, g + 8; keys k0 + 2 t4, + 1
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_m64n8k16<0, 0>(sc, desc_k128(qw + kk * 32), desc_k128(st + kk * 32));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  const int key = k0 + 2 * t4;
+  if (key >= n) sc[0] = sc[2] = -INFINITY;
+  if (key + 1 >= n) sc[1] = sc[3] = -INFINITY;
+  float mx0 = fmaxf(-INFINITY, fmaxf(sc[0], sc[1]));
+  float mx1 = fmaxf(-INFINITY, fmaxf(sc[2], sc[3]));
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  const uint32_t p01 = pack_bf16(expf(sc[0] - mn0), expf(sc[1] - mn0));
+  const uint32_t p23 = pack_bf16(expf(sc[2] - mn1), expf(sc[3] - mn1));
+  float sum0 = 0.f, sum1 = 0.f;
+  sum0 += __uint_as_float(p01 << 16) + __uint_as_float(p01 & 0xffff0000u);
+  sum1 += __uint_as_float(p23 << 16) + __uint_as_float(p23 & 0xffff0000u);
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+  if (!__all_sync(0xffffffffu, a0 == 1.f && a1 == 1.f)) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
+    }
+  }
+  const uint32_t pa[4] = {p01, p23, 0u, 0u};
+  wgmma_fence();
+  wgmma_rs_m64n64k16<1>(o, pa, desc_mn128(st + kWK * 128, kWK * 128));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
 // q_map, k_map, v_map: the one qkv map three times (flat), or the maps of
 // the folded q, k, v (nh = 1); lse only with FOLDED
 template <int D, bool FOLDED>
@@ -238,7 +317,9 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     return;
   }
-  for (int t = 0; t < tiles; ++t) {
+  // at D = 64 a last tile of at most 8 keys runs alone, after the others
+  const int whole = D == 64 && n - (tiles - 1) * kWK <= 8 ? tiles - 1 : tiles;
+  for (int t = 0; t < whole; ++t) {
     await(t);
     float sc[32];
     issue_scores<D>(sc, qw, stage(t));
@@ -252,6 +333,13 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int c = 0; c < C::CH; ++c) fence_regs(o[c]);
     release(t);
+  }
+  if constexpr (D == 64) {
+    if (whole < tiles) {
+      await(whole);
+      last_tile_k8(o[0], qw, stage(whole), whole * kWK, n, t4, m0, m1, l0, l1);
+      release(whole);
+    }
   }
 
 #pragma unroll
