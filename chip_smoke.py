@@ -39,6 +39,10 @@ and then, failing on the first phase that fails:
    at the 49-tile mosaic's shapes, the training kernels at the MIM step's
    and, in f32, at the finetune step's (phase 12: attention at head dim 64,
    (18, 2305, 64), the MLP block at 6915 rows),
+   the DINOv2 block's gate and LayerScale residual (``csrc/swiglu.cu``) at
+   the g14 mosaic's 63749 rows (widths 2 x 4096 and 1536; the residual's
+   sum bit-equal, and in bf16 99 % of the outputs equal to the twin's),
+   beside ``F.silu(a) * b`` and ``x + y * gamma`` with ``F.layer_norm``;
    the histogram on a 32768^2 uint8 image, a view of it 3 bytes in, 2^24 +
    67 pixels of two values and two skewed buffers (2^30 zeros, ~90 % bin 0;
    counts exactly equal to the twin's; timed on the first and the skewed
@@ -62,6 +66,10 @@ and then, failing on the first phase that fails:
    float32 and bfloat16: bf16-vs-f32 mask Dice > 0.99, kernel route vs plain
    route Dice >= 0.99 in both dtypes, and the launch counts of one call
    (11 attention, 10 LN-out MLP, 1 plain fused MLP);
+2b. runs ``segment_mosaic`` with DINOv2 ViT-g/14 with registers at full
+   width (random weights from a seed) on a 1512^2 mosaic (window 504,
+   stride 168, 49 tiles) in bf16: the launches of one call (39 attention,
+   39 gates, 78 LayerScale residuals), ms per mosaic and peak memory;
 3. serves three mosaics from a directory through the port's
    ``sw_processing.main`` and checks the written masks;
 4. trains the SimMIM ViT (width 384, depth 4, 3 heads of 128, patch 8) at
@@ -203,6 +211,10 @@ import numpy as np
 SIZE, WINDOW, STRIDE = 1152, 384, 128
 TILES, TOKENS = 49, 2305  # (1152-384)/128+1 = 7 per axis; 48*48 patches + CLS
 MIM_BATCH, MIM_SIZE = 16, 384  # mim.py defaults; 48*48 patches + CLS = TOKENS
+# DINOv2 ViT-g/14 with registers on the g14reg_fused_1512 cell's mosaic: 7 x 7
+# tiles of 504^2, 36*36 patches + CLS + 4 registers, width 1536, SwiGLU 4096
+G14_SIZE, G14_WINDOW, G14_STRIDE, G14_TOKENS = 1512, 504, 168, 1301
+G14_DIM, G14_HIDDEN = 1536, 4096
 F32_TOL, BF16_TOL = 1e-5, 1e-2  # outputs: max|kernel - plain| / max|plain|
 GRAD_TOL = {"f32": 1e-4, "bf16": 2e-2}  # gradients
 LSE_TOL = {"f32": 1e-5, "bf16": 1e-3}  # f32 lse; in bf16 a one-ulp flip of a rounded P moves it
@@ -248,6 +260,9 @@ KERNELS = {
     "probe_matmul": ("pr", {"bf16": "matmul_wgmma.cu", "int8": "matmul_wgmma.cu"}, PD + ":38"),
     "probe_attention": ("pr", {"bf16": "probe_attention_wgmma.cu",
                                "int8": "probe_attention_wgmma.cu"}, PD + ":72"),
+    # the DINOv2 block's kernels: new in the port, no TPU kernel to replace
+    "swiglu_gate": ("sw", {"f32": "swiglu.cu", "bf16": "swiglu.cu"}, None),
+    "layerscale_norm": ("sw", {"f32": "swiglu.cu", "bf16": "swiglu.cu"}, None),
 }
 # the probe attention's functions -> the TPU kernel body each replaces
 PROBE_REPLACES = {"dot": PD + ":72", "full": BAV + ":31", "bf16exp": BAV + ":31",
@@ -262,6 +277,10 @@ INT8_LAUNCHES = {"auto": {"int8_dot": 22, "quantize_rows": 22, "attention_qkv": 
                  "none": {"int8_dot": 44, "quantize_rows": 44, "attention_qkv": 11}}
 PROBE_N, PROBE_NP, PROBE_GROUPS = 2305, 2432, 49 * 6  # tools/ probes' attention shape
 MOSAIC_LAUNCHES = {"attention_qkv": 11, "fused_mlp_block_lnout": 10, "fused_mlp_block": 1}
+# one 1512^2 g14 mosaic (49 tiles, one ViT call of 40 blocks): the first 39
+# full (the last runs the CLS row alone, on no kernel), each with a gate and
+# two LayerScale residuals
+G14_LAUNCHES = {"attention_qkv": 39, "swiglu_gate": 39, "layerscale_norm": 78}
 MIM_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 4, "fused_mlp_block_h1": 4,
                 "fused_mlp_bwd": 4}
 # opt-in training route -> (models.vit.TrainRoutes fields, the kernels one
@@ -378,9 +397,10 @@ def _modules():
     from vit_ocm_wmsegmentation_tpu_torch.ops import ln_linear as ln
     from vit_ocm_wmsegmentation_tpu_torch.ops import probes as pr
     from vit_ocm_wmsegmentation_tpu_torch.ops import quant as qz
+    from vit_ocm_wmsegmentation_tpu_torch.ops import swiglu as sw
     from vit_ocm_wmsegmentation_tpu_torch.ops import threshold as th
 
-    return {"fa": fa, "fm": fm, "ln": ln, "th": th, "qz": qz, "pr": pr}
+    return {"fa": fa, "fm": fm, "ln": ln, "th": th, "qz": qz, "pr": pr, "sw": sw}
 
 
 def launch_counts():
@@ -540,6 +560,65 @@ def _kernel_cases(tag, dtype, gen):
         8 * rows * dm * hid, (3 * rows * dm + rows * hid) * isz + w_bytes + 2 * dm * hid * 4)
     cases.update(_route_cases(tag, dtype, isz, tol, (q, k, v, do), (xm, dom, mlp), randn))
     return cases
+
+
+def _close_twin(name, tag, got, want):
+    """Within F32_TOL | BF16_TOL of max|twin|, and in bf16 at least 99 % of
+    the outputs equal to the twin's: the kernel rounds once, as the twin
+    does, so only a last-bit tie of f32 arithmetic may part them."""
+    err = _compare(name, tag, got, want, F32_TOL if tag == "f32" else BF16_TOL)
+    if tag == "bf16":
+        same = float((got == want).float().mean())
+        print(f"  {name}[{tag}]: {same:.5f} of the outputs equal to the twin's (gate 0.99)")
+        if not same >= 0.99:
+            raise AssertionError(f"{name}[{tag}]: {same:.5f} of the outputs equal to the twin's")
+    return err
+
+
+def _dinov2_cases(tag, dtype, gen):
+    """The DINOv2 block's two kernels (csrc/swiglu.cu) at the g14 mosaic's
+    49 * 1301 rows, as _kernel_cases: the gate on (rows, 2 * 4096), with
+    the --infer_mlp none route's ``F.silu(a) * b`` as the library; the
+    LayerScale residual with the next LayerNorm on rows x 1536, its sum
+    bit-equal to the twin's, with ``x + y * gamma`` and ``F.layer_norm`` as
+    the library. Bytes: the gate reads 2H and writes H a row, the residual
+    reads x and y and writes the sum and the norm."""
+    import torch
+    import torch.nn.functional as F
+
+    sw = _modules()["sw"]
+    dev = torch.device("cuda")
+    isz = torch.finfo(dtype).bits // 8
+    rows, d, h = TILES * G14_TOKENS, G14_DIM, G14_HIDDEN
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x12 = (randn(rows, 2 * h) * 3).to(dtype)
+    a, b = x12.chunk(2, dim=-1)
+    x, y = randn(rows, d).to(dtype), (randn(rows, d) * 4).to(dtype)
+    gamma = (torch.rand(d, generator=gen, device=dev) * 0.9 + 0.1).to(dtype)
+    scale, bias = 1 + 0.1 * randn(d), 0.1 * randn(d)
+    lib_ln = (scale.to(dtype), bias.to(dtype))
+
+    def lsnorm_library():
+        out = x + y * gamma
+        return out, F.layer_norm(out, (d,), *lib_ln, 1e-6)
+
+    def check_lsnorm(g, w):
+        _equal(f"layerscale_norm[{tag}] sum", g[0], w[0])
+        return _close_twin("layerscale_norm", tag, g[1], w[1])
+
+    return {
+        "swiglu_gate": (
+            lambda: sw.swiglu_gate(x12), lambda: sw.swiglu_gate_plain(x12),
+            lambda g, w: _close_twin("swiglu_gate", tag, g, w), lambda: F.silu(a) * b,
+            5 * rows * h, 3 * rows * h * isz),
+        "layerscale_norm": (
+            lambda: sw.layerscale_norm(x, y, gamma, scale, bias, 1e-6),
+            lambda: sw.layerscale_norm_plain(x, y, gamma, scale, bias, 1e-6), check_lsnorm,
+            lsnorm_library, 10 * rows * d, 4 * rows * d * isz + 3 * d * 4),
+    }
 
 
 def phase_finetune_kernels(gen):
@@ -813,8 +892,9 @@ def phase_kernels():
     results = {}
     for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         _mlp_gemm_reference(tag, dtype, gen)
-        for name, (kern, plain, check, library, flops, nbytes) in _kernel_cases(tag, dtype,
-                                                                                gen).items():
+        for name, (kern, plain, check, library, flops, nbytes) in (
+                (name, case) for cases in (_kernel_cases, _dinov2_cases)
+                for name, case in cases(tag, dtype, gen).items()):
             got = kern()
             torch.cuda.synchronize()
             err = check(got, plain())
@@ -955,6 +1035,56 @@ def phase_slice():
           f"{mp / (plain_ms['bf16'] / 1e3):.3f} MP/s")
     print(f"  peak device memory, one bf16 mosaic: {peak / 2**30:.3f} GiB")
     return launches, models
+
+
+def phase_dinov2_mosaic():
+    """segment_mosaic with DINOv2 ViT-g/14 with registers at full width (the
+    port's init, drawn on the card) on a 1512^2 uint8 mosaic (window 504,
+    stride 168, 49 tiles) in bf16 on the auto route: the launches of one
+    call, counted from 0 just before it, the outputs' shapes and values, ms
+    a mosaic and peak device memory. Returns the launches."""
+    import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
+    from vit_ocm_wmsegmentation_tpu_torch.models import vit
+
+    dev = torch.device("cuda")
+    with torch.device(dev):
+        model = vit.init(vit.ARCHS["dinov2_vitg14_reg"](), torch.Generator(dev).manual_seed(0))
+    model = pl.cast_params(model, torch.bfloat16)
+    routes = vit.infer_routes("auto", cfg=model.cfg)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy((rng.random((G14_SIZE, G14_SIZE)) * 255).astype(np.uint8)).to(dev)
+
+    def run():
+        return pl.segment_mosaic(model, img, G14_WINDOW, G14_STRIDE, dtype=torch.bfloat16,
+                                 routes=routes)
+
+    run()  # warm-up (allocator, cuBLAS handles)
+    torch.cuda.synchronize()
+    reset_counts()
+    mask, attn = run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"  g14 mosaic [bf16] launches: { {k: v for k, v in launches.items() if v} }")
+    want = {name: G14_LAUNCHES.get(name, 0) for name in KERNELS}
+    if launches != want:
+        raise AssertionError(f"g14 launch counts {launches} != {want}")
+    m, a = mask.cpu().numpy(), attn.float().cpu().numpy()
+    if m.shape != (G14_SIZE, G14_SIZE) or a.shape != m.shape or not np.isfinite(a).all():
+        raise AssertionError(f"g14: bad outputs {m.shape} {a.shape}")
+    if not set(np.unique(m).tolist()) <= {0, 255}:
+        raise AssertionError("g14: mask values outside {0, 255}")
+    ms = cuda_ms(run, iters=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  g14 segment_mosaic [bf16]: {ms:.2f} ms/mosaic, "
+          f"{G14_SIZE ** 2 / 1e6 / (ms / 1e3):.3f} MP/s, peak device memory {peak / 2**30:.3f} GiB")
+    del model, mask, attn
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serving(model_bf16):
@@ -2633,6 +2763,9 @@ def main():
         print("phase 2: segment_mosaic at full width")
         launches, models = phase_slice()
         took("phase 2")
+        print("phase 2b: segment_mosaic with DINOv2 ViT-g/14 at full width")
+        g14_launches = phase_dinov2_mosaic()
+        took("phase 2b")
         print("phase 3: directory serving")
         served = phase_serving(models["bf16"])
         took("phase 3")
@@ -2679,6 +2812,8 @@ def main():
         _, sources, replaces = KERNELS[name]
         if name == "histogram_u8_kernel":
             path_launches = stream_launches[name]
+        elif name in ("swiglu_gate", "layerscale_norm"):
+            path_launches = g14_launches[name]
         elif name in MOSAIC_LAUNCHES:
             path_launches = launches[tag][name]
         elif name in MIM_LAUNCHES:

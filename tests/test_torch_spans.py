@@ -34,9 +34,15 @@ MOSAIC_LEAVES = {"pipeline.tiles", "pipeline.tile_maps", "pipeline.stitch",
 STEP_LEAVES = {"mim.forward", "mim.backward", "mim.optimizer"}
 
 
-def _vit():
-    cfg = tvit.ViTConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pretrain_img_size=32)
+def _vit(**dinov2):
+    cfg = tvit.ViTConfig(patch_size=8, embed_dim=32, depth=2, num_heads=2, pretrain_img_size=32,
+                         **dinov2)
     return tvit.init(cfg, torch.Generator().manual_seed(3)).eval()
+
+
+# the DINOv2 block kind's fields, at the tiny size
+DINOV2 = {"num_register_tokens": 4, "ffn": "swiglu", "layerscale": True,
+          "pos_interp": "antialias"}
 
 
 def _mosaic():
@@ -55,8 +61,8 @@ def _write_images(folder, n, size=40):
     return str(folder)
 
 
-def _fused():
-    mask, attn = tpl.segment_mosaic(_vit(), _mosaic(), WINDOW, STRIDE)
+def _fused(**dinov2):
+    mask, attn = tpl.segment_mosaic(_vit(**dinov2), _mosaic(), WINDOW, STRIDE)
     return [mask, attn]
 
 
@@ -99,6 +105,14 @@ CASES = {
                 [("pipeline.tiles", []), ("pipeline.tile_maps", [("vit.cls_attention_grid", [])]),
                  ("pipeline.stitch", []), ("pipeline.threshold", [])])],
               MOSAIC_LEAVES),
+    # the DINOv2 block kind adds vit.tokens and one vit.ffn a block before the last
+    "fused_dinov2": (lambda _: _fused(**DINOV2),
+                     [("pipeline.segment_mosaic",
+                       [("pipeline.tiles", []),
+                        ("pipeline.tile_maps", [("vit.cls_attention_grid",
+                                                 [("vit.tokens", []), ("vit.ffn", [])])]),
+                        ("pipeline.stitch", []), ("pipeline.threshold", [])])],
+                     MOSAIC_LEAVES),
     "streamed": (lambda _: _streamed(),
                  [("pipeline.segment_mosaic_streamed",
                    [("pipeline.tiles", [])]

@@ -242,7 +242,7 @@ def main(argv=None):
     model = load_model(args.arch, args.patch_size, args.pretrained_weights, args.checkpoint_key,
                        device=device, dtype=torch.bfloat16 if args.bf16 else None,
                        quant=args.quant)
-    routes = vit.infer_routes(args.infer_mlp, args.quant)
+    routes = vit.infer_routes(args.infer_mlp, args.quant, model.cfg)
 
     if args.image_path is None:
         raise SystemExit("Please use the `--image_path` argument to indicate the path of the image.")

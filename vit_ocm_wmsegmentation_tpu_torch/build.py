@@ -90,6 +90,10 @@ def _declare(lib):
     lib.vitocm_quantize_rows.restype = _I
     lib.vitocm_probe_attention.argtypes = [*[_I] * 6, *[_P] * 6, *[_I] * 5, ctypes.c_float, _P]
     lib.vitocm_probe_attention.restype = _I
+    lib.vitocm_swiglu_gate.argtypes = [_I, _P, _P, ctypes.c_longlong, _I, _P]
+    lib.vitocm_swiglu_gate.restype = _I
+    lib.vitocm_layerscale_norm.argtypes = [_I, *[_P] * 7, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_layerscale_norm.restype = _I
     return lib
 
 

@@ -96,7 +96,7 @@ def main(argv=None):
         median_size=int(args.median_filter), logger=logger,
         wandb=wandb if use_wandb else None, batch_size=int(args.batch_size),
         dtype=torch.bfloat16 if int(args.bf16) else torch.float32,
-        routes=vit.infer_routes(args.infer_mlp, args.quant),
+        routes=vit.infer_routes(args.infer_mlp, args.quant, model.cfg),
     )
     if use_wandb:
         wandb.finish()

@@ -21,6 +21,14 @@ fused MLP kernel per block or the stock MLP instead, and the int8
 projections of ``ops/quant.py``, route for route as the JAX package's
 ``set_infer_mlp`` / ``set_infer_quant`` do.
 
+DINOv2 (:data:`DINOV2_VITG14_REG`; :attr:`ViTConfig.block_kind` "dinov2"):
+register tokens after CLS, a SwiGLU FFN, LayerScale on both residuals and
+the antialiased positional interpolation, under DINOv2's state-dict keys.
+Its inference blocks run the products on cuBLAS and, between and after
+them, ``ops/swiglu.py``'s gate and LayerScale residual, each residual
+emitting the next LayerNorm's input (:func:`_run_blocks_v2`); the CLS row
+attends over the registers too, and the map keeps the patch columns.
+
 Training path (:func:`run_blocks_train`, the JAX package's
 ``_scan_blocks(train=True)``): every block on the differentiable kernel
 routes, the folded flash attention and the fused MLP block with its
@@ -51,6 +59,7 @@ from ..ops import flash_attention as fa
 from ..ops import fused_mlp as fm
 from ..ops import ln_linear as lnl
 from ..ops import quant as qz
+from ..ops import swiglu as sw
 from ..ops.resize import bicubic_matrix
 from ..utils.profiling import annotate
 
@@ -67,10 +76,47 @@ class ViTConfig:
     # image size the positional-embedding table is sized for (DINO pretrains
     # at 224; other sizes interpolate, vision_transformer.py:176)
     pretrain_img_size: int = 224
+    # DINOv2 (facebookresearch/dinov2 models/vision_transformer.py): register
+    # tokens between the CLS token and the patches, without positional
+    # embedding; the FFN, "mlp" (fc1 -> GELU -> fc2) or "swiglu" (w12 ->
+    # silu(a) * b -> w3, layers/swiglu_ffn.py); LayerScale on both residual
+    # branches (ls1.gamma, ls2.gamma); the positional table's interpolation,
+    # "dino" (bicubic A=-0.75, the scale from the grid plus 0.1) or
+    # "antialias" (torch's antialiased bicubic to the grid's size, DINOv2's
+    # interpolate_antialias=True, interpolate_offset=0). The defaults are DINO's.
+    num_register_tokens: int = 0
+    ffn: str = "mlp"
+    layerscale: bool = False
+    pos_interp: str = "dino"
+
+    def __post_init__(self):
+        if self.ffn not in ("mlp", "swiglu"):
+            raise ValueError(f"ViTConfig.ffn {self.ffn!r} not in ('mlp', 'swiglu')")
+        if self.pos_interp not in ("dino", "antialias"):
+            raise ValueError(f"ViTConfig.pos_interp {self.pos_interp!r} not in "
+                             f"('dino', 'antialias')")
 
     @property
     def pos_grid(self) -> int:
         return self.pretrain_img_size // self.patch_size
+
+    @property
+    def num_prefix_tokens(self) -> int:
+        """Tokens before the patches: CLS and the registers."""
+        return 1 + self.num_register_tokens
+
+    @property
+    def block_kind(self) -> str:
+        """"dino" (pre-norm, GELU MLP, plain residuals) or "dinov2" (a
+        SwiGLU FFN or LayerScale residuals)."""
+        return "dinov2" if self.ffn == "swiglu" or self.layerscale else "dino"
+
+    @property
+    def ffn_hidden(self) -> int:
+        """The FFN's hidden width: mlp_ratio * D, or for SwiGLU DINOv2's
+        2/3 of it rounded up to a multiple of 8 (SwiGLUFFNFused)."""
+        hidden = self.embed_dim * self.mlp_ratio
+        return hidden if self.ffn == "mlp" else (int(hidden * 2 / 3) + 7) // 8 * 8
 
     @property
     def num_pos_tokens(self) -> int:
@@ -85,8 +131,15 @@ class ViTConfig:
 VIT_TINY = partial(ViTConfig, embed_dim=192, depth=12, num_heads=3)
 VIT_SMALL = partial(ViTConfig, embed_dim=384, depth=12, num_heads=6)
 VIT_BASE = partial(ViTConfig, embed_dim=768, depth=12, num_heads=12)
+# DINOv2 ViT-g/14 with registers (dinov2/hub/backbones.py dinov2_vitg14_reg:
+# vit_giant2, ffn_layer="swiglufused", num_register_tokens=4,
+# interpolate_antialias=True, interpolate_offset=0.0; a 518^2 table)
+DINOV2_VITG14_REG = partial(ViTConfig, patch_size=14, embed_dim=1536, depth=40, num_heads=24,
+                            pretrain_img_size=518, num_register_tokens=4, ffn="swiglu",
+                            layerscale=True, pos_interp="antialias")
 
-ARCHS = {"vit_tiny": VIT_TINY, "vit_small": VIT_SMALL, "vit_base": VIT_BASE}
+ARCHS = {"vit_tiny": VIT_TINY, "vit_small": VIT_SMALL, "vit_base": VIT_BASE,
+         "dinov2_vitg14_reg": DINOV2_VITG14_REG}
 
 
 class _PatchEmbed(nn.Module):
@@ -110,8 +163,24 @@ class _Mlp(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         d = cfg.embed_dim
-        self.fc1 = nn.Linear(d, d * cfg.mlp_ratio)
-        self.fc2 = nn.Linear(d * cfg.mlp_ratio, d)
+        self.fc1 = nn.Linear(d, cfg.ffn_hidden)
+        self.fc2 = nn.Linear(cfg.ffn_hidden, d)
+
+
+class _SwiGLU(nn.Module):
+    """DINOv2's SwiGLUFFNFused: w12 (2H, D) holds both halves, w3 (D, H)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        d, h = cfg.embed_dim, cfg.ffn_hidden
+        self.w12 = nn.Linear(d, 2 * h)
+        self.w3 = nn.Linear(h, d)
+
+
+class _LayerScale(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(cfg.embed_dim))
 
 
 class _Block(nn.Module):
@@ -120,12 +189,19 @@ class _Block(nn.Module):
         d = cfg.embed_dim
         self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps)
         self.attn = _Attention(cfg)
+        if cfg.layerscale:
+            self.ls1 = _LayerScale(cfg)
         self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps)
-        self.mlp = _Mlp(cfg)
+        self.mlp = _SwiGLU(cfg) if cfg.ffn == "swiglu" else _Mlp(cfg)
+        if cfg.layerscale:
+            self.ls2 = _LayerScale(cfg)
 
 
 class ViT(nn.Module):
-    """Parameter container with the timm/DINO state-dict layout."""
+    """Parameter container with the timm/DINO state-dict layout; a DINOv2
+    configuration adds DINOv2's keys (``register_tokens``, ``mask_token``,
+    ``blocks.{i}.ls{1,2}.gamma``, ``blocks.{i}.mlp.w12`` / ``w3``), so that a
+    hub checkpoint loads with ``load_state_dict``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -134,8 +210,19 @@ class ViT(nn.Module):
         self.patch_embed = _PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_pos_tokens, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
+        if cfg.block_kind == "dinov2":
+            # DINOv2's iBOT mask token: in the state dict, unused at inference
+            self.mask_token = nn.Parameter(torch.zeros(1, d))
         self.blocks = nn.ModuleList([_Block(cfg) for _ in range(cfg.depth)])
         self.norm = nn.LayerNorm(d, eps=cfg.ln_eps)
+
+
+def _linears(blk):
+    """The block's nn.Linear layers: qkv, proj and the FFN's two."""
+    m = blk.mlp
+    return (blk.attn.qkv, blk.attn.proj) + ((m.w12, m.w3) if hasattr(m, "w12") else (m.fc1, m.fc2))
 
 
 def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None,
@@ -144,7 +231,10 @@ def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None,
     linear and patch-embed weights, positional embedding and CLS token;
     zeros for biases and LayerNorm biases, ones for LayerNorm scales. Drawn
     from ``generator`` on the CPU, then moved to ``device``. Parameters
-    require gradients only with ``requires_grad`` (training)."""
+    require gradients only with ``requires_grad`` (training). A DINOv2
+    configuration takes DINOv2's init_weights for what it adds: the CLS and
+    register tokens N(0, 1e-6), LayerScale at the hub's init_values 1, the
+    mask token 0."""
     model = ViT(cfg)
 
     def tn(p):
@@ -153,10 +243,15 @@ def init(cfg: ViTConfig, generator: torch.Generator | None = None, device=None,
     with torch.no_grad():
         tn(model.patch_embed.proj.weight)
         model.patch_embed.proj.bias.zero_()
-        tn(model.cls_token)
+        if cfg.block_kind == "dinov2":
+            model.cls_token.normal_(0.0, 1e-6, generator=generator)
+        else:
+            tn(model.cls_token)
+        if cfg.num_register_tokens:
+            model.register_tokens.normal_(0.0, 1e-6, generator=generator)
         tn(model.pos_embed)
         for blk in model.blocks:
-            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+            for lin in _linears(blk):
                 tn(lin.weight)
                 if lin.bias is not None:
                     lin.bias.zero_()
@@ -188,11 +283,58 @@ def interpolate_pos_embed(pos, grid_hw):
     return torch.cat([cls_pos, out.reshape(1, gh * gw, d)], dim=1)
 
 
+def interpolate_pos_embed_antialias(pos, grid_hw):
+    """DINOv2's interpolate_pos_encoding (interpolate_antialias=True,
+    interpolate_offset=0): the patch table in f32 through torch's
+    antialiased bicubic (A=-0.5) to the (gh, gw) grid's size, the CLS row
+    as it is, the result in the table's dtype; the table itself at its own
+    grid."""
+    gh, gw = grid_hw
+    g = math.isqrt(pos.shape[1] - 1)
+    if gh == g and gw == g:
+        return pos
+    d = pos.shape[-1]
+    pos32 = pos.float()
+    grid = pos32[:, 1:].reshape(1, g, g, d).permute(0, 3, 1, 2)
+    out = F.interpolate(grid, size=(gh, gw), mode="bicubic", antialias=True)
+    out = out.permute(0, 2, 3, 1).reshape(1, gh * gw, d)
+    return torch.cat([pos32[:, :1], out], dim=1).to(pos.dtype)
+
+
+def pos_embed_for(model: ViT, grid_hw):
+    """The positional table for a (gh, gw) grid by the configuration's rule.
+    A DINOv2 table ("antialias") is interpolated once per grid size and
+    table, on the table's device, and kept on the model; tables that take
+    gradients are interpolated every call."""
+    pos = model.pos_embed
+    if model.cfg.pos_interp == "dino":
+        return interpolate_pos_embed(pos, grid_hw)
+    if pos.requires_grad and torch.is_grad_enabled():
+        return interpolate_pos_embed_antialias(pos, grid_hw)
+    key = (tuple(grid_hw), pos.data_ptr(), pos._version, pos.dtype, pos.device)
+    cache = model.__dict__.setdefault("_pos_cache", {})
+    if key not in cache:
+        cache.clear()
+        with torch.no_grad():
+            cache[key] = interpolate_pos_embed_antialias(pos, grid_hw)
+    return cache[key]
+
+
 def prepare_tokens(model: ViT, x, patch_hook=None):
-    """(B, H, W, 3) image -> (B, 1 + gh*gw, D) tokens with CLS and
-    positional embedding. ``patch_hook(tok)`` transforms the (B, gh*gw, D)
-    patch tokens before the CLS concat and the positional embedding
-    (SimMIM's mask-token substitution, models/simmim.embed_tokens)."""
+    """(B, H, W, 3) image -> (B, 1 + R + gh*gw, D) tokens: CLS, then the R
+    register tokens of a DINOv2 configuration (after the positional
+    embedding, which they do not take), then the patches. ``patch_hook(tok)``
+    transforms the (B, gh*gw, D) patch tokens before the CLS concat and the
+    positional embedding (SimMIM's mask-token substitution,
+    models/simmim.embed_tokens). The DINOv2 block kind runs inside the span
+    ``vit.tokens``."""
+    if model.cfg.block_kind == "dinov2":
+        with annotate("vit.tokens"):
+            return _prepare_tokens(model, x, patch_hook)
+    return _prepare_tokens(model, x, patch_hook)
+
+
+def _prepare_tokens(model: ViT, x, patch_hook):
     cfg = model.cfg
     b, h, w, _ = x.shape
     p, d = cfg.patch_size, cfg.embed_dim
@@ -202,8 +344,11 @@ def prepare_tokens(model: ViT, x, patch_hook=None):
         tok = patch_hook(tok)
     cls = model.cls_token.to(tok.dtype).expand(b, 1, d)
     tok = torch.cat([cls, tok], dim=1)
-    pos = interpolate_pos_embed(model.pos_embed, (h // p, w // p))
-    return tok + pos.to(tok.dtype)
+    tok = tok + pos_embed_for(model, (h // p, w // p)).to(tok.dtype)
+    if not cfg.num_register_tokens:
+        return tok
+    reg = model.register_tokens.to(tok.dtype).expand(b, cfg.num_register_tokens, d)
+    return torch.cat([tok[:, :1], reg, tok[:, 1:]], dim=1)
 
 
 def _mlp_args(blk):
@@ -225,6 +370,12 @@ class InferRoutes:
       "none" (the stock MLP in plain torch, exact erf);
     * quant: None, or "int8" for the W8A8 projections of ops/quant.py.
 
+    The "dinov2" block kind (:attr:`ViTConfig.block_kind`) reads "lnout" as
+    its own kernel route, the products on cuBLAS and ops/swiglu.py's gate
+    and LayerScale residual, each residual emitting the next LayerNorm's
+    input; "none" as the plain torch chain; "kernel" and int8 raise (the
+    fused GELU MLP kernel and the int8 projections take the DINO block).
+
     With int8 the routes follow the JAX package's table
     (``vit.py:536-560, 598-624, 671-684``): "lnout" quantizes the attention
     projections and keeps the fused MLP kernel in full precision (its gate
@@ -241,15 +392,27 @@ class InferRoutes:
             raise ValueError(f"InferRoutes.quant {self.quant!r} not in (None, 'int8')")
 
 
-def infer_routes(infer_mlp: str = "auto", quant: str = "none") -> InferRoutes:
-    """InferRoutes from the CLIs' --infer_mlp and --quant (auto = lnout, the
-    JAX package's shipped route)."""
+def infer_routes(infer_mlp: str = "auto", quant: str = "none",
+                 cfg: ViTConfig | None = None) -> InferRoutes:
+    """InferRoutes from the CLIs' --infer_mlp and --quant for the model of
+    ``cfg``: auto = lnout, the JAX package's shipped route, where a kernel
+    route exists (the DINO block at a width in ops.fused_mlp.KERNEL_WIDTHS,
+    the DINOv2 block at any), else the stock MLP ("none"). The DINOv2 block
+    kind has no int8 route: quant="int8" raises here. Without ``cfg`` a
+    width the kernels take is assumed."""
     if infer_mlp not in INFER_MLP_CHOICES:
         raise ValueError(f"infer mlp mode {infer_mlp!r} not in {INFER_MLP_CHOICES}")
     if quant not in QUANT_CHOICES:
         raise ValueError(f"infer quant mode {quant!r} not in {QUANT_CHOICES}")
-    return InferRoutes("lnout" if infer_mlp == "auto" else infer_mlp,
-                       None if quant == "none" else quant)
+    v2 = cfg is not None and cfg.block_kind == "dinov2"
+    if v2 and quant == "int8":
+        raise ValueError("--quant int8 takes the DINO block; the DINOv2 block kind "
+                         "(SwiGLU FFN, LayerScale) has no int8 route")
+    mlp = infer_mlp
+    if infer_mlp == "auto":
+        stock = cfg is not None and not v2 and cfg.embed_dim not in fm.KERNEL_WIDTHS
+        mlp = "none" if stock else "lnout"
+    return InferRoutes(mlp, None if quant == "none" else quant)
 
 
 def _int8_key(model: ViT):
@@ -289,13 +452,23 @@ def _linear(x, weight, bias):
     return (y + bias.float() if bias is not None else y).to(x.dtype)
 
 
+def swiglu_plain(m, h):
+    """DINOv2's SwiGLU FFN in plain torch (layers/swiglu_ffn.py): w12, then
+    silu(x1) * x2 of its two halves, then w3, each step in h's dtype."""
+    a, b = F.linear(h, m.w12.weight, m.w12.bias).chunk(2, dim=-1)
+    return F.linear(F.silu(a) * b, m.w3.weight, m.w3.bias)
+
+
 def mlp_forward(blk, cfg: ViTConfig, x, int8=None):
     """The stock LN2 -> fc1 -> GELU -> fc2 branch of a block (the JAX
-    package's ``_mlp_forward`` on inference), without the residual. With
-    ``int8`` (a block of :func:`int8_weights`) both products run as
-    ops.quant.int8_dot; LN, GELU and the biases stay float."""
+    package's ``_mlp_forward`` on inference), without the residual; a SwiGLU
+    block's LN2 -> :func:`swiglu_plain`, without LayerScale. With ``int8`` (a
+    block of :func:`int8_weights`) both products run as ops.quant.int8_dot;
+    LN, GELU and the biases stay float."""
     h = tnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias, cfg.ln_eps)
     m = blk.mlp
+    if cfg.ffn == "swiglu":
+        return swiglu_plain(m, h)
     if int8 is None:
         return _linear(tnn.gelu(_linear(h, m.fc1.weight, m.fc1.bias)), m.fc2.weight, m.fc2.bias)
     h = qz.int8_dot(h, int8["fc1"], m.fc1.bias.float(), x.dtype)
@@ -308,13 +481,100 @@ def _attention(blk, cfg: ViTConfig, h, int8):
                         quant=int8 is not None, int8=int8)
 
 
-def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes(), lo: int = 0):
+def _ls(blk, name, y):
+    """y scaled by the block's LayerScale ``name`` ("ls1", "ls2"), if any."""
+    ls = getattr(blk, name, None)
+    return y if ls is None else y * ls.gamma.to(y.dtype)
+
+
+def _ffn_rows(m, h):
+    """The DINOv2 block's FFN over rows h (R, D) on the kernel route: the
+    products on cuBLAS (f32 accumulation, the bias in the epilogue), the
+    SwiGLU gate in ops/swiglu.py's kernel; a GELU MLP in plain torch."""
+    if hasattr(m, "w12"):
+        return F.linear(sw.swiglu_gate(F.linear(h, m.w12.weight, m.w12.bias)), m.w3.weight,
+                        m.w3.bias)
+    return F.linear(F.gelu(F.linear(h, m.fc1.weight, m.fc1.bias)), m.fc2.weight, m.fc2.bias)
+
+
+def _gamma(blk, name, d, like):
+    ls = getattr(blk, name, None)
+    return ls.gamma if ls is not None else torch.ones(d, dtype=like.dtype, device=like.device)
+
+
+def _run_blocks_v2(model: ViT, tok, hi: int, routes: InferRoutes, lo: int, emit):
+    """Blocks [lo, hi) of the DINOv2 kind (x + ls1(attn(LN1 x)); x +
+    ls2(ffn(LN2 x))), each FFN branch and its residual inside the span
+    ``vit.ffn``; returns (tok, LN ``emit`` of tok or None). On "lnout" each
+    residual is ops.swiglu.layerscale_norm, which emits the next LayerNorm's
+    input (LN2 after the attention, the next block's LN1 after the FFN, and
+    ``emit`` after block hi-1), so that only block lo's LN1 runs on its own.
+    On "none" the plain torch chain."""
+    cfg = model.cfg
+    if routes.quant is not None:
+        raise ValueError("the DINOv2 block kind has no int8 route")
+    if routes.mlp == "kernel":
+        raise ValueError("InferRoutes.mlp 'kernel' is the fused GELU MLP kernel of the DINO "
+                         "block; the DINOv2 block kind takes 'lnout' (auto) or 'none'")
+    b, n, d = tok.shape
+    eps = cfg.ln_eps
+    if hi <= lo:
+        return tok, None
+    if routes.mlp == "none":
+        for i in range(lo, hi):
+            blk = model.blocks[i]
+            h = tnn.layer_norm(tok, blk.norm1.weight, blk.norm1.bias, eps)
+            tok = tok + _ls(blk, "ls1", _attention(blk, cfg, h, None))
+            with annotate("vit.ffn"):
+                tok = tok + _ls(blk, "ls2", mlp_forward(blk, cfg, tok))
+        z = None if emit is None else tnn.layer_norm(tok, emit.weight, emit.bias, eps)
+        return tok, z
+    first = model.blocks[lo].norm1
+    rows = tok.reshape(b * n, d)
+    h = tnn.layer_norm(rows, first.weight, first.bias, eps)
+    for i in range(lo, hi):
+        blk = model.blocks[i]
+        y = _attention(blk, cfg, h.reshape(b, n, d), None).reshape(b * n, d)
+        rows, h = sw.layerscale_norm(rows, y, _gamma(blk, "ls1", d, y), blk.norm2.weight,
+                                     blk.norm2.bias, eps)
+        with annotate("vit.ffn"):
+            y = _ffn_rows(blk.mlp, h)
+            nxt = model.blocks[i + 1].norm1 if i + 1 < hi else emit
+            g2 = _gamma(blk, "ls2", d, y)
+            if nxt is None:
+                rows = (rows.float() + g2.float() * y.float()).to(rows.dtype)
+            else:
+                rows, h = sw.layerscale_norm(rows, y, g2, nxt.weight, nxt.bias, eps)
+    return rows.reshape(b, n, d), None if emit is None else h.reshape(b, n, d)
+
+
+def run_blocks(model: ViT, tok, hi: int, routes: InferRoutes = InferRoutes(), lo: int = 0,
+               emit=None):
     """Blocks [lo, hi) on the inference routes (the JAX package's
     ``_scan_blocks(lo, hi)``). On "lnout" each block's MLP kernel emits the
     next block's normalized input z, so only block lo's LN1 runs on its own,
     and block hi-1 takes the plain fused MLP, so that no z leaks past hi; on
     "kernel" every block runs LN1 and the fused MLP kernel; on "none", and
-    on "kernel" with int8, the stock MLP (:func:`mlp_forward`)."""
+    on "kernel" with int8, the stock MLP (:func:`mlp_forward`). The DINOv2
+    block kind runs :func:`_run_blocks_v2`.
+
+    With ``emit`` (a LayerNorm module: the next block's norm1, or the final
+    norm) returns (tok, emit's LayerNorm of tok): the DINOv2 kind's last
+    residual kernel emits it, the DINO kind computes it after the blocks."""
+    cfg = model.cfg
+    if cfg.block_kind == "dinov2":
+        tok, z = _run_blocks_v2(model, tok, hi, routes, lo, emit)
+        if emit is None:
+            return tok
+        return tok, z if z is not None else tnn.layer_norm(tok, emit.weight, emit.bias,
+                                                           cfg.ln_eps)
+    tok = _run_blocks_dino(model, tok, hi, routes, lo)
+    if emit is None:
+        return tok
+    return tok, tnn.layer_norm(tok, emit.weight, emit.bias, cfg.ln_eps)
+
+
+def _run_blocks_dino(model: ViT, tok, hi: int, routes: InferRoutes, lo: int):
     cfg = model.cfg
     if hi <= lo:
         return tok
@@ -535,21 +795,25 @@ def cls_attention_grid(model: ViT, x, routes: InferRoutes = InferRoutes()):
     """Last-block CLS-row attention as a patch grid: (B, H, W, 3) ->
     (B, h, gh, gw), i.e. attn[:, :, 0, 1:] of the reference's last block
     (utils.py:229-233), without any N x N matrix. ``routes`` selects the
-    inference routes of blocks 0..L-2; the CLS row is never quantized. Runs
-    inside the span ``vit.cls_attention_grid`` (utils.profiling)."""
+    inference routes of blocks 0..L-2; the CLS row is never quantized. With
+    register tokens the row attends over CLS, registers and patches, and the
+    grid keeps the patch columns (attn[:, :, 0, 1 + R:]). Runs inside the
+    span ``vit.cls_attention_grid`` (utils.profiling)."""
     with annotate("vit.cls_attention_grid"):
         cfg = model.cfg
         b, hgt, wdt, _ = x.shape
         gh, gw = hgt // cfg.patch_size, wdt // cfg.patch_size
         h, last = _last_block_input(model, x, routes)
         row = att.cls_row_attention(h, last.attn.qkv.weight, last.attn.qkv.bias, cfg.num_heads)
-        return row[:, :, 1:].reshape(b, cfg.num_heads, gh, gw)
+        return row[:, :, cfg.num_prefix_tokens:].reshape(b, cfg.num_heads, gh, gw)
 
 
 # ---------------------------------------------------------------------------
 # The analysis API (vision_transformer.py:211-256 of the reference): the
 # blocks before the ones a function reads run through run_blocks, so on the
-# inference routes' kernels
+# inference routes' kernels. Its outputs hold the CLS and the patch tokens
+# (N+1), as the reference's: a DINOv2 model's register tokens are dropped
+# from them (they stay in every computation's keys)
 # ---------------------------------------------------------------------------
 
 
@@ -557,20 +821,32 @@ def _final_norm(model: ViT, tok):
     return tnn.layer_norm(tok, model.norm.weight, model.norm.bias, model.cfg.ln_eps)
 
 
+def _drop_registers(model: ViT, t, dim: int):
+    """t without the register tokens along ``dim`` (token order CLS,
+    registers, patches)."""
+    r = model.cfg.num_register_tokens
+    if not r:
+        return t
+    n = t.shape[dim]
+    return torch.cat([t.narrow(dim, 0, 1), t.narrow(dim, 1 + r, n - 1 - r)], dim=dim)
+
+
 def _last_block_input(model: ViT, x, routes: InferRoutes):
-    """LN1 of the last block over the tokens blocks [0, depth-1) give."""
+    """LN1 of the last block over the tokens blocks [0, depth-1) give (the
+    DINOv2 kind's last residual kernel emits it)."""
     cfg = model.cfg
-    tok = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1, routes)
     last = model.blocks[cfg.depth - 1]
-    return tnn.layer_norm(tok, last.norm1.weight, last.norm1.bias, cfg.ln_eps), last
+    _, h = run_blocks(model, prepare_tokens(model, x), cfg.depth - 1, routes, emit=last.norm1)
+    return h, last
 
 
 @torch.inference_mode()
 def forward_features(model: ViT, x, routes: InferRoutes = InferRoutes()):
     """Every block and the final LayerNorm: (B, H, W, 3) -> (B, N+1, D)
-    (the reference's forward_feats, :218-223)."""
-    tok = run_blocks(model, prepare_tokens(model, x), model.cfg.depth, routes)
-    return _final_norm(model, tok)
+    (the reference's forward_feats, :218-223; DINOv2's x_norm_clstoken and
+    x_norm_patchtokens, its x_norm_regtokens dropped)."""
+    _, z = run_blocks(model, prepare_tokens(model, x), model.cfg.depth, routes, emit=model.norm)
+    return _drop_registers(model, z, 1)
 
 
 @torch.inference_mode()
@@ -590,7 +866,7 @@ def get_intermediate_layers(model: ViT, x, n: int = 1, routes: InferRoutes = Inf
     outs = []
     for i in range(cfg.depth - n, cfg.depth):
         tok = run_blocks(model, tok, i + 1, routes, lo=i)
-        outs.append(_final_norm(model, tok))
+        outs.append(_drop_registers(model, _final_norm(model, tok), 1))
     return torch.stack(outs)
 
 
@@ -611,11 +887,11 @@ def get_intermediate_feat(model: ViT, x, n: int = 1, routes: InferRoutes = Infer
         h = tnn.layer_norm(tok, blk.norm1.weight, blk.norm1.bias, cfg.ln_eps)
         y, attn, qkv = att.mha(h, a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias,
                                cfg.num_heads, return_attn=True)
-        tok = tok + y
-        tok = tok + mlp_forward(blk, cfg, tok)
-        feats.append(_final_norm(model, tok))
-        attns.append(attn)
-        qkvs.append(qkv)
+        tok = tok + _ls(blk, "ls1", y)
+        tok = tok + _ls(blk, "ls2", mlp_forward(blk, cfg, tok))
+        feats.append(_drop_registers(model, _final_norm(model, tok), 1))
+        attns.append(_drop_registers(model, _drop_registers(model, attn, 2), 3))
+        qkvs.append(_drop_registers(model, qkv, 3))
     return torch.stack(feats), torch.stack(attns), torch.stack(qkvs)
 
 
@@ -640,10 +916,13 @@ def query_attention_rows(model: ViT, x, queries, routes: InferRoutes = InferRout
     sequence or int tensor of Q token indices), (B, h, Q, N+1), without the
     N x N matrix: softmax(q[queries] K^T / sqrt(d)) in f32, in h's dtype
     (the region-query and query-grid analysis modes,
-    analyse_attention.py:183-247)."""
+    analyse_attention.py:183-247). Indices and columns count CLS and the
+    patches; register tokens take part in the softmax, their columns
+    dropped."""
     cfg = model.cfg
     h, last = _last_block_input(model, x, routes)
     idx = torch.as_tensor(queries, dtype=torch.long, device=h.device)
+    idx = torch.where(idx > 0, idx + cfg.num_register_tokens, idx)
     q = _qk_rows(h[:, idx], last.attn.qkv.weight, last.attn.qkv.bias, 0)
     k = _qk_rows(h, last.attn.qkv.weight, last.attn.qkv.bias, 1)
     b, nq, _ = q.shape
@@ -651,7 +930,7 @@ def query_attention_rows(model: ViT, x, queries, routes: InferRoutes = InferRout
     q = q.reshape(b, nq, cfg.num_heads, hd).permute(0, 2, 1, 3)
     k = k.reshape(b, k.shape[1], cfg.num_heads, hd).permute(0, 2, 1, 3)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd**-0.5
-    return torch.softmax(logits, dim=-1).to(h.dtype)
+    return _drop_registers(model, torch.softmax(logits, dim=-1).to(h.dtype), 3)
 
 
 @torch.inference_mode()
@@ -663,4 +942,5 @@ def last_block_key_features(model: ViT, x, routes: InferRoutes = InferRoutes()):
     b, hgt, wdt, _ = x.shape
     h, last = _last_block_input(model, x, routes)
     k = _qk_rows(h, last.attn.qkv.weight, last.attn.qkv.bias, 1)
-    return k[:, 1:].reshape(b, hgt // cfg.patch_size, wdt // cfg.patch_size, cfg.embed_dim)
+    return k[:, cfg.num_prefix_tokens:].reshape(b, hgt // cfg.patch_size, wdt // cfg.patch_size,
+                                                cfg.embed_dim)

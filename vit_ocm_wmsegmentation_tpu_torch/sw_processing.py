@@ -76,8 +76,10 @@ def parse_args(argv=None):
                              "otsu_sw.jpg")
     parser.add_argument("--infer_mlp", default="auto", choices=list(vit.INFER_MLP_CHOICES),
                         help="inference MLP route: auto = lnout (the cross-layer fused MLP "
-                             "kernel, the JAX package's shipped route); kernel = the fused MLP "
-                             "kernel per block; none = the stock MLP (exact erf)")
+                             "kernel, the JAX package's shipped route; for a DINOv2 --arch its "
+                             "gate and LayerScale-residual kernels) where the model has a kernel "
+                             "route, else none; kernel = the fused MLP kernel per block; none = "
+                             "the stock MLP (exact erf)")
     parser.add_argument("--quant", default="none", choices=list(vit.QUANT_CHOICES),
                         help="inference quantization: int8 runs the projection matmuls (and the "
                              "stock MLP's) as dynamic W8A8 products on the int8 GEMM kernel "
@@ -113,16 +115,27 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def arch_config(arch: str, patch_size: int) -> vit.ViTConfig:
+    """The ViTConfig of ``arch`` at ``patch_size``. A DINOv2 architecture
+    fixes its patch size (its positional table is published for it)."""
+    if arch not in vit.ARCHS:
+        raise SystemExit(f"unknown arch {arch!r}; choices: {sorted(vit.ARCHS)}")
+    cfg = vit.ARCHS[arch](patch_size=patch_size)
+    fixed = vit.ARCHS[arch]().patch_size
+    if cfg.block_kind == "dinov2" and patch_size != fixed:
+        raise ValueError(f"--arch {arch} takes --patch_size {fixed}, got {patch_size}")
+    return cfg
+
+
 def load_model(arch: str, patch_size: int, pretrained_weights: str = "",
                checkpoint_key: str = "teacher", seed: int = 0, device=None, dtype=None,
                quant: str = "none"):
     """The ViT for ``arch``: a local checkpoint when given, else random
     weights from ``seed`` (no download is attempted), on ``device``, cast to
     ``dtype`` when given; with ``quant="int8"`` its int8 route's weights are
-    quantized here, once (models.vit.int8_weights)."""
-    if arch not in vit.ARCHS:
-        raise SystemExit(f"unknown arch {arch!r}; choices: {sorted(vit.ARCHS)}")
-    cfg = vit.ARCHS[arch](patch_size=patch_size)
+    quantized here, once (models.vit.int8_weights). A DINOv2 architecture
+    loads a DINOv2-layout state dict (its hub checkpoint) the same way."""
+    cfg = arch_config(arch, patch_size)
     model = vit.init(cfg, torch.Generator().manual_seed(seed))
     if pretrained_weights and os.path.isfile(pretrained_weights):
         sd = load_torch_checkpoint(pretrained_weights, cfg, checkpoint_key)
@@ -135,6 +148,7 @@ def load_model(arch: str, patch_size: int, pretrained_weights: str = "",
     if dtype is not None:
         model = pl.cast_params(model, dtype)
     if quant == "int8":
+        vit.infer_routes("auto", quant, cfg)  # raises where the block kind has no int8 route
         vit.int8_weights(model)
     return model
 
@@ -174,7 +188,7 @@ def main(argv=None):
     if args.writers < 0:
         raise SystemExit(f"--writers must be >= 0, got {args.writers}")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    routes = vit.infer_routes(args.infer_mlp, args.quant)
+    routes = vit.infer_routes(args.infer_mlp, args.quant, arch_config(args.arch, args.patch_size))
     model = load_model(args.arch, args.patch_size, args.pretrained_weights,
                        args.checkpoint_key, device=device, dtype=dtype, quant=args.quant)
     streamed = streamed_route(args.streamed, size)

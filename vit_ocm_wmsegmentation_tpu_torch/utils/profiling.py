@@ -14,7 +14,8 @@ The spans are named ``<module>.<stage>``: ``pipeline.segment_mosaic`` and
 ``pipeline.segment_mosaic_streamed`` around a mosaic, with the leaves
 ``pipeline.tiles``, ``pipeline.tile_maps``, ``pipeline.stitch`` and
 ``pipeline.threshold`` (the streamed path's ``pipeline.band`` a tile row),
-``vit.cls_attention_grid``; ``mim.step`` around a training step, with
+``vit.cls_attention_grid`` (and inside it, for the DINOv2 block kind,
+``vit.tokens`` and one ``vit.ffn`` a block); ``mim.step`` around a training step, with
 ``mim.forward``, ``mim.backward`` and ``mim.optimizer``; ``data.device_aug``
 around each batch of the device-augmentation loader. A top span holds only
 host code of its own; every op that launches work runs under a leaf.
