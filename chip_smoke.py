@@ -233,9 +233,10 @@ QZ = "vit_ocm_wmsegmentation_tpu/ops/quant.py"
 KERNELS = {
     "attention_qkv": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_wgmma.cu"},
                       FA + ":468"),
-    "fused_mlp_block_lnout": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"},
+    "fused_mlp_block_lnout": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_serve_wgmma.cu"},
                               FM + ":154"),
-    "fused_mlp_block": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_wgmma.cu"}, FM + ":123"),
+    "fused_mlp_block": ("fm", {"f32": "fused_mlp.cu", "bf16": "fused_mlp_serve_wgmma.cu"},
+                        FM + ":123"),
     "flash_attention": ("fa", {"f32": "attention_qkv.cu", "bf16": "attention_qkv_wgmma.cu"},
                         FA + ":74"),
     "flash_attention_bwd": ("fa", {"f32": "attention_bwd.cu", "bf16": "attention_bwd_wgmma.cu"},
@@ -342,8 +343,9 @@ CONTROLS = {}
 # phase 0: kernel (a part of its mangled name) -> (instances at least, SASS
 # opcodes it must hold, opcodes it must not). The wgmma kernels
 # (csrc/*_wgmma.cu) run warpgroup products (HGMMA) fed by TMA (UTMALDG) and
-# no mma.sync (HMMA), the MLP forward in its 8 instances (2 widths x LN-out,
-# plain, h1 and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
+# no mma.sync (HMMA), the MLP's inference forward in its 4 instances (2
+# widths x LN-out and plain) and its training forward in 4 (2 widths x h1
+# and gp), the MLP backward's dx kernel in 4 (2 widths x 2 routes)
 # and its weight kernel in 2, the saved-P forward in 2 (d 64 and 128), the
 # LN -> qkv forward and the backward's dx and weight kernels in 2 each (D 192
 # and 384), the GEMM of matmul_wgmma.cu in bf16 (HGMMA) and in its three int8 instances
@@ -362,7 +364,8 @@ _WGMMA = (1, ("HGMMA", "UTMALDG"), ("HMMA",))
 _IGMMA = (3, ("IGMMA", "UTMALDG"), ("IMMA", "HMMA", "HGMMA"))
 _FFMA = ("FFMA", "LDGSTS"), ("HMMA", "HGMMA", "IMMA", "IGMMA", "QGMMA", "BMMA", "DMMA")
 SASS_CHECKS = {
-    "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": (8, *_WGMMA[1:]),
+    "attention_wgmma_kernel": _WGMMA, "fused_mlp_wgmma_kernel": (4, *_WGMMA[1:]),
+    "fused_mlp_serve_wgmma_kernel": (4, *_WGMMA[1:]),
     "mlp_bwd_dx_wgmma_kernel": (4, *_WGMMA[1:]), "mlp_bwd_w_wgmma_kernel": (2, *_WGMMA[1:]),
     "attn_bwd_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_dq_wgmma_kernel": _WGMMA,
     "attn_bwd_savep_dkdv_wgmma_kernel": _WGMMA, "attn_bwd_savep_dq_wgmma_kernel": _WGMMA,

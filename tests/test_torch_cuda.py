@@ -147,11 +147,13 @@ def test_attention_wgmma_kernel_matches_plain(cuda, n, b, heads, d):
 
 
 @pytest.mark.parametrize("d,h", [(384, 1536), (192, 768), (384, 1568), (192, 800)])
-@pytest.mark.parametrize("rows", [1, 70, 129, 1100])
+@pytest.mark.parametrize("rows", [1, 70, 127, 129, 1100, 132 * 128 * 2 + 5, 112945])
 def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
-    """The bf16 inference MLP's wgmma kernel (csrc/fused_mlp_wgmma.cu), lnout
-    and plain, at row counts around its 128-row tile, both widths, H = 4D
-    and H a multiple of its 32-unit chunk only."""
+    """The bf16 inference MLP's wgmma kernel (csrc/fused_mlp_serve_wgmma.cu),
+    lnout and plain, at row counts around its 128-row tile (a last tile of 5
+    rows past two waves of 132 CTAs, whose second warpgroup has no row) and
+    at the mosaic's 112945, both widths, H = 4D and H a multiple of its
+    32-unit chunk only; two calls give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(rows + d + h)
     r = lambda *s, std=1.0, mean=0.0: torch.randn(*s, generator=gen, device=cuda) * std + mean  # noqa: E731
     dtype = torch.bfloat16
@@ -159,7 +161,7 @@ def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
     w1, w2 = r(h, d, std=d ** -0.5).to(dtype), r(d, h, std=h ** -0.5).to(dtype)
     args = (x, r(d, std=0.1, mean=1.0), r(d, std=0.1), w1, r(h, std=0.1), w2, r(d, std=0.1))
     ln2 = (r(d, std=0.1, mean=1.0), r(d, std=0.1))
-    assert fm.mlp_route(x, w1, w2) == "fused_mlp_wgmma.cu"
+    assert fm.mlp_route(x, w1, w2) == "fused_mlp_serve_wgmma.cu"
     before = (fm.fused_mlp_block_lnout.launches, fm.fused_mlp_block.launches)
     out, z = fm.fused_mlp_block_lnout(*args, *ln2)
     pout, pz = fm.fused_mlp_block_lnout_plain(*args, *ln2)
@@ -167,8 +169,9 @@ def test_mlp_wgmma_kernels_match_plain(cuda, rows, d, h):
     _close(z, pz, dtype)
     plain = fm.fused_mlp_block(*args)
     assert torch.equal(plain, out)  # the same kernel without the z epilogue
+    assert _bit_equal((out, z), fm.fused_mlp_block_lnout(*args, *ln2))
     assert (fm.fused_mlp_block_lnout.launches, fm.fused_mlp_block.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 1)
 
 
 def _digests(dev):
@@ -286,6 +289,10 @@ def _digests(dev):
 # are of the build before the head dim 64 wgmma attention took a last key
 # tile of at most 8 keys alone (scores over those 8, one k-step of P V): the
 # tile's other keys are masked, their P is 0, so the bits stay.
+# fused_mlp_block_lnout[bf16] reproduces across the move of the bf16
+# inference MLP to csrc/fused_mlp_serve_wgmma.cu, whose products, GELU and
+# LayerNorms (rows normalized and written several at a time, each row's sums
+# in warp_ln_stats' order) are the old instances' arithmetic.
 RECORDED_DIGESTS = {
     "fused_mlp_block_h1[f32]": "be74e9f764b63ced", "fused_mlp_block_gp[f32]": "ae9f854e7b52ec51",
     "fused_mlp_block_lnout[f32]": "4e1b3394e6e209af",

@@ -2,11 +2,11 @@
 
 The wrappers choose their kernel by route, explicitly (no fallback):
 bfloat16 inference takes the wgmma kernels (csrc/attention_qkv_wgmma.cu,
-csrc/fused_mlp_wgmma.cu), as does the bfloat16 training attention, forward
+csrc/fused_mlp_serve_wgmma.cu), as does the bfloat16 training attention, forward
 (csrc/attention_qkv_wgmma.cu) and backward (csrc/attention_bwd_wgmma.cu),
 and on the saved-P route both ways (csrc/attention_savep_wgmma.cu,
 csrc/attention_savep_bwd_wgmma.cu); the bfloat16 MLP training forward takes
-the wgmma kernel too, float32 the CUDA-core ones, as does LN -> qkv
+its own wgmma kernel (csrc/fused_mlp_wgmma.cu), float32 the CUDA-core ones, as does LN -> qkv
 (csrc/ln_linear.cu both ways; bfloat16 csrc/ln_linear_wgmma.cu forward and
 csrc/ln_linear_bwd_wgmma.cu backward); the tiled GEMM of the probes and the int8 route takes
 csrc/matmul_wgmma.cu in every dtype and epilogue, and every attention probe
@@ -99,8 +99,8 @@ def test_training_attention_routes_raise_on_what_no_kernel_takes(dtype, name, ca
 
 
 @pytest.mark.parametrize("dtype,d,h,residual,want", [
-    (BF16, 384, 1536, None, "fused_mlp_wgmma.cu"),
-    (BF16, 192, 800, None, "fused_mlp_wgmma.cu"),  # H a multiple of the wgmma chunk only
+    (BF16, 384, 1536, None, "fused_mlp_serve_wgmma.cu"),
+    (BF16, 192, 800, None, "fused_mlp_serve_wgmma.cu"),  # H a multiple of the wgmma chunk only
     (BF16, 384, 1536, "h1", "fused_mlp_wgmma.cu"),
     (BF16, 192, 768, "gp", "fused_mlp_wgmma.cu"),
     # the training routes too: H a multiple of the 32-unit chunk, not of 64
@@ -115,6 +115,20 @@ def test_training_attention_routes_raise_on_what_no_kernel_takes(dtype, name, ca
 ])
 def test_mlp_route_names_the_kernel(dtype, d, h, residual, want):
     assert fm.mlp_route(*_mlp(dtype, d, h), residual) == want
+
+
+@pytest.mark.parametrize("d,h", [(384, 1536), (192, 768), (384, 1568), (192, 800)])
+def test_bf16_mlp_inference_and_training_take_their_own_sources(d, h):
+    """A bfloat16 call with no residual outputs (fused_mlp_block,
+    fused_mlp_block_lnout: serving, eval, analysis, the PGT teacher) takes
+    csrc/fused_mlp_serve_wgmma.cu; the training routes, which save h1 or g
+    and gp, csrc/fused_mlp_wgmma.cu; the backward's check reads the
+    training forward's route."""
+    x, w1, w2 = _mlp(BF16, d, h)
+    assert fm.mlp_route(x, w1, w2) == "fused_mlp_serve_wgmma.cu"
+    assert fm.mlp_route(x, w1, w2, "h1") == "fused_mlp_wgmma.cu"
+    assert fm.mlp_route(x, w1, w2, "gp") == "fused_mlp_wgmma.cu"
+    assert fm.mlp_bwd_route(*_bwd(BF16, d, h)) == "fused_mlp_bwd_wgmma.cu"
 
 
 @pytest.mark.parametrize("residual", [None, "h1", "gp"])

@@ -74,8 +74,10 @@ def _declare(lib):
     lib.vitocm_flash_bwd_savep.restype = _I
     lib.vitocm_fused_mlp.argtypes = [_I, _I, *[_P] * 13, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp.restype = _I
-    lib.vitocm_fused_mlp_wgmma.argtypes = [_I, *[_P] * 14, *[_I] * 5, ctypes.c_float, _P]
+    lib.vitocm_fused_mlp_wgmma.argtypes = [*[_P] * 11, *[_I] * 5, ctypes.c_float, _P]
     lib.vitocm_fused_mlp_wgmma.restype = _I
+    lib.vitocm_fused_mlp_serve.argtypes = [_I, *[_P] * 11, _I, _I, _I, ctypes.c_float, _P]
+    lib.vitocm_fused_mlp_serve.restype = _I
     lib.vitocm_fused_mlp_bwd.argtypes = [_I, *[_P] * 13, _I, _I, _I, _I, ctypes.c_float, _P]
     lib.vitocm_fused_mlp_bwd.restype = _I
     lib.vitocm_ln_linear.argtypes = [_I, *[_P] * 6, _I, _I, _I, ctypes.c_float, _P]

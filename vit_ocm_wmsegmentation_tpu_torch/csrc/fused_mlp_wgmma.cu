@@ -1,27 +1,25 @@
-// Fused pre-norm MLP block, forward, bf16 storage, on Hopper's warpgroup
-// tensor cores: wgmma fed by TMA through an mbarrier ring.
-//   out = x + W2 . gelu(W1 . LN(x; s1, bn1) + b1) + b2
-//   z   = LN(out; s2, bn2)                      (LNOUT only)
-// Replaces vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py::_mlp_fwd_lnout_kernel
-// (LNOUT) and ::_mlp_fwd_kernel, for bf16: with no residual outputs
-// (inference), and on its training routes: want="h1" (H1: the pre-GELU h1
-// rounded to bf16, GELU reading the unrounded value) and want="gp" (H1 and
-// GP: the rounded g = gelu(h1) in h1's place, the very bf16 values the y
-// product multiplies, so out is bit-equal to the h1 route's, and gelu'(h1)
-// rounded). Weights in nn.Linear's layout: w1 (H, D), w2 (D, H), bf16; LN
-// scales and biases f32. D in {192, 384}, H a multiple of 32.
+// Fused pre-norm MLP block, training forward, bf16 storage, on Hopper's
+// warpgroup tensor cores: wgmma fed by TMA through an mbarrier ring.
+//   out = x + W2 . gelu(W1 . LN(x; s1, bn1) + b1) + b2, and h1 or g, gp
+// Replaces vit_ocm_wmsegmentation_tpu/ops/fused_mlp.py::_mlp_fwd_kernel for
+// bf16 on its training routes: want="h1" (the pre-GELU h1 rounded to bf16,
+// GELU reading the unrounded value) and want="gp" (GP: the rounded g =
+// gelu(h1) in h1's place, the very bf16 values the y product multiplies, so
+// out is bit-equal to the h1 route's, and gelu'(h1) rounded). The inference
+// forward (no residual outputs, LN-out and plain) is fused_mlp_serve_wgmma.cu,
+// which began as this kernel's inference instances. Weights in nn.Linear's
+// layout: w1 (H, D), w2 (D, H), bf16; LN scales and biases f32. D in {192,
+// 384}, H a multiple of 32.
 //
 // Rounding points of the twin (ops/fused_mlp.py::_mlp_plain): xn rounded to
-// bf16, h1 in f32 and GELU by erff, g rounded to bf16, f32 accumulation, out
-// = round(x + (acc + b2)), z = LN of the rounded out. Only the order of the
-// f32 sums inside each product differs, and on the training routes GELU's
-// Phi and exp (common.cuh::gelu_pieces_bf16: within 1.5e-7 of erf, shared by
-// both routes so that their outs stay bit-equal).
+// bf16, h1 in f32, g rounded to bf16, f32 accumulation, out = round(x + (acc
+// + b2)). Only the order of the f32 sums inside each product differs, and
+// GELU's Phi and exp (common.cuh::gelu_pieces_bf16: within 1.5e-7 of erf,
+// shared by both routes so that their outs stay bit-equal).
 //
-// What bounds it on the H100: at the mosaic's 112945 x 384, H 1536, 267
-// GFLOP (0.27 ms at 989 TFLOP/s) against 0.26 GB of HBM traffic; at the MIM
-// step's 36880 rows 87 GFLOP (0.088 ms), and the training routes write 113
-// MB (h1) or 227 MB (g, gp) more. The mma.sync kernels this replaced copied
+// What bounds it on the H100: at the MIM step's 36880 x 384, H 1536, 87
+// GFLOP (0.088 ms at 989 TFLOP/s), and the routes write 113 MB (h1) or 227
+// MB (g, gp) besides x and out. The mma.sync kernels this replaced copied
 // each weight chunk with all threads between two __syncthreads (tensor cores
 // idle), once per 64 rows. Here a
 // CTA owns 128 rows (two consumer warpgroups of 64) and a producer keeps the
@@ -39,23 +37,21 @@
 // to 240 with setmaxnreg, out of the 144 a thread the producer warpgroup
 // gives back by dropping to 24 (a CTA's warps trade only the registers the
 // CTA was launched with, so the producer is a whole warpgroup, of which one
-// lane issues the copies). On the training routes each warp stages its (16 x
-// 32) h1 or g tile, and gp, in 2 KB of its own shared memory (64-byte rows,
-// swizzled so that the accumulator-layout pairs hit 32 banks), then writes
-// 16 bytes a lane while the y product runs. Shared memory 193 KB at D = 384,
-// 209 KB on the training routes: one CTA an SM. At the MIM step's 36880 rows
-// the 289 tiles are 2.19 waves of 132 CTAs, so a third of the kernel's time
-// ran 25 CTAs; on the training routes each tile past the last whole wave
+// lane issues the copies). Each warp stages its (16 x 32) h1 or g tile, and
+// gp, in 2 KB of its own shared memory (64-byte rows, swizzled so that the
+// accumulator-layout pairs hit 32 banks), then writes 16 bytes a lane while
+// the y product runs. Shared memory 209 KB at D = 384: one CTA an SM. At the
+// MIM step's 36880 rows the 289 tiles are 2.19 waves of 132 CTAs, so a third
+// of the kernel's time ran 25 CTAs; each tile past the last whole wave
 // (ops/fused_mlp.py::fwd_split) runs as up to 4 CTAs, each over a share of
 // the chunks, which write their y in f32 for mlp_split_combine_kernel to sum
-// in order. The inference instances keep one CTA a tile.
-// The epilogue stages the rounded out in the warpgroup's xn space, then one
-// warp per row writes out and, with LNOUT, z. Within a warpgroup the h
-// product, the GELU and the y product run one after another; the two
-// warpgroups overlap each other. On an H100 these were slower: sharing each
-// weight chunk between two CTAs of a cluster by TMA multicast, turn-taking
-// between the warpgroups, and issuing the next chunk's h before this chunk's
-// GELU (which spills at 240 registers).
+// in order. The epilogue stages the rounded out in the warpgroup's xn space,
+// then one warp per row writes it. Within a warpgroup the h product, the
+// GELU and the y product run one after another; the two warpgroups overlap
+// each other. On an H100 these were slower: sharing each weight chunk
+// between two CTAs of a cluster by TMA multicast, turn-taking between the
+// warpgroups, and issuing the next chunk's h before this chunk's GELU (which
+// spills at 240 registers).
 
 #include <math.h>
 #include <stdint.h>
@@ -72,14 +68,14 @@ constexpr int kFThreads = 384;  // two consumer warpgroups + the producer warpgr
 constexpr int kFS1 = 2, kFS2 = 2;  // stages of the W1 and of the W2 ring
 constexpr int kFStage = 2048;   // a warp's staging on the training routes: h1 or g, then gp
 
-template <int D, bool H1>
+template <int D>
 struct MlpWgmma {
   static constexpr int CH = D / 64;                    // 64-column chunks of xn and W1
   static constexpr int HALVES = D / 192;               // n = 192 products of y
   static constexpr int XN_BYTES = CH * kFR * 128;      // chunk c: 128 rows at c * kFR * 128
   static constexpr int W1_BYTES = CH * kFC * 128;      // chunk c: 32 rows at c * kFC * 128
   static constexpr int W2_BYTES = D * kFC * 2;         // D rows of 64 bytes
-  static constexpr int ST_BYTES = H1 ? 8 * kFStage : 0;
+  static constexpr int ST_BYTES = 8 * kFStage;
   static constexpr size_t SMEM = 1024 + XN_BYTES + kFS1 * W1_BYTES + kFS2 * W2_BYTES + ST_BYTES +
                                  8 * 2 * (kFS1 + kFS2);
 };
@@ -107,9 +103,10 @@ __device__ __forceinline__ void stage_pair(unsigned char* tile, int r, int col, 
 
 // g = round(gelu(h + b1)) of hidden units h0 .., packed as the A operand of
 // the two k-steps of y += g . W2c^T; h[4i + e]: row g + 8 (e >> 1), unit h0
-// + 8i + 2 t4 + (e & 1). H1 stages round(h + b1) at st, GP instead g there
-// and round(gelu'(h + b1)) at st + 1024 (the warp's rows at g, g + 8).
-template <bool H1, bool GP>
+// + 8i + 2 t4 + (e & 1). The h1 route stages round(h + b1) at st, GP
+// instead g there and round(gelu'(h + b1)) at st + 1024 (the warp's rows at
+// g, g + 8).
+template <bool GP>
 __device__ __forceinline__ void gelu_pack(float (&h)[16], const float* __restrict__ b1, int h0,
                                           int g, int t4, uint32_t (&ga)[2][4], unsigned char* st) {
 #pragma unroll
@@ -118,22 +115,15 @@ __device__ __forceinline__ void gelu_pack(float (&h)[16], const float* __restric
     const float bj0 = b1[h0 + col], bj1 = b1[h0 + col + 1];
     const float u0 = h[4 * i] + bj0, u1 = h[4 * i + 1] + bj1;
     const float u2 = h[4 * i + 2] + bj0, u3 = h[4 * i + 3] + bj1;
-    if (H1 && !GP) {
+    if (!GP) {
       stage_pair(st, g, col, pack_bf16(u0, u1));
       stage_pair(st, g + 8, col, pack_bf16(u2, u3));
     }
     float p0, p1, p2, p3;  // gelu'(h): only GP keeps it, rounded
-    if (H1) {  // the training routes: g (and gp) by the bf16 pieces
-      gelu_pieces_bf16(u0, h[4 * i], p0);
-      gelu_pieces_bf16(u1, h[4 * i + 1], p1);
-      gelu_pieces_bf16(u2, h[4 * i + 2], p2);
-      gelu_pieces_bf16(u3, h[4 * i + 3], p3);
-    } else {
-      gelu_pieces(u0, h[4 * i], p0);
-      gelu_pieces(u1, h[4 * i + 1], p1);
-      gelu_pieces(u2, h[4 * i + 2], p2);
-      gelu_pieces(u3, h[4 * i + 3], p3);
-    }
+    gelu_pieces_bf16(u0, h[4 * i], p0);  // g (and gp) by the bf16 pieces
+    gelu_pieces_bf16(u1, h[4 * i + 1], p1);
+    gelu_pieces_bf16(u2, h[4 * i + 2], p2);
+    gelu_pieces_bf16(u3, h[4 * i + 3], p3);
     if (GP) {
       stage_pair(st + 1024, g, col, pack_bf16(p0, p1));
       stage_pair(st + 1024, g + 8, col, pack_bf16(p2, p3));
@@ -169,19 +159,17 @@ __device__ __forceinline__ void issue_y(float (&y)[D / 192][96], const uint32_t 
   wgmma_commit();
 }
 
-template <int D, bool LNOUT, bool H1, bool GP>
+template <int D, bool GP>
 __global__ void __launch_bounds__(kFThreads, 1)
 fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
                        const __grid_constant__ CUtensorMap w2_map,
                        const __nv_bfloat16* __restrict__ x, const float* __restrict__ s1,
                        const float* __restrict__ bn1, const float* __restrict__ b1,
-                       const float* __restrict__ b2, const float* __restrict__ s2,
-                       const float* __restrict__ bn2, __nv_bfloat16* __restrict__ out,
-                       __nv_bfloat16* __restrict__ z, __nv_bfloat16* __restrict__ h1,
-                       __nv_bfloat16* __restrict__ gp, float* __restrict__ ypart, int split_from,
-                       int parts, int R, int H, float eps) {
-  static_assert(!(LNOUT && H1) && (H1 || !GP), "the training routes save h1 (or g) and no z");
-  using C = MlpWgmma<D, H1>;
+                       const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
+                       __nv_bfloat16* __restrict__ h1, __nv_bfloat16* __restrict__ gp,
+                       float* __restrict__ ypart, int split_from, int parts, int R, int H,
+                       float eps) {
+  using C = MlpWgmma<D>;
   constexpr int CPT = D / 32;  // LN: columns per lane
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* xs = align1024(smem_raw);
@@ -195,11 +183,11 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int chunks = H / kFC;
-  // on the training routes the tiles from split_from on (those past the
+  // the tiles from split_from on (those past the
   // last whole wave of CTAs) each run as `parts` CTAs, each over a share of
   // the chunks, that write their y to ypart for mlp_split_combine_kernel
   int tile = blockIdx.x, c0 = 0, n = chunks, part = -1;
-  if (H1 && tile >= split_from) {
+  if (tile >= split_from) {
     const int k = tile - split_from;
     tile = split_from + k / parts;
     part = k % parts;
@@ -299,21 +287,19 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
       wgmma_wait<0>();
       fence_regs(h);
       release1(i);
-      gelu_pack<H1, GP>(h, b1, c * kFC, g, t4, ga, st);
+      gelu_pack<GP>(h, b1, c * kFC, g, t4, ga, st);
       await2(i);
       issue_y<D>(y, ga, w2s(i));
-      if (H1) {  // the staged tiles out while the y product runs
-        __syncwarp();
-        warp_tile_store(st, h1, rb + 16 * wl, R, H, c * kFC, lane);
-        if (GP) warp_tile_store(st + 1024, gp, rb + 16 * wl, R, H, c * kFC, lane);
-        __syncwarp();
-      }
+      __syncwarp();  // the staged tiles out while the y product runs
+      warp_tile_store(st, h1, rb + 16 * wl, R, H, c * kFC, lane);
+      if (GP) warp_tile_store(st + 1024, gp, rb + 16 * wl, R, H, c * kFC, lane);
+      __syncwarp();
       wgmma_wait<0>();
 #pragma unroll
       for (int hf = 0; hf < C::HALVES; ++hf) fence_regs(y[hf]);
       release2(i);
     }
-    if (H1 && part >= 0) {  // a share of a split tile: its y, f32, (128, D) a part
+    if (part >= 0) {  // a share of a split tile: its y, f32, (128, D) a part
       float* yp = ypart + ((long long)(tile - split_from) * parts + part) * kFR * D;
 #pragma unroll
       for (int hf = 0; hf < C::HALVES; ++hf)
@@ -357,22 +343,10 @@ fused_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1_map,
       const int r = 16 * wl + i;
       const long long row = rb + r;
       if (row >= R) break;  // rows only grow with i
-      float o[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int col = lane + 32 * c;
-        const __nv_bfloat16 v = *reinterpret_cast<const __nv_bfloat16*>(xw + sw128_offset(r, col));
-        out[row * D + col] = v;
-        o[c] = __bfloat162float(v);
-      }
-      if (LNOUT) {
-        float mu, rstd;
-        warp_ln_stats<D>(o, eps, mu, rstd);
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const int col = lane + 32 * c;
-          z[row * D + col] = __float2bfloat16_rn((o[c] - mu) * rstd * s2[col] + bn2[col]);
-        }
+        out[row * D + col] = *reinterpret_cast<const __nv_bfloat16*>(xw + sw128_offset(r, col));
       }
     }
   }
@@ -404,13 +378,12 @@ __global__ void mlp_split_combine_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int D, bool LNOUT, bool H1, bool GP>
+template <int D, bool GP>
 static int launch_mlp_wgmma(const void* x, const float* s1, const float* bn1, const void* w1,
-                            const float* b1, const void* w2, const float* b2, const float* s2,
-                            const float* bn2, void* out, void* z, void* h1, void* gp,
-                            float* ypart, int split_from, int parts, int R, int H, float eps,
-                            cudaStream_t stream) {
-  using C = MlpWgmma<D, H1>;
+                            const float* b1, const void* w2, const float* b2, void* out, void* h1,
+                            void* gp, float* ypart, int split_from, int parts, int R, int H,
+                            float eps, cudaStream_t stream) {
+  using C = MlpWgmma<D>;
   CUtensorMap m1, m2;
   const uint64_t d1[2] = {(uint64_t)D, (uint64_t)H}, st1[1] = {(uint64_t)D * 2};
   const uint32_t box1[2] = {64, kFC};
@@ -419,14 +392,13 @@ static int launch_mlp_wgmma(const void* x, const float* s1, const float* bn1, co
   if (!make_tmap_bf16(&m1, w1, 2, d1, st1, box1, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_tmap_bf16(&m2, w2, 2, d2, st2, box2, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
-  auto kern = fused_mlp_wgmma_kernel<D, LNOUT, H1, GP>;
+  auto kern = fused_mlp_wgmma_kernel<D, GP>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   using B = __nv_bfloat16;
   const int tiles = (R + kFR - 1) / kFR;
   kern<<<split_from + (tiles - split_from) * parts, kFThreads, C::SMEM, stream>>>(
-      m1, m2, static_cast<const B*>(x), s1, bn1, b1, b2, s2, bn2, static_cast<B*>(out),
-      static_cast<B*>(z), static_cast<B*>(h1), static_cast<B*>(gp), ypart, split_from, parts, R,
-      H, eps);
+      m1, m2, static_cast<const B*>(x), s1, bn1, b1, b2, static_cast<B*>(out),
+      static_cast<B*>(h1), static_cast<B*>(gp), ypart, split_from, parts, R, H, eps);
   const int rc = (int)cudaGetLastError();
   if (rc != 0 || split_from == tiles) return rc;
   const long long pairs = (R - (long long)split_from * kFR) * (D / 2);
@@ -436,61 +408,37 @@ static int launch_mlp_wgmma(const void* x, const float* s1, const float* bn1, co
   return (int)cudaGetLastError();
 }
 
-// the residual stores are template flags: the inference instances (LN-out
-// and plain) carry none of them, the training ones (h1, and gp) no z
-template <int D>
-static int dispatch_mlp_wgmma(int lnout, const void* x, const float* s1, const float* bn1,
-                              const void* w1, const float* b1, const void* w2, const float* b2,
-                              const float* s2, const float* bn2, void* out, void* z, void* h1,
-                              void* gp, float* ypart, int split_from, int parts, int R, int H,
-                              float eps, cudaStream_t s) {
-  const int tiles = (R + kFR - 1) / kFR;  // the inference forward splits no tile
-  if (lnout)
-    return launch_mlp_wgmma<D, true, false, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
-                                                   nullptr, nullptr, nullptr, tiles, 1, R, H, eps,
-                                                   s);
-  if (h1 == nullptr)
-    return launch_mlp_wgmma<D, false, false, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
-                                                    nullptr, nullptr, nullptr, tiles, 1, R, H,
-                                                    eps, s);
-  if (gp == nullptr)
-    return launch_mlp_wgmma<D, false, true, false>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z,
-                                                   h1, nullptr, ypart, split_from, parts, R, H,
-                                                   eps, s);
-  return launch_mlp_wgmma<D, false, true, true>(x, s1, bn1, w1, b1, w2, b2, s2, bn2, out, z, h1,
-                                                gp, ypart, split_from, parts, R, H, eps, s);
-}
-
 }  // namespace vitocm
 
-// Forward, bf16: x, out, z (R, D); h1, gp (R, H); w1 (H, D); w2 (D, H), all
-// 16-byte aligned; s1, bn1, s2, bn2, b2 (D) and b1 (H) in f32. lnout = 0
-// ignores s2, bn2 and z. h1 may be null, and must be with lnout = 1; gp not
-// null (it needs h1) takes the SAVE_GP route: g = gelu(h1) into h1, gelu'(h1)
-// into gp. With h1, the 128-row tiles from split_from on run as `parts` CTAs
-// each (parts 1: none split), their y in ypart, (ceil(R / 128) - split_from)
-// x parts x 128 x D f32; without h1 no tile is split. D in {192, 384}, H a
-// multiple of 32. Returns cudaGetLastError() after the launches (0 on
-// success).
-extern "C" int vitocm_fused_mlp_wgmma(int lnout, const void* x, const void* s1, const void* bn1,
+// Forward, bf16, training: x, out (R, D); h1, gp (R, H); w1 (H, D); w2 (D,
+// H), all 16-byte aligned; s1, bn1, b2 (D) and b1 (H) in f32. h1 takes the
+// pre-GELU h1; gp not null takes the SAVE_GP route: g = gelu(h1) into h1,
+// gelu'(h1) into gp. The 128-row tiles from split_from on run as `parts`
+// CTAs each (parts 1: none split), their y in ypart, (ceil(R / 128) -
+// split_from) x parts x 128 x D f32. D in {192, 384}, H a multiple of 32.
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int vitocm_fused_mlp_wgmma(const void* x, const void* s1, const void* bn1,
                                       const void* w1, const void* b1, const void* w2,
-                                      const void* b2, const void* s2, const void* bn2, void* out,
-                                      void* z, void* h1, void* gp, void* ypart, int split_from,
-                                      int parts, int R, int D, int H, float eps, void* stream) {
+                                      const void* b2, void* out, void* h1, void* gp, void* ypart,
+                                      int split_from, int parts, int R, int D, int H, float eps,
+                                      void* stream) {
   using namespace vitocm;
   const int tiles = R > 0 ? (R + kFR - 1) / kFR : 0;
-  if (R < 1 || H < kFC || H % kFC != 0 || (lnout && (z == nullptr || h1 != nullptr)) ||
-      (gp != nullptr && h1 == nullptr) || parts < 1 || split_from < 0 || split_from > tiles ||
-      (h1 != nullptr && split_from < tiles && (parts < 2 || ypart == nullptr)))
+  if (R < 1 || H < kFC || H % kFC != 0 || h1 == nullptr || parts < 1 || split_from < 0 ||
+      split_from > tiles || (split_from < tiles && (parts < 2 || ypart == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* yp = static_cast<float*>(ypart);
   if (D == 384)
-    return dispatch_mlp_wgmma<384>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2),
-                                   out, z, h1, gp, yp, split_from, parts, R, H, eps, s);
+    return gp ? launch_mlp_wgmma<384, true>(x, f(s1), f(bn1), w1, f(b1), w2, f(b2), out, h1, gp,
+                                            yp, split_from, parts, R, H, eps, s)
+              : launch_mlp_wgmma<384, false>(x, f(s1), f(bn1), w1, f(b1), w2, f(b2), out, h1,
+                                             nullptr, yp, split_from, parts, R, H, eps, s);
   if (D == 192)
-    return dispatch_mlp_wgmma<192>(lnout, x, f(s1), f(bn1), w1, f(b1), w2, f(b2), f(s2), f(bn2),
-                                   out, z, h1, gp, yp, split_from, parts, R, H, eps, s);
+    return gp ? launch_mlp_wgmma<192, true>(x, f(s1), f(bn1), w1, f(b1), w2, f(b2), out, h1, gp,
+                                            yp, split_from, parts, R, H, eps, s)
+              : launch_mlp_wgmma<192, false>(x, f(s1), f(bn1), w1, f(b1), w2, f(b2), out, h1,
+                                             nullptr, yp, split_from, parts, R, H, eps, s);
   return (int)cudaErrorInvalidValue;
 }

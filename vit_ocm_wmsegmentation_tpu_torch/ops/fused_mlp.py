@@ -24,9 +24,10 @@ They launch the kernels of ``csrc/`` for CUDA tensors and their plain twins
 for CPU tensors. Which kernel a CUDA call launches is fixed by its route
 (:func:`mlp_route`, :func:`mlp_bwd_route`), never by a fallback: float32
 takes ``fused_mlp.cu`` and ``fused_mlp_bwd.cu`` (CUDA cores); bfloat16 the
-forward of ``fused_mlp_wgmma.cu`` (lnout, plain, h1 and gp) and the backward
-of ``fused_mlp_bwd_wgmma.cu`` (wgmma fed by TMA); design notes in each
-source. Weights come in nn.Linear's layout:
+inference forward (lnout, plain) of ``fused_mlp_serve_wgmma.cu``, the
+training forward (h1, gp) of ``fused_mlp_wgmma.cu`` and the backward of
+``fused_mlp_bwd_wgmma.cu`` (wgmma fed by TMA); design notes in each source.
+Weights come in nn.Linear's layout:
 ``w1`` = fc1.weight (H, D), ``w2`` = fc2.weight (D, H) -- the transpose of
 the JAX package's (D, H) / (H, D). Each wrapper's ``launches`` counts kernel
 launches.
@@ -48,7 +49,7 @@ _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-FWD_TILE = 128  # rows of a CTA of the bf16 forward (fused_mlp_wgmma.cu)
+FWD_TILE = 128  # rows of a CTA of the bf16 training forward (fused_mlp_wgmma.cu)
 MAX_FWD_PARTS = 4  # CTAs that share a tile of the bf16 training forward's last wave, at most
 MLP_SPLITS = 16  # row splits of the backward's weight-gradient partials (at most, in bf16)
 _BWD_MIN_TILE = 64  # rows of the backward's ln_part tile, both storage types
@@ -97,17 +98,21 @@ def fused_mlp_block_lnout_plain(x, scale, bias, w1, b1, w2, b2, scale2, bias2, e
 def mlp_route(x, w1, w2, want=None):
     """The kernel source a CUDA call with these operands launches, for every
     ``want`` (None: fused_mlp_block, fused_mlp_block_lnout; "h1", "gp": the
-    training forward): bfloat16 "fused_mlp_wgmma.cu", float32
-    "fused_mlp.cu". Raises on shapes, dtypes and layouts no kernel takes;
-    the device is the caller's check."""
+    training forward): bfloat16 "fused_mlp_serve_wgmma.cu" with no residual
+    outputs and "fused_mlp_wgmma.cu" with them, float32 "fused_mlp.cu".
+    Raises on shapes, dtypes and layouts no kernel takes; the device is the
+    caller's check."""
     if x.dim() != 2 or x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"fused_mlp: want (R, D) float32/bfloat16 x, got {tuple(x.shape)} {x.dtype}")
     d = x.shape[1]
     hdim = w1.shape[0]
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"fused_mlp: kernel built for D in {KERNEL_WIDTHS}, got D={d}")
-    route = "fused_mlp.cu" if x.dtype == torch.float32 else "fused_mlp_wgmma.cu"
-    chunk = HIDDEN_CHUNK if route == "fused_mlp_wgmma.cu" else F32_HIDDEN_CHUNK
+    if x.dtype == torch.float32:
+        route = "fused_mlp.cu"
+    else:
+        route = "fused_mlp_serve_wgmma.cu" if want is None else "fused_mlp_wgmma.cu"
+    chunk = F32_HIDDEN_CHUNK if route == "fused_mlp.cu" else HIDDEN_CHUNK
     if hdim % chunk or tuple(w1.shape) != (hdim, d) or tuple(w2.shape) != (d, hdim):
         raise ValueError(f"fused_mlp: want w1 (H, D) and w2 (D, H) with H % {chunk} == 0, "
                          f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
@@ -195,18 +200,21 @@ def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None
     gp = hidden() if want == "gp" else None
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     s1, bn1, b1f, b2f, s2, bn2 = (ptr(t) for t in args)
-    if route == "fused_mlp_wgmma.cu":
-        split_from, parts, ypart = -(-r // FWD_TILE), 1, None
-        if want is not None:  # the training forward: its last wave's tiles split
-            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-            split_from, parts = fwd_split(r, sms)
-            if parts > 1:
-                ypart = torch.empty(((-(-r // FWD_TILE) - split_from) * parts * FWD_TILE, d),
-                                    dtype=torch.float32, device=x.device)
-        rc = build.library().vitocm_fused_mlp_wgmma(
+    if route == "fused_mlp_serve_wgmma.cu":
+        rc = build.library().vitocm_fused_mlp_serve(
             int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f, w2.data_ptr(), b2f, s2, bn2,
-            out.data_ptr(), ptr(z), ptr(h1), ptr(gp), ptr(ypart), split_from, parts, r, d, hdim,
-            float(eps), build.stream_ptr(x.device))
+            out.data_ptr(), ptr(z), r, d, hdim, float(eps), build.stream_ptr(x.device))
+    elif route == "fused_mlp_wgmma.cu":  # the training forward: its last wave's tiles split
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        split_from, parts = fwd_split(r, sms)
+        ypart = None
+        if parts > 1:
+            ypart = torch.empty(((-(-r // FWD_TILE) - split_from) * parts * FWD_TILE, d),
+                                dtype=torch.float32, device=x.device)
+        rc = build.library().vitocm_fused_mlp_wgmma(
+            x.data_ptr(), s1, bn1, w1.data_ptr(), b1f, w2.data_ptr(), b2f, out.data_ptr(),
+            ptr(h1), ptr(gp), ptr(ypart), split_from, parts, r, d, hdim, float(eps),
+            build.stream_ptr(x.device))
     else:
         rc = build.library().vitocm_fused_mlp(
             build.DTYPE_CODES[x.dtype], int(lnout), x.data_ptr(), s1, bn1, w1.data_ptr(), b1f,
@@ -219,7 +227,7 @@ def _launch(x, scale, bias, w1, b1, w2, b2, scale2, bias2, eps, lnout, want=None
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, eps=1e-6):
     """x + gelu(LN(x; scale, bias) @ w1.T + b1) @ w2.T + b2 for x (R, D).
     CPU tensors take the plain twin; CUDA tensors launch the kernel of
-    :func:`mlp_route` (bfloat16: fused_mlp_wgmma.cu, float32: fused_mlp.cu)."""
+    :func:`mlp_route` (bfloat16: fused_mlp_serve_wgmma.cu, float32: fused_mlp.cu)."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, scale, bias, w1, b1, w2, b2, eps)
     out, _, _ = _launch(x, scale, bias, w1, b1, w2, b2, None, None, eps, lnout=False)
