@@ -199,7 +199,6 @@ import glob
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -419,39 +418,9 @@ def reset_counts():
         wrapper.launches_by_shape.clear()
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Median device time of fn() in ms, CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def queued_ms(fn, n=20):
-    """Device time a call in ms with n calls queued back to back (CUDA
-    events around the n): the host's set-up of each call overlaps the
-    device's work, where cuda_ms waits for it before every call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+def dice(a, b):
+    a, b = np.asarray(a) > 0, np.asarray(b) > 0
+    return 2.0 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1)
 
 
 def bound(flops, nbytes, tag):
@@ -870,6 +839,8 @@ def _mlp_gemm_reference(tag, dtype, gen):
     import torch
     import torch.nn.functional as F
 
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
+
     dm, hid = 384, 1536
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
     w1, w2 = rnd(hid, dm), rnd(dm, hid)
@@ -890,6 +861,8 @@ def _mlp_gemm_reference(tag, dtype, gen):
 def phase_kernels():
     """Each kernel against its plain twin at its main path's shapes."""
     import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -928,6 +901,8 @@ def _histogram_row(gen):
     skewed buffers, 2^30 zeros and a 32768^2 image of ~90 % bin 0; timed on
     the first beside torch.bincount, and on the skewed two."""
     import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     th = _modules()["th"]
     dev = torch.device("cuda")
@@ -970,8 +945,9 @@ def phase_slice():
     import torch
 
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
     from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     dev = torch.device("cuda")
     model32 = load_model("vit_small", 8, seed=0, device=dev)
@@ -1050,6 +1026,7 @@ def phase_dinov2_mosaic():
 
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
     from vit_ocm_wmsegmentation_tpu_torch.models import vit
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     dev = torch.device("cuda")
     with torch.device(dev):
@@ -1245,7 +1222,8 @@ def phase_streamed(models):
     import torch
 
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
-    from vit_ocm_wmsegmentation_tpu_torch.profile_gigapixel import make_mosaic
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import make_mosaic
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     dev = torch.device("cuda")
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -1324,7 +1302,7 @@ def _streamed_gates(models, img, seeds=(0, 1, 2, 3)):
     import torch
 
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
     from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
 
     th = _modules()["th"]
@@ -1366,7 +1344,7 @@ def phase_serving_streamed(model_bf16, streamed_mask):
     from PIL import Image
 
     from vit_ocm_wmsegmentation_tpu_torch import sw_processing as sw
-    from vit_ocm_wmsegmentation_tpu_torch.profile_gigapixel import make_mosaic
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import make_mosaic
     from vit_ocm_wmsegmentation_tpu_torch.utils.imageio import VIRIDIS, attention_lut_index
 
     th = _modules()["th"]
@@ -1447,14 +1425,11 @@ def _mim_inputs():
     """16 synthetic 384^2 images, their masks and the seeded SimMIM model."""
     import torch
 
-    from vit_ocm_wmsegmentation_tpu_torch.data.mask_generator import MaskGenerator
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import mim_batch
     from vit_ocm_wmsegmentation_tpu_torch.models import simmim
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.random((MIM_BATCH, MIM_SIZE, MIM_SIZE, 3), dtype=np.float32)).to(dev)
-    gen_mask = MaskGenerator(MIM_SIZE, 16, 8, 0.5)
-    mask = torch.from_numpy(np.stack([gen_mask(rng) for _ in range(MIM_BATCH)])).to(dev)
+    x, mask = mim_batch(dev)
     vit_cfg = simmim.mim_vit_config(MIM_SIZE, 8)
     return x, mask, simmim.init(vit_cfg, torch.Generator().manual_seed(0), dev)
 
@@ -1466,9 +1441,10 @@ def _mim_route_run(what, tag, model0, x, mask, routes, launched, default_loss=No
     device memory in bytes)."""
     import torch
 
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_training_route
     from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
     from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     amp = tag == "bf16"
     loss, gnorm, grads = _mim_grads(model0, x, mask, amp, routes)
@@ -1666,8 +1642,8 @@ def phase_analysis():
     from PIL import Image
 
     from vit_ocm_wmsegmentation_tpu_torch import analyse_attention as an
-    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import eval_pieces
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
 
     gh = EVAL_SIZE // 8
     rate = 10  # --query_rate's default: a 4 x 4 grid of queries on 48 x 48 patches
@@ -1749,6 +1725,8 @@ def _timed_row(name, source, replaces, tag, kern, plain, check, library, flops, 
     with calls queued back to back (for kernels short beside their call's
     host set-up)."""
     import torch
+
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms, queued_ms
 
     got = kern()
     torch.cuda.synchronize()
@@ -1963,8 +1941,9 @@ def phase_int8_route(models):
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
     from vit_ocm_wmsegmentation_tpu_torch import sw_processing as sw
     from vit_ocm_wmsegmentation_tpu_torch.models.vit import InferRoutes
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
     from vit_ocm_wmsegmentation_tpu_torch.sw_processing import load_model
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     qz = _modules()["qz"]
     dev = torch.device("cuda")
@@ -2096,12 +2075,12 @@ def phase_int8_route(models):
 
 def _write_eval_set(root):
     """EVAL_N labeled EVAL_SIZE^2 PNGs: seeded pieces of the synthetic OCM
-    mosaic of profile_gigapixel.make_mosaic, each across a corner of its
-    grid of bright blobs, labeled by the rule that placed the blobs
-    (profile_eval.eval_pieces)."""
+    mosaic of data.synthetic.make_mosaic, each across a corner of its grid
+    of bright blobs, labeled by the rule that placed the blobs
+    (data.synthetic.eval_pieces)."""
     from PIL import Image
 
-    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import eval_pieces
 
     pieces, labels = eval_pieces(EVAL_N, EVAL_SIZE)
     for sub, arrays in (("images", pieces), ("labels", labels)):
@@ -2122,7 +2101,7 @@ def _analysis_api(models):
 
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
     from vit_ocm_wmsegmentation_tpu_torch.models import vit
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
 
     rng = np.random.default_rng(0)
     x32 = torch.from_numpy(rng.random((1, EVAL_SIZE, EVAL_SIZE, 3), dtype=np.float32)).cuda()
@@ -2176,7 +2155,8 @@ def phase_eval(models):
     from vit_ocm_wmsegmentation_tpu_torch import pipeline as pl
     from vit_ocm_wmsegmentation_tpu_torch.data.datasets import build_eval_samples
     from vit_ocm_wmsegmentation_tpu_torch.models import vit
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     _analysis_api(models)
     validate = ev.validate
@@ -2376,7 +2356,7 @@ def _write_sup_sets(root):
     and PGT (200/2/2) holds images."""
     from PIL import Image
 
-    from vit_ocm_wmsegmentation_tpu_torch.profile_eval import eval_pieces
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import eval_pieces
 
     pieces, labels = eval_pieces(SUP_N, UNET_SIZE, seed=2)
     for sub, arrays in (("images", pieces), ("labels", labels)):
@@ -2440,7 +2420,7 @@ def _check_metrics(module, out, n_results, results_dir):
 
 def _finetune_grad_check(model0, x, y):
     """The finetune step's first loss and gradients on the kernel route
-    against the plain route and a float64 plain route (profile_grad64's
+    against the plain route and a float64 plain route (ops.twins'
     float64_twins: the twins sum in float64), each gradient tensor at its
     own scale, its largest float64 gradient (FT_BN_CANCELLED at the largest
     of all). The whole step's f32 gradients carry, on either route, the
@@ -2458,8 +2438,7 @@ def _finetune_grad_check(model0, x, y):
     from vit_ocm_wmsegmentation_tpu_torch import nn as tnn
     from vit_ocm_wmsegmentation_tpu_torch.models import probing
     from vit_ocm_wmsegmentation_tpu_torch.ops.metrics import dice_loss
-    from vit_ocm_wmsegmentation_tpu_torch.profile_grad64 import float64_twins
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import float64_twins, plain_training_route
 
     names = [n for n, _ in model0.named_parameters()]
     n_enc = len(list(model0.encoder.parameters()))
@@ -2547,11 +2526,12 @@ def phase_supervised():
     one finetune training step."""
     import torch
 
+    from vit_ocm_wmsegmentation_tpu_torch.data.synthetic import seg_batch
     from vit_ocm_wmsegmentation_tpu_torch.models import probing, unet, vit
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_route
     from vit_ocm_wmsegmentation_tpu_torch.pipeline import exact_matmuls
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mosaic import dice, plain_route
-    from vit_ocm_wmsegmentation_tpu_torch.profile_supervised import seg_batch
     from vit_ocm_wmsegmentation_tpu_torch.train import supervised as sup
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     x, y = seg_batch(FT_BATCH, FT_SIZE, 1, "cuda")
     cfg = probing.finetune_vit_config(FT_SIZE, 8)
@@ -2652,6 +2632,7 @@ def phase_allen_dino():
     from vit_ocm_wmsegmentation_tpu_torch.pipeline import exact_matmuls
     from vit_ocm_wmsegmentation_tpu_torch.train import classifier as cls
     from vit_ocm_wmsegmentation_tpu_torch.train import dino
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import cuda_ms
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.random((SWIN_BATCH, SWIN_SIZE, SWIN_SIZE, 3), dtype=np.float32)).cuda()
@@ -2734,10 +2715,10 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from vit_ocm_wmsegmentation_tpu_torch import build, pipeline
+    from vit_ocm_wmsegmentation_tpu_torch.utils.profiling import card_line
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    print(smi[0])
+    card = card_line()
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -2831,7 +2812,7 @@ def main():
         if not probe_launches.get(name):
             raise AssertionError(f"{name} was not launched on its path (phases 8-9)")
         rows.append({**r, "launches": probe_launches[name]})
-    print(smi[0])
+    print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

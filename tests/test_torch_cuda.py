@@ -986,7 +986,7 @@ def test_finetune_step_kernel_route_matches_plain_route(cuda, layer_num):
     training kernels once a block, the eval forward the inference route's."""
     from vit_ocm_wmsegmentation_tpu_torch.models import probing
     from vit_ocm_wmsegmentation_tpu_torch.ops.metrics import dice_loss
-    from vit_ocm_wmsegmentation_tpu_torch.profile_mim import plain_training_route
+    from vit_ocm_wmsegmentation_tpu_torch.ops.twins import plain_training_route
     from vit_ocm_wmsegmentation_tpu_torch.train import supervised as sup
 
     cfg = vit.ViTConfig(depth=2, pretrain_img_size=64)

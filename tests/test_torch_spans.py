@@ -15,7 +15,6 @@ from PIL import Image
 
 from vit_ocm_wmsegmentation_tpu_torch import mim
 from vit_ocm_wmsegmentation_tpu_torch import pipeline as tpl
-from vit_ocm_wmsegmentation_tpu_torch import profile_mosaic as pm
 from vit_ocm_wmsegmentation_tpu_torch import sw_processing as tsw
 from vit_ocm_wmsegmentation_tpu_torch.data.datasets import DeviceAugLoader
 from vit_ocm_wmsegmentation_tpu_torch.models import simmim
@@ -282,9 +281,10 @@ def test_mim_trace_dir_traces_steps_two_to_five(tmp_path):
 
 
 def test_profile_mosaic_reads_device_time_by_span_and_the_union_of_busy_time():
-    """profile_mosaic's reading of its own capture: each device operation
-    goes to the innermost span its launch ran in, and busy time is the union
-    of the operations' intervals, so two streams that overlap count once."""
+    """utils.profiling's reading of a profiler's capture: each device
+    operation goes to the innermost span its launch ran in, and busy time is
+    the union of the operations' intervals, so two streams that overlap
+    count once."""
     trace = {"traceEvents": [
         _x("user_annotation", "pipeline.segment_mosaic", 0, 100),
         _x("user_annotation", "pipeline.tile_maps", 10, 50),
@@ -299,10 +299,11 @@ def test_profile_mosaic_reads_device_time_by_span_and_the_union_of_busy_time():
         _x("kernel", "histogram", 80, 10, tid=7, correlation=3),
         _x("gpu_memcpy", "Memcpy DtoH", 85, 10, tid=8, correlation=4),
     ]}
-    ops = pm.device_ops(trace)
+    ops = profiling.device_ops(trace)
     assert [(name, span) for name, _, _, span in ops] == [
         ("attention", "vit.cls_attention_grid"), ("resize", "pipeline.tile_maps"),
         ("histogram", "pipeline.threshold"), ("Memcpy DtoH", "pipeline.threshold")]
-    assert pm.span_device_ms(ops) == {"vit.cls_attention_grid": 0.040, "pipeline.tile_maps": 0.010,
-                                      "pipeline.threshold": 0.015}
-    assert pm.union_ms((s, e) for _, s, e, _ in ops) == pytest.approx(0.065)  # not 0.070
+    assert profiling.span_device_ms(ops) == {"vit.cls_attention_grid": 0.040,
+                                             "pipeline.tile_maps": 0.010,
+                                             "pipeline.threshold": 0.015}
+    assert profiling.union_ms((s, e) for _, s, e, _ in ops) == pytest.approx(0.065)  # not 0.070

@@ -58,7 +58,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace vitocm {

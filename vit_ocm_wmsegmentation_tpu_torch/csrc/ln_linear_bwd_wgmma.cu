@@ -56,7 +56,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace vitocm {

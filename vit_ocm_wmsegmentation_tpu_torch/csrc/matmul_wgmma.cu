@@ -58,7 +58,6 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace vitocm {

@@ -84,7 +84,6 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace vitocm {

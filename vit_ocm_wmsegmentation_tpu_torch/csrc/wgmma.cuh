@@ -225,6 +225,23 @@ inline bool make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const u
                    swizzle);
 }
 
+// --- register operands --------------------------------------------------------
+// two floats rounded to bf16 and packed, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ldmatrix.x4.trans: four 8x8 bf16 tiles from shared memory, lane i giving
+// the address of row i % 8 of tile i / 8 (16-byte aligned rows); register j
+// of a lane holds tile j's (rows 2t..2t+1, col g), g = lane / 4, t = lane % 4
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // --- products (register lists spelled out) ------------------------------------
 // D (64 x 64, f32, registers) += A (64 x 16) . B (16 x 64), both from shared
 // memory through descriptors, A K-major; TRANS_B = 1 reads B MN-major (N

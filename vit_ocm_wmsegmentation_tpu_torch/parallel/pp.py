@@ -57,44 +57,6 @@ def stage_bounds(depth: int, stages: int, s: int):
     return s * per, (s + 1) * per
 
 
-def pp_params(params: dict, stages: int) -> dict:
-    """Named tensors in the plain layout -> the stage layout: block i's
-    tensor ``...blocks.{i}.rest`` becomes ``...stages.{s}.{j}.rest`` with
-    s, j = divmod(i, depth / stages); other names pass through. Raises
-    ValueError unless stages divide the depth."""
-    idx = [b[1] for n in params if (b := _block_index(n))]
-    depth = max(idx) + 1 if idx else 0
-    lo_hi = [stage_bounds(depth, stages, s) for s in range(stages)]
-    per = lo_hi[0][1] - lo_hi[0][0] if stages else 0
-    out = {}
-    for n, t in params.items():
-        b = _block_index(n)
-        if b is None:
-            out[n] = t
-            continue
-        parts = n.split(".")
-        s, j = divmod(b[1], per)
-        out[".".join(parts[:b[0]] + ["stages", str(s), str(j)] + parts[b[0] + 2:])] = t
-    return out
-
-
-def unpp_params(params_pp: dict) -> dict:
-    """Inverse of :func:`pp_params` (checkpoints keep the plain layout)."""
-    js = [int(p[p.index("stages") + 2]) for n in params_pp
-          if "stages" in (p := n.split("."))]
-    per = max(js) + 1 if js else 1
-    out = {}
-    for n, t in params_pp.items():
-        parts = n.split(".")
-        if "stages" not in parts:
-            out[n] = t
-            continue
-        i = parts.index("stages")
-        block = int(parts[i + 1]) * per + int(parts[i + 2])
-        out[".".join(parts[:i] + ["blocks", str(block)] + parts[i + 3:])] = t
-    return out
-
-
 def pp_layout(mesh: Mesh, model: simmim.SimMIM) -> ParamLayout:
     """This rank's layout: its stage's blocks, and every other tensor held
     whole, the embedding's gradient owned by stage 0 and the rest's by the

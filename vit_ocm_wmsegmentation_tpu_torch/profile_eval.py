@@ -3,9 +3,9 @@
     python -m vit_ocm_wmsegmentation_tpu_torch.profile_eval [--batch 8] [--method ours]
 
 The workload is chip_smoke.py's phase 10: ViT-S/8 at full width with random
-weights from seed 0, on 384^2 pieces of the synthetic OCM mosaic of
-profile_gigapixel.make_mosaic (:func:`eval_pieces`, labels from the rule
-that placed its bright blobs). Prints the card's name and power limit, then
+weights from seed 0, on 384^2 pieces of the synthetic OCM mosaic
+(``data.synthetic.eval_pieces``, labels from the rule that placed its
+bright blobs). Prints the card's name and power limit, then
 for bf16 and f32: the device time of each kernel in one torch.profiler run
 of ``evaluation._batched_eval_step`` (ViT, smoothing, the method, the
 metrics), that run's wall time and idle share, and a stage split timed with
@@ -16,38 +16,20 @@ from __future__ import annotations
 
 import argparse
 import copy
-import subprocess
 import time
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import evaluation as ev
 from . import pipeline as pl
+from .data.synthetic import eval_pieces
 from .models import vit
-from .profile_gigapixel import make_mosaic
-from .profile_mosaic import kernel_table
 from .sw_processing import load_model
+from .utils.profiling import card_line, kernel_table
 
 SIZE = 384
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def eval_pieces(n: int, size: int = SIZE, seed: int = 0):
-    """n (size, size) uint8 pieces of make_mosaic(8192), each across a
-    corner of its 2048-pixel grid of bright blobs, and their uint8 {0, 255}
-    labels from the rule that placed the blobs (a bright cell is
-    foreground). Returns (pieces (n, size, size), labels (n, size, size))."""
-    big = make_mosaic(8192)
-    rng = np.random.default_rng(seed)
-    pieces, labels = [], []
-    for _ in range(n):
-        y0, x0 = 2048 * rng.integers(1, 4, 2) - rng.integers(84, 300, 2)
-        yy, xx = np.mgrid[y0 : y0 + size, x0 : x0 + size]
-        labels.append(((yy // 2048 + xx // 2048) % 3 == 0).astype(np.uint8) * 255)
-        pieces.append(big[y0 : y0 + size, x0 : x0 + size])
-    return np.stack(pieces), np.stack(labels)
 
 
 def stage_split(model, grays, targets, method, dtype):
@@ -96,8 +78,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device available")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(card_line())
     dev = torch.device("cuda")
     pieces, labels = eval_pieces(args.batch)
     grays = torch.from_numpy(pieces).to(dev)

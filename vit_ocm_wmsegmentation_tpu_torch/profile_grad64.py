@@ -30,28 +30,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
-import subprocess
 from unittest import mock
 
-import numpy as np
 import torch
 
-from .data.mask_generator import MaskGenerator
+from .data.synthetic import MIM_SIZE, mim_batch
 from .models import simmim
+from .ops.twins import TRAIN_ROUTES, float64_twins, plain_training_route
 from .pipeline import exact_matmuls
-from .profile_mim import BATCH, ROUTES, SIZE, plain_training_route
-
-
-@contextlib.contextmanager
-def float64_twins():
-    """``Tensor.float()`` returns a float64 tensor unchanged."""
-    to_f32 = torch.Tensor.float
-
-    def keep64(self, *args, **kwargs):
-        return self if self.dtype == torch.float64 else to_f32(self, *args, **kwargs)
-
-    with mock.patch.object(torch.Tensor, "float", keep64):
-        yield
+from .utils.profiling import card_line
 
 
 @contextlib.contextmanager
@@ -61,10 +48,11 @@ def l1_signs(sign):
     signs everywhere."""
     masked_l1 = simmim.masked_l1
 
-    def signed_l1(x, x_rec, mask, p):
+    def signed_l1(x, x_rec, mask, p, pix_count=None):
         _, pix_mask = masked_l1(x, x_rec, mask, p)
         l1 = (x - x_rec) * sign.to(x.dtype)
-        return (l1 * pix_mask).float().sum() / (pix_mask.float().sum() + 1e-5) / 3.0, pix_mask
+        count = pix_mask.float().sum() if pix_count is None else pix_count
+        return (l1 * pix_mask).float().sum() / (count + 1e-5) / 3.0, pix_mask
 
     with mock.patch.object(simmim, "masked_l1", signed_l1):
         yield
@@ -86,24 +74,20 @@ def _rel(a, b):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--route", nargs="+", choices=sorted(ROUTES),
+    parser.add_argument("--route", nargs="+", choices=sorted(TRAIN_ROUTES),
                         default=["default", "ln_qkv", "save_p"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_grad64: no CUDA device available")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(card_line())
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)).to(dev)
-    masks = MaskGenerator(SIZE, 16, 8, 0.5)
-    mask = torch.from_numpy(np.stack([masks(rng) for _ in range(BATCH)])).to(dev)
-    model = simmim.init(simmim.mim_vit_config(SIZE, 8), torch.Generator().manual_seed(0), dev)
+    x, mask = mim_batch(dev)
+    model = simmim.init(simmim.mim_vit_config(MIM_SIZE, 8), torch.Generator().manual_seed(0), dev)
     model64 = copy.deepcopy(model).double()
     names = [name for name, _ in model.named_parameters()]
     with exact_matmuls():
         for route in args.route:
-            routes = ROUTES[route]
+            routes = TRAIN_ROUTES[route]
             with plain_training_route(), float64_twins():
                 ref, resid64 = step_grads(model64, x.double(), mask, routes)
             if any(g.dtype != torch.float64 for g in ref):

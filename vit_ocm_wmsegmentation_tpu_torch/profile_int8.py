@@ -16,52 +16,21 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 
 import torch
 
 from .ops import quant as qz
+from .utils.profiling import card_line, cuda_ms, queued_ms
 
 ROWS = 49 * 2305
 PROJ_SHAPES = ((384, 1152), (384, 384), (384, 1536), (1536, 384))  # (K, N)
-
-
-def single_ms(fn, iters):
-    """Median device time of one fn() call in ms, CUDA events around each."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def queued_ms(fn, iters):
-    """Device time of one fn() call in ms with iters calls queued back to back."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args(argv)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.splitlines()[0])
+    print(card_line())
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     xs = {k: torch.randn(ROWS, k, generator=gen, device=dev).to(torch.bfloat16)
@@ -73,8 +42,8 @@ def main(argv=None):
         cases.append((f"int8_dot[{k}->{n}]",
                       lambda x=xs[k], wq=wq, b=bias: qz.int8_dot(x, wq, b, torch.bfloat16)))
     for name, fn in cases:
-        print(json.dumps({"name": name, "ms": single_ms(fn, args.iters),
-                          "queued_ms": queued_ms(fn, args.iters)}))
+        print(json.dumps({"name": name, "ms": cuda_ms(fn, iters=args.iters, warmup=2),
+                          "queued_ms": queued_ms(fn, n=args.iters)}))
     return 0
 
 

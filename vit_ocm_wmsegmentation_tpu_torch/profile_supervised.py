@@ -18,44 +18,20 @@ off.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .data.synthetic import seg_batch
 from .models import probing, swin, unet
 from .pipeline import exact_matmuls
-from .profile_eval import eval_pieces
-from .profile_mosaic import kernel_table
 from .train import classifier as cls
 from .train import supervised as sup
+from .utils.profiling import card_line, cuda_ms, kernel_table
 
 FLOWS = ("finetune", "unet", "pgt", "swin")
-
-
-def seg_batch(n, size, seed, dev):
-    """n seeded size^2 pieces of the synthetic OCM mosaic as the loader
-    gives them, x (n, size, size, 3) f32 in [0, 1], and their labels y
-    (n, size, size, 1), on ``dev``."""
-    pieces, labels = eval_pieces(n, size, seed)
-    x = torch.from_numpy(np.repeat(pieces[..., None], 3, -1)).to(dev).float() / 255.0
-    return x, torch.from_numpy(labels[..., None]).to(dev).float() / 255.0
-
-
-def _ms(fn, iters=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def _profile(what, fn, host_top=8):
@@ -75,7 +51,7 @@ def _profile(what, fn, host_top=8):
     for ms, count, key in rows[:host_top]:
         print(f"    {ms:9.3f} ms x{count:5d}  {key[:90]}")
     torch.cuda.reset_peak_memory_stats()
-    ms = _ms(fn)
+    ms = cuda_ms(fn, iters=5, warmup=1)
     print(f"  without the profiler (CUDA events, median of 5): {ms:.3f} ms, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
@@ -86,8 +62,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_supervised: no CUDA device available")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(card_line())
     dev = torch.device("cuda")
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     with exact_matmuls():

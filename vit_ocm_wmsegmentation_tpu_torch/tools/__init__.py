@@ -9,9 +9,9 @@ caller chooses and prints no time."""
 
 from __future__ import annotations
 
-import statistics
-
 import torch
+
+from ..utils import profiling
 
 
 def add_common_args(parser):
@@ -34,18 +34,7 @@ def cuda_ms(fn, device, iters=10, warmup=2):
     if device.type != "cuda":
         fn()
         return None
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return profiling.cuda_ms(fn, iters=iters, warmup=warmup)
 
 
 def max_abs_err(got, want) -> float:
