@@ -1042,3 +1042,178 @@ def test_teacher_pseudo_labels_kernel_route_matches_plain_route(cuda, monkeypatc
     assert set(torch.unique(masks).tolist()) <= {0.0, 1.0}
     a, b = masks.cpu().numpy() > 0, plain.cpu().numpy() > 0
     assert 2 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1) >= 0.99
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_step_returns_each_calls_own_outputs_and_updates_once_on_the_card(cuda, k):
+    """The CPU test's check (port_helpers) on the card: with k = 1 the step
+    is a CUDA graph, captured once on call 2 and replayed on calls 2-5, and
+    every call still returns fresh tensors and applies one update at its own
+    rate, and a batch of another shape after the capture raises; with k = 2
+    (accumulation) every call runs eagerly."""
+    from port_helpers import check_step_outputs_and_updates
+
+    from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import GraphedStep
+
+    step = check_step_outputs_and_updates(cuda, k)
+    assert isinstance(step, GraphedStep) == (k == 1)
+    if k == 1:
+        assert (step.captures, step.replays) == (1, 4)
+        # a batch of another size after the capture is refused, not run
+        x, mask = torch.rand(1, 32, 32, 3, device=cuda), torch.ones(1, 4, 4, dtype=torch.int32,
+                                                                     device=cuda)
+        with pytest.raises(ValueError, match="captured"):
+            step(x, mask)
+        assert (step.captures, step.replays, step.optimizer.updates) == (1, 4, 5)
+
+
+def _mim_route_cases():
+    from vit_ocm_wmsegmentation_tpu_torch.train import mim_trainer as mt
+
+    return [(key, c) for key, choices in (("MLP_REMAT", mt.MLP_REMAT_CHOICES),
+                                          ("LN_QKV", mt.LN_QKV_CHOICES),
+                                          ("ATTN_SAVE_P", mt.ATTN_SAVE_P_CHOICES))
+            for c in choices]
+
+
+def _mim_cell_step(cuda, amp, routes, graphed, remat=False):
+    """The benchmark cell's model (simmim.mim_vit_config(384): width 384,
+    depth 4, 3 heads of 128) from seed 0, its optimizer at the MIM config's
+    defaults on a schedule that changes every update, and either
+    make_train_step's step or the step's uncaptured body (the eager step's
+    own: the update's host part, then its device part); ``remat`` is
+    TRAIN.USE_CHECKPOINT."""
+    from vit_ocm_wmsegmentation_tpu_torch.models import simmim
+    from vit_ocm_wmsegmentation_tpu_torch.train import mim_trainer as mt
+    from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
+    from vit_ocm_wmsegmentation_tpu_torch.utils.config import default_config
+
+    model = simmim.init(simmim.mim_vit_config(384, 8), torch.Generator().manual_seed(0), cuda)
+    opt = Optimizer(default_config(), model, lambda t: 1e-4 * (t + 1))
+    if graphed:
+        step = mt.make_train_step(model, opt, amp=amp, remat=remat, routes=routes)
+    else:
+        step = mt._step_body(model, opt, opt.step, amp=amp, remat=remat, routes=routes)
+    return model, opt, step
+
+
+def _mim_batches(cuda, n, b=4):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    return [(torch.rand(b, 384, 384, 3, generator=gen, device=cuda),
+             (torch.rand(b, 48, 48, generator=gen, device=cuda) > 0.5).to(torch.int32))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["noremat", "remat"])
+@pytest.mark.parametrize("amp", [False, True], ids=["f32", "amp"])
+@pytest.mark.parametrize("key,choice", _mim_route_cases())
+def test_graphed_mim_step_is_bit_equal_to_its_eager_body(cuda, amp, key, choice, remat):
+    """Five steps of the one-device MIM step (batch 4 of 384^2), captured on
+    call 2 and replayed, against five calls of its uncaptured body with the
+    same capturable optimizer: loss, grad norm, every parameter and AdamW's
+    first moment bit-equal, for each choice of TRAIN.MLP_REMAT, LN_QKV and
+    ATTN_SAVE_P that the CLI offers (the others at auto), with and without
+    TRAIN.USE_CHECKPOINT (whose recompute runs inside the capture), so that
+    every kernel route is shown to capture; one capture, four replays."""
+    from vit_ocm_wmsegmentation_tpu_torch.train import mim_trainer as mt
+    from vit_ocm_wmsegmentation_tpu_torch.utils.config import default_config
+
+    cfg = default_config()
+    cfg.TRAIN[key] = choice
+    routes = mt.train_routes(cfg)
+    gmodel, gopt, graphed = _mim_cell_step(cuda, amp, routes, graphed=True, remat=remat)
+    emodel, eopt, body = _mim_cell_step(cuda, amp, routes, graphed=False, remat=remat)
+    assert isinstance(graphed, mt.GraphedStep)
+    for n, (x, mask) in enumerate(_mim_batches(cuda, 5)):
+        got, want = graphed(x, mask), body(x, mask)
+        for g, w, what in zip(got, want, ("loss", "grad norm")):
+            assert torch.equal(g, w), (n, what, float(g), float(w))
+    assert (graphed.captures, graphed.replays) == (1, 4)
+    assert gopt.updates == eopt.updates == 5
+    for (name, p), q in zip(gmodel.named_parameters(), emodel.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(gopt.opt.state[p]["exp_avg"], eopt.opt.state[q]["exp_avg"]), name
+
+
+def _span_tree(events, prefix="mim.", parent=None):
+    """[(name, children)] of the profiler's host spans named ``prefix``*,
+    each under its nearest such ancestor (the device's copies of the spans,
+    on the kernels' clock, left out)."""
+    from torch.autograd import DeviceType
+
+    def nearest(e):
+        p = e.cpu_parent
+        while p is not None and not (p.is_user_annotation and p.name.startswith(prefix)):
+            p = p.cpu_parent
+        return p
+
+    mine = sorted((e for e in events if e.is_user_annotation and e.name.startswith(prefix)
+                   and e.device_type == DeviceType.CPU and nearest(e) is parent),
+                  key=lambda e: e.time_range.start)
+    return [(e.name, _span_tree(events, prefix, e)) for e in mine]
+
+
+def test_graphed_mim_step_trace_names_the_kernels_under_its_spans(cuda, tmp_path):
+    """The AMP step (batch 4 of 384^2) under utils.profiling.trace: the
+    capturing call (call 2) keeps forward, backward and optimizer under
+    ``mim.capture``; a replayed call is ``mim.step`` over ``mim.inputs`` and
+    ``mim.replay``, and its trace (profiling.device_ops) lists by name the
+    bf16 attention kernels, forward and backward, and the MLP kernels that
+    the benchmark's rooflines read, launched under ``mim.replay``."""
+    import json
+    import re
+
+    from vit_ocm_wmsegmentation_tpu_torch.models.vit import TrainRoutes
+    from vit_ocm_wmsegmentation_tpu_torch.utils import profiling
+
+    _, _, step = _mim_cell_step(cuda, True, TrainRoutes(), graphed=True)
+    (x1, m1), (x2, m2), (x3, m3) = _mim_batches(cuda, 3)
+    step(x1, m1)
+    with profiling.trace(str(tmp_path / "capture")) as prof:
+        step(x2, m2)
+    leaves = [("mim.forward", []), ("mim.backward", []), ("mim.optimizer", [])]
+    assert _span_tree(prof.events()) == [
+        ("mim.step", [("mim.inputs", []), ("mim.capture", leaves), ("mim.replay", [])])]
+    with profiling.trace(str(tmp_path / "replay")) as prof:
+        step(x3, m3)
+    assert _span_tree(prof.events()) == [("mim.step", [("mim.inputs", []), ("mim.replay", [])])]
+    assert (step.captures, step.replays) == (1, 2)
+    with open(tmp_path / "replay" / "trace.json") as f:
+        ops = profiling.device_ops(json.load(f))
+    replayed = [name for name, _, _, span in ops if span == "mim.replay"]
+    for pattern in (r"attn_bwd_dkdv_wgmma_kernel", r"attn_bwd_dq_wgmma_kernel",
+                    r"attention_wgmma_kernel\W*128", r"fused_mlp_wgmma_kernel",
+                    r"mlp_bwd_dx_wgmma_kernel", r"mlp_bwd_w_wgmma_kernel"):
+        assert any(re.search(pattern, n) for n in replayed), (pattern, sorted(set(replayed))[:40])
+    assert {span for *_, span in ops} <= {"mim.inputs", "mim.replay"}
+
+
+def test_graphed_mim_step_resumes_a_state_written_without_capture(cuda):
+    """An optimizer state of a CPU run (AdamW not capturable, its step counts
+    on the host) loads into the card's optimizer: the groups become
+    capturable with the device rate, the counts move to the card, and the
+    graphed step then captures and replays, each call one update."""
+    from vit_ocm_wmsegmentation_tpu_torch.models import simmim
+    from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
+    from vit_ocm_wmsegmentation_tpu_torch.train.optim import Optimizer
+    from vit_ocm_wmsegmentation_tpu_torch.utils.config import default_config
+
+    cfg = vit.ViTConfig(patch_size=8, embed_dim=384, depth=1, num_heads=3, pretrain_img_size=32)
+    host = simmim.init(cfg, torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(3)
+    batches = [(torch.from_numpy(rng.random((2, 32, 32, 3), dtype=np.float32)),
+                torch.from_numpy((rng.random((2, 4, 4)) > 0.5).astype(np.int32)))
+               for _ in range(4)]
+    hopt = Optimizer(default_config(), host, lambda t: 1e-3)
+    make_train_step(host, hopt)(*batches[0])
+    model = copy.deepcopy(host).to(cuda)
+    opt = Optimizer(default_config(), model, lambda t: 1e-3)
+    opt.load_state_dict(hopt.state_dict())
+    assert all(g["capturable"] and torch.is_tensor(g["lr"]) and g["lr"].is_cuda
+               for g in opt.opt.param_groups)
+    step = make_train_step(model, opt)
+    for x, mask in batches[1:]:
+        step(x.to(cuda), mask.to(cuda))
+    assert (step.captures, step.replays, opt.updates) == (1, 2, 4)
+    steps = [st["step"] for st in opt.opt.state.values()]
+    assert all(s.device.type == "cuda" for s in steps) and {float(s) for s in steps} == {4.0}

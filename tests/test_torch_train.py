@@ -41,6 +41,7 @@ from vit_ocm_wmsegmentation_tpu_torch.train import optim, schedule
 from vit_ocm_wmsegmentation_tpu_torch.train.mim_trainer import make_train_step
 from vit_ocm_wmsegmentation_tpu_torch.utils.config import default_config
 
+from port_helpers import check_step_outputs_and_updates
 from port_helpers import one_torch_thread  # noqa: F401  (autouse)
 
 GEOM = dict(patch_size=8, embed_dim=64, depth=2, num_heads=2, pretrain_img_size=32)
@@ -147,6 +148,39 @@ def test_accumulation_matches_jax_multisteps():
         step(torch.from_numpy(x), torch.from_numpy(mask))
     assert opt.updates == 1
     _assert_params_match(model, jparams, 1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_step_returns_each_calls_own_outputs_and_updates_once(k):
+    """Five calls of the step with ACCUMULATION_STEPS k: fresh loss and
+    grad-norm tensors a call, each keeping its own step's values, and one
+    update at the schedule's rate every k calls (port_helpers; the card
+    tests run the same check on CUDA, where k = 1 replays a CUDA graph)."""
+    check_step_outputs_and_updates(torch.device("cpu"), k)
+
+
+def test_optimizer_loads_a_capturable_state_on_the_cpu():
+    """An optimizer state as a CUDA run writes it (AdamW's groups capturable,
+    the rate a tensor) loads into the CPU's optimizer: its groups stay
+    non-capturable, the next update runs at the schedule's float rate, and
+    the step count carries on."""
+    tc = _cfgs()[1]
+    x, mask = (torch.from_numpy(a) for a in _batch(2))
+    model = simmim.init(ViTConfig(**GEOM), torch.Generator().manual_seed(5))
+    opt = optim.Optimizer(tc, model, lambda t: 1e-3)
+    make_train_step(model, opt)(x, mask)
+    state = opt.state_dict()
+    for g in state["opt"]["param_groups"]:
+        g["capturable"], g["lr"] = True, torch.tensor(0.5)
+    for st in state["opt"]["state"].values():
+        st["step"] = st["step"].float()
+    opt2 = optim.Optimizer(tc, model, lambda t: 1e-3)
+    opt2.load_state_dict(state)
+    assert [g["capturable"] for g in opt2.opt.param_groups] == [False, False]
+    make_train_step(model, opt2)(x, mask)
+    assert opt2.updates == 2
+    assert [g["lr"] for g in opt2.opt.param_groups] == [1e-3, 1e-3]
+    assert {float(st["step"]) for st in opt2.opt.state.values()} == {2.0}
 
 
 def test_decay_groups_follow_the_reference_per_tensor():
@@ -268,6 +302,26 @@ def test_remat_keeps_gradients():
         loss, _, _ = model(x, mask, remat)
         out.append((loss.detach(), torch.autograd.grad(loss, list(model.parameters()))))
     assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_remat_keeps_the_amp_step():
+    """TRAIN.USE_CHECKPOINT under AMP: the recompute in the backward reads the
+    bf16 parameters the forward read, not the f32 ones the step's
+    functional_call has put back by then (which raised a dtype mismatch), so
+    two steps give the same losses, grad norms and parameters, bit for
+    bit, as the step without it."""
+    tc = _cfgs()[1]
+    out = []
+    for remat in (False, True):
+        _, _, model = _models()
+        step = make_train_step(model, optim.Optimizer(tc, model, lambda t: 1e-3), amp=True,
+                               remat=remat)
+        read = [tuple(float(t) for t in step(*(torch.from_numpy(a) for a in _batch(2, seed=s))))
+                for s in (0, 1)]
+        out.append((read, [p.detach().clone() for p in model.parameters()]))
+    assert out[0][0] == out[1][0]
     for a, b in zip(out[0][1], out[1][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 

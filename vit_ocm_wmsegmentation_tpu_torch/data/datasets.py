@@ -190,7 +190,8 @@ class DeviceAugLoader:
     A set larger than ``max_resident_bytes`` stays on the host and each
     batch's uint8 sources are sent to the device. Yields (images (B, S, S,
     3) float32, masks (B, g, g) int32) on the device; the order is a numpy
-    permutation per (seed, epoch), the augmentation draws from a
+    permutation per (seed, epoch), sent to resident sources once an epoch
+    without a host sync, the augmentation draws from a
     ``torch.Generator`` on the device seeded per (seed, epoch, batch), so
     an epoch is deterministic. Under a profiler the epoch's set-up and each
     batch run inside a ``data.device_aug`` span (utils.profiling), closed
@@ -252,13 +253,16 @@ class DeviceAugLoader:
         with annotate("data.device_aug"):
             self._ensure_sources()
             n = self._n
-            order = np.random.default_rng((self.seed, epoch)).permutation(n)
+            order = torch.from_numpy(np.random.default_rng((self.seed, epoch)).permutation(n))
+            if self._src is not None and self._src.is_cuda:
+                # from pinned memory without a wait: the upload queues behind
+                # the steps still running instead of draining them
+                order = order.pin_memory().to(self._src.device, non_blocking=True)
             stop = n - n % self.batch_size if self.drop_last else n
             gen = torch.Generator(device=self.device)
         for batch_idx, s0 in enumerate(range(0, stop, self.batch_size)):
             with annotate("data.device_aug"):
-                idx = torch.from_numpy(order[s0 : s0 + self.batch_size])
-                batch = self._src[idx.to(self._src.device)].to(self.device)
+                batch = self._src[order[s0 : s0 + self.batch_size]].to(self.device)
                 gen.manual_seed(int(np.random.SeedSequence((self.seed, epoch, batch_idx))
                                     .generate_state(1, np.uint64)[0] >> 1))
                 out = simmim_augment(batch, gen, out_size=self.img_size,

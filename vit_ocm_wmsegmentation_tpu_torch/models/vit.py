@@ -770,6 +770,34 @@ def block_forward_tp(blk, cfg: ViTConfig, x, tp):
     return x + (tp.exit(y) + m.fc2.bias.to(x.dtype))
 
 
+class _BlockCall(nn.Module):
+    """``fwd(blk, cfg, tok, arg)`` as a module's forward, so that
+    ``torch.func.functional_call`` can bind the block's parameters."""
+
+    def __init__(self, fwd, blk, cfg: ViTConfig, arg):
+        super().__init__()
+        self.fwd, self.blk, self.cfg, self.arg = fwd, blk, cfg, arg
+
+    def forward(self, tok):
+        return self.fwd(self.blk, self.cfg, tok, self.arg)
+
+
+def _block_remat(fwd, blk, cfg: ViTConfig, tok, arg):
+    """One block under torch.utils.checkpoint, its parameters passed in as
+    the forward reads them: the recompute runs in the backward, after a
+    caller's functional_call (AMP's bf16 copies) has put the block's own
+    back. The blocks draw no random numbers, so no RNG state is kept for the
+    recompute, which also keeps RNG-state reads out of a CUDA graph capture."""
+    call = _BlockCall(fwd, blk, cfg, arg)
+    names, params = zip(*(("blk." + n, p) for n, p in blk.named_parameters()))
+
+    def run(tok, *params):
+        return torch.func.functional_call(call, dict(zip(names, params)), (tok,))
+
+    return torch.utils.checkpoint.checkpoint(run, tok, *params, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes = TrainRoutes(),
                      lo: int = 0, hi: int | None = None):
     """Blocks [lo, hi) (all by default) on the training route, the stream
@@ -783,8 +811,7 @@ def run_blocks_train(model: ViT, tok, remat: bool = False, routes: TrainRoutes =
         fwd, arg = block_forward_train, routes
     for blk in model.blocks[lo:hi]:
         if remat:
-            tok = torch.utils.checkpoint.checkpoint(fwd, blk, model.cfg, tok, arg,
-                                                    use_reentrant=False)
+            tok = _block_remat(fwd, blk, model.cfg, tok, arg)
         else:
             tok = fwd(blk, model.cfg, tok, arg)
     return tok

@@ -6,7 +6,9 @@ Counterpart of ``vit_ocm_wmsegmentation_tpu/train/mim_trainer.py``:
 * :func:`make_train_step` builds one step: forward and backward of the
   masked-L1 loss on the training kernels, the global norm of the gradients,
   then clip and AdamW (train/optim.py). It returns (loss, grad norm before
-  clipping) as the JAX step reports them;
+  clipping) as the JAX step reports them. On one CUDA device the step is
+  captured once as a CUDA graph and replayed (:class:`GraphedStep`), so
+  that the host's launches no longer set the step's pace;
 * :func:`train_routes` reads the opt-in kernel routes TRAIN.MLP_REMAT
   ("kernel+gp"), TRAIN.LN_QKV ("kernel") and TRAIN.ATTN_SAVE_P ("on"), and
   the MLP remat routes TRAIN.MLP_REMAT "none", "gelu" and "gelu+ln" (the
@@ -99,6 +101,78 @@ def sharded_step(model, optimizer, layout, loss_fn, *, amp: bool = False):
     return step
 
 
+def _step_body(model, optimizer, update, *, amp: bool, remat: bool, routes: TrainRoutes):
+    """body(x, mask) -> (loss, grad norm): the one-device step's work in its
+    ``mim.forward``, ``mim.backward`` and ``mim.optimizer`` spans, the
+    gradients handed to ``update`` (``optimizer.step``, or for a graph the
+    device part ``optimizer.apply``)."""
+
+    def body(x, mask):
+        with annotate("mim.forward"):
+            if amp:
+                live = amp_cast(dict(model.named_parameters()))
+                loss, _, _ = torch.func.functional_call(
+                    model, live, (x.to(torch.bfloat16), mask, remat, routes))
+            else:
+                loss, _, _ = model(x, mask, remat, routes)
+        with annotate("mim.backward"):
+            grads = torch.autograd.grad(loss, optimizer.params)
+            loss = loss.detach()
+        with annotate("mim.optimizer"):
+            gnorm = global_norm(grads)
+            update(grads)
+        return loss, gnorm
+
+    return body
+
+
+class GraphedStep:
+    """The one-device step on CUDA as one CUDA graph. Call 1 runs the eager
+    step (it warms the allocator, cuBLAS, autograd and the kernel library,
+    and makes AdamW's state). Call 2 copies x and mask into buffers of its
+    own, captures the step's device work (AMP cast, forward, backward,
+    global norm, clip and AdamW at the rate in the optimizer's device
+    tensor) on a side stream and replays it; every later call copies its
+    inputs in, sets its update's rate and replays. Each call applies one
+    update and returns fresh tensors (the graph's own outputs are rewritten
+    by the next replay). A call whose inputs differ in shape or dtype from
+    the captured ones raises ValueError. ``captures`` and ``replays``
+    count the graph's. The graph holds the parameters' and the optimizer
+    state's storage: neither may be replaced once it is captured."""
+
+    def __init__(self, eager, body, optimizer):
+        self.eager, self.body, self.optimizer = eager, body, optimizer
+        self.graph, self.captures, self.replays = None, 0, 0
+        self._called = False
+
+    def __call__(self, x, mask):
+        if not self._called:
+            self._called = True
+            return self.eager(x, mask)
+        if self.graph is not None and (x.shape, x.dtype, mask.shape, mask.dtype) != self._inputs:
+            raise ValueError(f"inputs {tuple(x.shape)} {x.dtype}, {tuple(mask.shape)} "
+                             f"{mask.dtype} differ from the captured step's {self._inputs}")
+        with annotate("mim.step"):
+            with annotate("mim.inputs"):
+                if self.graph is None:
+                    self._x, self._mask = torch.empty_like(x), torch.empty_like(mask)
+                    self._inputs = (x.shape, x.dtype, mask.shape, mask.dtype)
+                self._x.copy_(x)
+                self._mask.copy_(mask)
+                self.optimizer.next_update()
+            if self.graph is None:
+                with annotate("mim.capture"):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        self._out = self.body(self._x, self._mask)
+                self.graph = graph
+                self.captures += 1
+            with annotate("mim.replay"):
+                self.graph.replay()
+                self.replays += 1
+                return tuple(t.clone() for t in self._out)
+
+
 def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
                     routes: TrainRoutes = TrainRoutes(), layout=None):
     """step(x (B, H, W, 3), mask (B, gh, gw)) -> (loss, grad norm), both
@@ -108,10 +182,13 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
     ``layout`` (parallel.mesh.ParamLayout of a ('data', 'model') mesh; the
     model and optimizer hold the rank's pieces) x and mask are the rank's
     rows and the step is :func:`sharded_step`; a 'model' axis above 1 runs
-    the blocks tensor-parallel (models.vit.block_forward_tp). Under a
-    profiler the one-device step runs inside a ``mim.step`` span, its work
-    under ``mim.forward``, ``mim.backward`` and ``mim.optimizer``
-    (utils.profiling)."""
+    the blocks tensor-parallel (models.vit.block_forward_tp). One device
+    with a capturable optimizer (AdamW on CUDA) and no accumulation takes
+    :class:`GraphedStep`; else every call runs eagerly. Under a profiler an
+    eager call runs inside a ``mim.step`` span, its work under
+    ``mim.forward``, ``mim.backward`` and ``mim.optimizer``; a graphed call
+    under ``mim.inputs`` and ``mim.replay``, the capturing call's
+    ``mim.capture`` around the three (utils.profiling)."""
     if layout is not None:
         if layout.mesh.axis_size("model") > 1:
             routes = dataclasses.replace(routes, tp=par.TensorParallel(layout.mesh))
@@ -122,23 +199,15 @@ def make_train_step(model, optimizer, *, amp: bool = False, remat: bool = False,
 
         return sharded_step(model, optimizer, layout, loss_fn, amp=amp)
 
+    kw = dict(amp=amp, remat=remat, routes=routes)
+    body = _step_body(model, optimizer, optimizer.step, **kw)
+
     def step(x, mask):
         with annotate("mim.step"):
-            with annotate("mim.forward"):
-                if amp:
-                    live = amp_cast(dict(model.named_parameters()))
-                    loss, _, _ = torch.func.functional_call(
-                        model, live, (x.to(torch.bfloat16), mask, remat, routes))
-                else:
-                    loss, _, _ = model(x, mask, remat, routes)
-            with annotate("mim.backward"):
-                grads = torch.autograd.grad(loss, optimizer.params)
-                loss = loss.detach()
-            with annotate("mim.optimizer"):
-                gnorm = global_norm(grads)
-                optimizer.step(grads)
-            return loss, gnorm
+            return body(x, mask)
 
+    if optimizer.capturable and optimizer.k == 1:
+        return GraphedStep(step, _step_body(model, optimizer, optimizer.apply, **kw), optimizer)
     return step
 
 

@@ -12,7 +12,12 @@ clip of mim.py:176), as the JAX package's optax chain computes it.
 * the learning rate set from the schedule at update count t (from 0) before
   each step; with ACCUMULATION_STEPS k > 1 the mean of k micro-batch
   gradients is clipped and applied, the schedule read at t*k + k - 1, as
-  under ``optax.MultiSteps``.
+  under ``optax.MultiSteps``;
+* on CUDA, AdamW is capturable: its step count and the learning rate live in
+  device tensors, so that a CUDA graph of the update (train/mim_trainer.py)
+  reads each update's rate. The host part of an update
+  (:meth:`Optimizer.next_update`) fills the rate; the device part
+  (:meth:`Optimizer.apply`) clips and updates without a host sync.
 """
 
 from __future__ import annotations
@@ -64,15 +69,19 @@ class Optimizer:
         groups = [{"params": decay, "weight_decay": tr.WEIGHT_DECAY},
                   {"params": no_decay, "weight_decay": 0.0}]
         name = tr.OPTIMIZER.NAME.lower()
+        self.params = decay + no_decay
+        # AdamW on CUDA: the rate a 0-dim device tensor that next_update fills
+        self.capturable = name == "adamw" and self.params[0].is_cuda
+        self._lr = (torch.zeros((), device=self.params[0].device) if self.capturable else None)
         if name == "adamw":
-            self.opt = torch.optim.AdamW(groups, lr=0.0, betas=tuple(tr.OPTIMIZER.BETAS),
-                                         eps=tr.OPTIMIZER.EPS)
+            self.opt = torch.optim.AdamW(groups, lr=self._lr if self.capturable else 0.0,
+                                         betas=tuple(tr.OPTIMIZER.BETAS), eps=tr.OPTIMIZER.EPS,
+                                         capturable=self.capturable)
         elif name == "sgd":
             self.opt = torch.optim.SGD(groups, lr=0.0, momentum=tr.OPTIMIZER.MOMENTUM,
                                        nesterov=True)
         else:
             raise ValueError(f"unknown optimizer {name!r}")
-        self.params = decay + no_decay
         self.names = [name_of[id(p)] for p in self.params]
         self.norm = global_norm
         self.schedule = schedule
@@ -85,6 +94,31 @@ class Optimizer:
         """The learning rate of the next update."""
         t = self.updates
         return float(self.schedule(t * self.k + self.k - 1 if self.k > 1 else t))
+
+    def next_update(self):
+        """The host part of an update: the schedule's rate for it into the
+        groups (a fill of the device tensor on CUDA), the count advanced."""
+        lr = self.lr()
+        if self.capturable:
+            self._lr.fill_(lr)
+        else:
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+        self.updates += 1
+
+    def apply(self, grads):
+        """The device part of an update: clip ``grads`` by their global norm
+        and apply them at the rate :meth:`next_update` set."""
+        if self.clip:
+            # max_norm / norm where norm >= max_norm, else 1, without a
+            # device-to-host sync (a branch on the norm would stall the step)
+            grads = [g.float() for g in grads]
+            torch._foreach_mul_(grads, torch.clamp(self.clip / self.norm(grads), max=1.0))
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.opt.step()
+        for p in self.params:
+            p.grad = None
 
     def step(self, grads) -> bool:
         """Accumulate one micro-batch's gradients; every k-th call clip the
@@ -100,25 +134,25 @@ class Optimizer:
                 return False
             grads = [a / self.k for a in self._acc]
             self._acc, self._micro = None, 0
-        if self.clip:
-            # max_norm / norm where norm >= max_norm, else 1, without a
-            # device-to-host sync (a branch on the norm would stall the step)
-            grads = [g.float() for g in grads]
-            torch._foreach_mul_(grads, torch.clamp(self.clip / self.norm(grads), max=1.0))
-        lr = self.lr()
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.opt.step()
-        for p in self.params:
-            p.grad = None
-        self.updates += 1
+        self.next_update()
+        self.apply(grads)
         return True
 
     def state_dict(self):
         return {"opt": self.opt.state_dict(), "updates": self.updates}
 
     def load_state_dict(self, state):
+        """Load :meth:`state_dict`'s, written on any device: the groups keep
+        this optimizer's rate and capture mode, and a capturable one's step
+        counts move to its parameters' device."""
         self.opt.load_state_dict(state["opt"])
         self.updates = int(state["updates"])
+        for group in self.opt.param_groups:
+            if "capturable" in group:
+                group["capturable"] = self.capturable
+            if self.capturable:
+                group["lr"] = self._lr
+        if self.capturable:
+            for p, st in self.opt.state.items():
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)

@@ -21,7 +21,9 @@ The spans are named ``<module>.<stage>``: ``pipeline.segment_mosaic`` and
 ``pipeline.threshold`` (the streamed path's ``pipeline.band`` a tile row),
 ``vit.cls_attention_grid`` (and inside it, for the DINOv2 block kind,
 ``vit.tokens`` and one ``vit.ffn`` a block); ``mim.step`` around a training step, with
-``mim.forward``, ``mim.backward`` and ``mim.optimizer``; ``data.device_aug``
+``mim.forward``, ``mim.backward`` and ``mim.optimizer`` (a CUDA graph's replayed step:
+``mim.inputs`` and ``mim.replay``, its capturing step the three inside ``mim.capture``
+between them); ``data.device_aug``
 around each batch of the device-augmentation loader. A top span holds only
 host code of its own; every op that launches work runs under a leaf.
 """
